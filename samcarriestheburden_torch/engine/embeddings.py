@@ -1,0 +1,47 @@
+"""Batched SAM image embeddings (JAX ``engine/embeddings.py``).
+
+Images arrive resized-longest-side on the host and zero-padded into a fixed
+(B, 3, S, S) uint8 batch with their (B, 2) input sizes; normalisation and the
+padding mask run on the device, so the encoder always sees one shape
+(normalise-then-pad, reference sam.py:164-174).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Tuple
+
+import torch
+
+from samcarriestheburden_torch.models.image_encoder import KERNEL_OPS, EncoderOps
+from samcarriestheburden_torch.models.sam import SamModel
+
+Packed = List[Dict[str, torch.Tensor]]
+
+
+def make_encode_batch(model: SamModel, dtype=torch.bfloat16, *,
+                      ops: EncoderOps = KERNEL_OPS) -> Callable:
+    """``encode(packed, imgs, input_sizes)``: (B, 3, S, S) uint8 + (B, 2)
+    int sizes -> (B, 256, G, G) fp32 embeddings, on the model's device.
+    ``packed`` is ``model.image_encoder.pack(dtype)``."""
+    size = model.img_size
+
+    @torch.no_grad()
+    def encode(packed: Packed, imgs: torch.Tensor, input_sizes: torch.Tensor) -> torch.Tensor:
+        dev = model.device
+        imgs = imgs.to(dev)
+        input_sizes = input_sizes.to(dev)
+        ih = torch.arange(size, device=dev)
+        valid = ((ih[None, :, None] < input_sizes[:, 0, None, None])
+                 & (ih[None, None, :] < input_sizes[:, 1, None, None]))
+        x = (imgs.float() - model.pixel_mean) / model.pixel_std
+        x = x * valid[:, None]
+        return model.image_encoder(x, dtype=dtype, packed=packed, ops=ops)
+
+    return encode
+
+
+def make_serving_encoder(model: SamModel, dtype=torch.bfloat16) -> Tuple[Callable, Packed]:
+    """(encode_fn, ready-to-serve weights) for the batched encoder: the
+    weights are packed once into the kernels' layout and types, outside the
+    serving loop, and every call reuses them."""
+    return make_encode_batch(model, dtype), model.image_encoder.pack(dtype)

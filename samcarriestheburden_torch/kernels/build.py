@@ -1,0 +1,84 @@
+"""Build the CUDA sources under ``csrc/`` at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
+``nvcc`` into ``_build/lib<name>-<digest>.so`` inside the package (listed in
+``.gitignore``).  The digest covers the source and the flags, so an edited
+source is rebuilt and a stale library is never loaded.  :func:`build` starts
+one ``nvcc`` per source, all together, so the build takes as long as the
+slowest source (seconds: no PyTorch headers are included).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+SOURCES = ("mlp", "attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda``, else PATH."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                           "the CUDA toolkit is installed")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    common = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + common + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str] = SOURCES, *, verbose: bool = False) -> Dict[str, str]:
+    """Compile every source in ``names`` that has no current library, all
+    ``nvcc`` processes at once.  Returns the compiler's output per source
+    (with ``verbose``, ``-Xptxas -v``'s registers and shared memory)."""
+    flags = NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists() and not verbose:
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *flags, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n{logs[name]}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    if name not in _loaded:
+        path = library_path(name)
+        if not path.exists():
+            build([name])
+        _loaded[name] = ctypes.CDLL(str(path))
+    return _loaded[name]

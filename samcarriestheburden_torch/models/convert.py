@@ -1,0 +1,151 @@
+"""Weight loaders of the port.
+
+Two sources:
+
+* :func:`sam_state_dict_from_jax` maps the JAX package's SAM parameter pytree
+  (nested dicts of numpy arrays) to this package's state dict, undoing the
+  JAX storage conventions:
+
+  - linear weights (in, out) -> (out, in);
+  - conv weights HWIO -> OIHW;
+  - transposed-conv weights are stored (kh, kw, in, out) AND spatially
+    flipped for ``lax.conv_transpose``; they go back to torch's
+    (in, out, kh, kw) un-flipped;
+  - the stacked hypernetwork MLPs are split back into one MLP per mask token.
+
+* :func:`sam_state_dict_from_torch` / :func:`load_reference_checkpoint` take
+  a reference SAM state dict (``sam_vit_h_4b8939.pth`` and the goldens'
+  ``sd/`` keys), whose names are already this package's.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from samcarriestheburden_torch.config import SamConfig
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(np.ascontiguousarray(a, np.float32))
+
+
+def _lin(sd: StateDict, prefix: str, p: Mapping) -> None:
+    sd[prefix + ".weight"] = _t(np.asarray(p["w"]).T)
+    if "b" in p:
+        sd[prefix + ".bias"] = _t(p["b"])
+
+
+def _conv(sd: StateDict, prefix: str, p: Mapping) -> None:
+    sd[prefix + ".weight"] = _t(np.asarray(p["w"]).transpose(3, 2, 0, 1))
+    if "b" in p:
+        sd[prefix + ".bias"] = _t(p["b"])
+
+
+def _conv_t(sd: StateDict, prefix: str, p: Mapping) -> None:
+    w = np.asarray(p["w"])[::-1, ::-1]                  # un-flip (kh, kw, in, out)
+    sd[prefix + ".weight"] = _t(w.transpose(2, 3, 0, 1))
+    if "b" in p:
+        sd[prefix + ".bias"] = _t(p["b"])
+
+
+def _ln(sd: StateDict, prefix: str, p: Mapping) -> None:
+    sd[prefix + ".weight"] = _t(p["scale"])
+    sd[prefix + ".bias"] = _t(p["bias"])
+
+
+def _attn(sd: StateDict, prefix: str, p: Mapping) -> None:
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        _lin(sd, f"{prefix}.{name}", p[name])
+
+
+def _image_encoder(sd: StateDict, p: Mapping, cfg, prefix: str) -> None:
+    _conv(sd, prefix + "patch_embed.proj", p["patch_embed"])
+    if cfg.use_abs_pos:
+        sd[prefix + "pos_embed"] = _t(p["pos_embed"])
+    for i, blk in enumerate(p["blocks"]):
+        b = f"{prefix}blocks.{i}"
+        _ln(sd, b + ".norm1", blk["norm1"])
+        _lin(sd, b + ".attn.qkv", blk["attn"]["qkv"])
+        _lin(sd, b + ".attn.proj", blk["attn"]["proj"])
+        if cfg.use_rel_pos:
+            sd[b + ".attn.rel_pos_h"] = _t(blk["attn"]["rel_pos_h"])
+            sd[b + ".attn.rel_pos_w"] = _t(blk["attn"]["rel_pos_w"])
+        _ln(sd, b + ".norm2", blk["norm2"])
+        _lin(sd, b + ".mlp.lin1", blk["mlp"]["lin1"])
+        _lin(sd, b + ".mlp.lin2", blk["mlp"]["lin2"])
+    neck = p["neck"]
+    _conv(sd, prefix + "neck.0", neck["conv1"])
+    _ln(sd, prefix + "neck.1", neck["ln1"])
+    _conv(sd, prefix + "neck.2", neck["conv2"])
+    _ln(sd, prefix + "neck.3", neck["ln2"])
+
+
+def _prompt_encoder(sd: StateDict, p: Mapping, prefix: str) -> None:
+    sd[prefix + "pe_layer.positional_encoding_gaussian_matrix"] = _t(p["pe_gaussian"])
+    for i, row in enumerate(np.asarray(p["point_embeddings"])):
+        sd[f"{prefix}point_embeddings.{i}.weight"] = _t(row[None])
+    sd[prefix + "not_a_point_embed.weight"] = _t(p["not_a_point_embed"])
+    sd[prefix + "no_mask_embed.weight"] = _t(p["no_mask_embed"])
+    md = p["mask_downscaling"]
+    for idx, name in ((0, "conv1"), (3, "conv2"), (6, "conv3")):
+        _conv(sd, f"{prefix}mask_downscaling.{idx}", md[name])
+    _ln(sd, prefix + "mask_downscaling.1", md["ln1"])
+    _ln(sd, prefix + "mask_downscaling.4", md["ln2"])
+
+
+def _mask_decoder(sd: StateDict, p: Mapping, prefix: str) -> None:
+    tr = p["transformer"]
+    for i, layer in enumerate(tr["layers"]):
+        b = f"{prefix}transformer.layers.{i}"
+        for name in ("self_attn", "cross_attn_token_to_image",
+                     "cross_attn_image_to_token"):
+            _attn(sd, f"{b}.{name}", layer[name])
+        for name in ("norm1", "norm2", "norm3", "norm4"):
+            _ln(sd, f"{b}.{name}", layer[name])
+        _lin(sd, b + ".mlp.lin1", layer["mlp"]["lin1"])
+        _lin(sd, b + ".mlp.lin2", layer["mlp"]["lin2"])
+    _attn(sd, prefix + "transformer.final_attn_token_to_image",
+          tr["final_attn_token_to_image"])
+    _ln(sd, prefix + "transformer.norm_final_attn", tr["norm_final_attn"])
+    sd[prefix + "iou_token.weight"] = _t(p["iou_token"])
+    sd[prefix + "mask_tokens.weight"] = _t(p["mask_tokens"])
+    up = p["output_upscaling"]
+    _conv_t(sd, prefix + "output_upscaling.0", up["up1"])
+    _ln(sd, prefix + "output_upscaling.1", up["ln"])
+    _conv_t(sd, prefix + "output_upscaling.3", up["up2"])
+    hyper = p["output_hypernetworks_mlps"]["layers"]      # stacked over tokens
+    for t in range(np.asarray(hyper[0]["w"]).shape[0]):
+        for j, layer in enumerate(hyper):
+            _lin(sd, f"{prefix}output_hypernetworks_mlps.{t}.layers.{j}",
+                 {"w": np.asarray(layer["w"])[t], "b": np.asarray(layer["b"])[t]})
+    for j, layer in enumerate(p["iou_prediction_head"]["layers"]):
+        _lin(sd, f"{prefix}iou_prediction_head.layers.{j}", layer)
+
+
+def sam_state_dict_from_jax(params: Mapping, cfg: SamConfig) -> StateDict:
+    """The JAX package's SAM params (``sam.init`` / ``sam_params_from_torch``
+    layout, numpy leaves) -> a state dict for :class:`SamModel`."""
+    sd: StateDict = {}
+    _image_encoder(sd, params["image_encoder"], cfg.image_encoder, "image_encoder.")
+    _prompt_encoder(sd, params["prompt_encoder"], "prompt_encoder.")
+    _mask_decoder(sd, params["mask_decoder"], "mask_decoder.")
+    return sd
+
+
+def sam_state_dict_from_torch(sd: Mapping) -> StateDict:
+    """A reference SAM state dict (tensors or numpy arrays, names as in
+    segment_anything) -> this package's state dict: the names are the same,
+    the values become fp32 tensors."""
+    return {k: torch.as_tensor(v).float() for k, v in sd.items()}
+
+
+def load_reference_checkpoint(path) -> StateDict:
+    """Read a reference ``.pth`` SAM checkpoint (e.g. ``sam_vit_h_4b8939.pth``)."""
+    with open(path, "rb") as f:
+        sd = torch.load(f, map_location="cpu", weights_only=True)
+    return sam_state_dict_from_torch(sd)

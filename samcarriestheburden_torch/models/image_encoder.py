@@ -1,0 +1,279 @@
+"""ViTDet-style SAM image encoder (reference segment_anything/modeling/image_encoder.py).
+
+Parameters carry the reference's names, so its state dicts load with
+``load_state_dict``.  The forward runs the JAX package's flat-window
+formulation (JAX ``image_encoder.py:apply`` with ``fused_qkv`` and
+``fused_mlp``): windowed blocks carry (Wb, np, E) windows padded to
+np = ceil(ws^2 / 8) * 8 slots, and every block is
+
+    qkv = K1(x, pad mask)             LN1 + pad re-zeroing + qkv projection
+    a   = proj(K5 or K7(qkv))          windowed or global rel-pos attention
+    x   = K3(x, add=a)                 residual + LN2 + MLP + residual
+
+in the compute dtype (bf16 on the card), then the neck in fp32.  The
+re-zeroing of pad tokens after LN1 reproduces the reference's fresh zero
+padding at every window partition: a pad token's k and v are the qkv bias.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from samcarriestheburden_torch.config import ImageEncoderConfig
+from samcarriestheburden_torch.kernels import attention as attn_k
+from samcarriestheburden_torch.kernels import mlp as mlp_k
+from samcarriestheburden_torch.models.common import LayerNorm2d, MLPBlock
+
+
+class EncoderOps(NamedTuple):
+    """The four kernels a forward runs: the wrappers (:data:`KERNEL_OPS`) or,
+    to hold the kernels against them on the card, the plain versions."""
+
+    ln_masked_linear: object
+    ln_mlp_residual: object
+    rel_attention_window: object
+    rel_attention_global: object
+
+
+KERNEL_OPS = EncoderOps(mlp_k.ln_masked_linear, mlp_k.ln_mlp_residual,
+                        attn_k.rel_attention_window, attn_k.rel_attention_global)
+PLAIN_OPS = EncoderOps(mlp_k.ln_masked_linear_plain, mlp_k.ln_mlp_residual_plain,
+                       attn_k.rel_attention_window_plain,
+                       attn_k.rel_attention_global_plain)
+
+
+# ---------------------------------------------------------------------------
+# modules (reference parameter names)
+# ---------------------------------------------------------------------------
+
+
+class PatchEmbed(nn.Module):
+    def __init__(self, cfg: ImageEncoderConfig):
+        super().__init__()
+        p = cfg.patch_size
+        self.proj = nn.Conv2d(cfg.in_chans, cfg.embed_dim, kernel_size=p, stride=p)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ImageEncoderConfig, window_size: int):
+        super().__init__()
+        e = cfg.embed_dim
+        self.qkv = nn.Linear(e, 3 * e, bias=cfg.qkv_bias)
+        self.proj = nn.Linear(e, e)
+        if cfg.use_rel_pos:
+            s = window_size if window_size > 0 else cfg.grid_size
+            self.rel_pos_h = nn.Parameter(torch.zeros(2 * s - 1, cfg.head_dim))
+            self.rel_pos_w = nn.Parameter(torch.zeros(2 * s - 1, cfg.head_dim))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ImageEncoderConfig, window_size: int):
+        super().__init__()
+        e = cfg.embed_dim
+        self.window_size = window_size
+        self.norm1 = nn.LayerNorm(e, eps=cfg.layer_norm_eps)
+        self.attn = Attention(cfg, window_size)
+        self.norm2 = nn.LayerNorm(e, eps=cfg.layer_norm_eps)
+        self.mlp = MLPBlock(e, int(e * cfg.mlp_ratio))
+
+
+# ---------------------------------------------------------------------------
+# window partition (static shapes; reference image_encoder.py:243-289)
+# ---------------------------------------------------------------------------
+
+
+def window_partition(x: torch.Tensor, ws: int) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """(B, H, W, C) -> (B*nW, ws, ws, C) with bottom/right zero padding."""
+    b, h, w, c = x.shape
+    pad_h, pad_w = (ws - h % ws) % ws, (ws - w % ws) % ws
+    if pad_h or pad_w:
+        x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
+    hp, wp = h + pad_h, w + pad_w
+    x = x.reshape(b, hp // ws, ws, wp // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, ws, ws, c), (hp, wp)
+
+
+def window_unpartition(windows: torch.Tensor, ws: int, pad_hw: Tuple[int, int],
+                       hw: Tuple[int, int]) -> torch.Tensor:
+    hp, wp = pad_hw
+    h, w = hw
+    c = windows.shape[-1]
+    b = windows.shape[0] // (hp * wp // ws // ws)
+    x = windows.reshape(b, hp // ws, wp // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, hp, wp, c)[:, :h, :w].contiguous()
+
+
+def window_partition_flat(x: torch.Tensor, ws: int) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """(B, H, W, C) -> (B*nW, np, C) flat windows, np = ws^2 rounded up to 8;
+    the dead slots are zero (JAX ``window_partition_flat``)."""
+    windows, pad_hw = window_partition(x, ws)
+    n = ws * ws
+    np_ = -(-n // 8) * 8
+    flat = windows.reshape(windows.shape[0], n, x.shape[-1])
+    if np_ != n:
+        flat = F.pad(flat, (0, 0, 0, np_ - n))
+    return flat.contiguous(), pad_hw
+
+
+def window_unpartition_flat(flat: torch.Tensor, ws: int, pad_hw: Tuple[int, int],
+                            hw: Tuple[int, int]) -> torch.Tensor:
+    n = ws * ws
+    windows = flat[:, :n].reshape(-1, ws, ws, flat.shape[-1])
+    return window_unpartition(windows, ws, pad_hw, hw)
+
+
+def pad_valid_flat(b: int, h: int, w: int, ws: int, dtype, device) -> torch.Tensor:
+    """(B*nW, np, 1) mask: 1 on image tokens, 0 on pad tokens and dead slots."""
+    ones = torch.ones((b, h, w, 1), dtype=dtype, device=device)
+    return window_partition_flat(ones, ws)[0]
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+
+def windowed_attention(pk, x3, pad3, cfg: ImageEncoderConfig, ops):
+    """Attention of a windowed block over flat (Wb, np, E) windows
+    (JAX ``_windowed_attention_headmajor3d``) -> (Wb*np, E)."""
+    wb, np_, e = x3.shape
+    t = wb * np_
+    qkv = ops.ln_masked_linear(x3.reshape(t, e), pad3.reshape(t, 1),
+                               pk["norm1_w"], pk["norm1_b"], pk["qkv_w"],
+                               pk["qkv_b"], cfg.layer_norm_eps)
+    out = ops.rel_attention_window(qkv.reshape(wb, np_, -1), pk["tables"],
+                                   ws=cfg.window_size, heads=cfg.num_heads,
+                                   hd=cfg.head_dim)
+    return F.linear(out.reshape(t, e), pk["proj_w"], pk["proj_b"])
+
+
+def global_attention(pk, x, cfg: ImageEncoderConfig, ops):
+    """Attention of a global block over (B, gh, gw, E)
+    (JAX ``_global_attention_headmajor``) -> (B*gh*gw, E)."""
+    b, gh, gw, e = x.shape
+    t = b * gh * gw
+    qkv = ops.ln_masked_linear(x.reshape(t, e), None, pk["norm1_w"],
+                               pk["norm1_b"], pk["qkv_w"], pk["qkv_b"],
+                               cfg.layer_norm_eps)
+    out = ops.rel_attention_global(qkv.reshape(b, gh * gw, -1), pk["tables"],
+                                   kh=gh, kw=gw, heads=cfg.num_heads,
+                                   hd=cfg.head_dim)
+    return F.linear(out.reshape(t, e), pk["proj_w"], pk["proj_b"])
+
+
+def _mlp_residual(pk, x2d, a, cfg: ImageEncoderConfig, ops):
+    return ops.ln_mlp_residual(x2d, pk["norm2_w"], pk["norm2_b"], pk["lin1_w"],
+                               pk["lin1_b"], pk["lin2_w"], pk["lin2_b"], add=a,
+                               eps=cfg.layer_norm_eps)
+
+
+def block_windowed(pk, x3, pad3, cfg: ImageEncoderConfig, ops):
+    """One windowed block over flat windows (JAX ``_block_apply_windowed3d``)."""
+    a = windowed_attention(pk, x3, pad3, cfg, ops)
+    return _mlp_residual(pk, x3.reshape(a.shape), a, cfg, ops).reshape(x3.shape)
+
+
+def block_global(pk, x, cfg: ImageEncoderConfig, ops):
+    """One global block over the (B, gh, gw, E) grid."""
+    a = global_attention(pk, x, cfg, ops)
+    return _mlp_residual(pk, x.reshape(a.shape), a, cfg, ops).reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# encoder
+# ---------------------------------------------------------------------------
+
+
+class ImageEncoderViT(nn.Module):
+    def __init__(self, cfg: ImageEncoderConfig):
+        super().__init__()
+        if not cfg.use_rel_pos or cfg.window_size <= 0:
+            raise ValueError("the port runs SAM's windowed rel-pos encoder only")
+        self.cfg = cfg
+        self.patch_embed = PatchEmbed(cfg)
+        if cfg.use_abs_pos:
+            g = cfg.grid_size
+            self.pos_embed = nn.Parameter(torch.zeros(1, g, g, cfg.embed_dim))
+        self.blocks = nn.ModuleList(
+            Block(cfg, 0 if i in cfg.global_attn_indexes else cfg.window_size)
+            for i in range(cfg.depth))
+        oc = cfg.out_chans
+        self.neck = nn.Sequential(
+            nn.Conv2d(cfg.embed_dim, oc, kernel_size=1, bias=False),
+            LayerNorm2d(oc),
+            nn.Conv2d(oc, oc, kernel_size=3, padding=1, bias=False),
+            LayerNorm2d(oc),
+        )
+
+    @torch.no_grad()
+    def pack(self, dtype=torch.float32) -> List[Dict[str, torch.Tensor]]:
+        """Per-block weights in the layout and types the kernels take: matrices
+        in ``dtype``, biases and LayerNorm affines fp32, qkv grouped per head,
+        rel-pos tables stacked.  A serving loop packs once and reuses."""
+        cfg = self.cfg
+        packed = []
+        for blk in self.blocks:
+            at = blk.attn
+            qkv_b = at.qkv.bias if at.qkv.bias is not None else \
+                torch.zeros(at.qkv.out_features, device=at.qkv.weight.device)
+            w, b = attn_k.group_qkv_per_head(at.qkv.weight, qkv_b, cfg.num_heads)
+            s = blk.window_size or cfg.grid_size
+            packed.append({
+                "norm1_w": blk.norm1.weight.float(), "norm1_b": blk.norm1.bias.float(),
+                "qkv_w": w.to(dtype), "qkv_b": b.float(),
+                "tables": attn_k.prepare_rel_tables(at.rel_pos_h, at.rel_pos_w, s, s, dtype),
+                "proj_w": at.proj.weight.to(dtype).contiguous(),
+                "proj_b": at.proj.bias.to(dtype),
+                "norm2_w": blk.norm2.weight.float(), "norm2_b": blk.norm2.bias.float(),
+                "lin1_w": blk.mlp.lin1.weight.to(dtype).contiguous(),
+                "lin1_b": blk.mlp.lin1.bias.float(),
+                "lin2_w": blk.mlp.lin2.weight.to(dtype).contiguous(),
+                "lin2_b": blk.mlp.lin2.bias.float(),
+            })
+        return packed
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor, *, dtype=None, packed=None,
+                ops: EncoderOps = KERNEL_OPS) -> torch.Tensor:
+        """(B, 3, img, img) NCHW -> (B, out_chans, grid, grid) NCHW fp32.
+        ``dtype`` is the compute type of the transformer stack (None: bf16
+        on the card, the only type the kernels take, fp32 on the CPU);
+        ``packed`` the output of :meth:`pack` for that dtype (packed here
+        when None)."""
+        cfg = self.cfg
+        if dtype is None:
+            dtype = torch.bfloat16 if x.device.type == "cuda" else torch.float32
+        if packed is None:
+            packed = self.pack(dtype)
+        pe = self.patch_embed.proj
+        x = F.conv2d(x.to(dtype), pe.weight.to(dtype), pe.bias.to(dtype),
+                     stride=cfg.patch_size)
+        x = x.permute(0, 2, 3, 1)
+        if cfg.use_abs_pos:
+            x = x + self.pos_embed.to(dtype)
+        x = x.contiguous()
+
+        b, h, w, _ = x.shape
+        ws = cfg.window_size
+        pad3 = pad_valid_flat(b, h, w, ws, dtype, x.device)
+        run: List[int] = []
+        for i in range(cfg.depth + 1):
+            is_global = i < cfg.depth and i in cfg.global_attn_indexes
+            if (i == cfg.depth or is_global) and run:
+                x3, pad_hw = window_partition_flat(x, ws)
+                for j in run:
+                    x3 = block_windowed(packed[j], x3, pad3, cfg, ops)
+                x = window_unpartition_flat(x3, ws, pad_hw, (h, w))
+                run = []
+            if i == cfg.depth:
+                break
+            if is_global:
+                x = block_global(packed[i], x, cfg, ops)
+            else:
+                run.append(i)
+
+        return self.neck(x.float().permute(0, 3, 1, 2))
