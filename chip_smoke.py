@@ -3,21 +3,28 @@
 
     python3 chip_smoke.py
 
-1. builds the port's CUDA kernels (K1, K3, K5, K7) from ``samcarriestheburden_torch/csrc``;
-2. drives the main path once at full ViT-H width with seeded random
+1. builds the port's CUDA kernels (K1, K3, K5, K7, K8) from
+   ``samcarriestheburden_torch/csrc``, one ``nvcc`` per source, all at once;
+2. drives the embed path once at full ViT-H width with seeded random
    weights: ``make_serving_encoder`` in bf16 on two padded 1024x1024 uint8
    images (input size 1024x716), then the 17-class two-round refinement
-   decode and ``postprocess_masks`` on each embedding; every kernel must
-   have launched in that run;
-3. holds each kernel against its plain PyTorch version on the card, on the
-   inputs the main path gives it and on stressed inputs of the same shapes
-   (with planted faults that the check must be able to see), and the whole
+   decode and ``postprocess_masks`` on each embedding; K1, K3, K5 and K7
+   must have launched in that run;
+3. drives the enhance path once: ``SegEnhance.enhance_batch`` with
+   ``SamSegRefiner`` (box, then points with round 1's logits) over 16
+   images of 17 seeded U-Net-like probability maps on the 384x224 grid,
+   reading the two embeddings just made and 14 seeded ones; K8 must have
+   launched in that run;
+4. holds each kernel against its plain PyTorch version on the card, on the
+   inputs its path gives it and on stressed inputs of the same shapes
+   (with planted faults that the check must be able to see), the whole
    kernel-path encoder against the plain-path encoder, with the random rel
-   tables as they are and scaled up;
-4. checks the outputs: finite and of the expected shape, the decode against
+   tables as they are and scaled up, and enhance on the card against
+   enhance on the CPU and against itself image by image;
+5. checks the outputs: finite and of the expected shape, the decode against
    the same decode on the CPU, and the kernels against the reference
    golden ``tests/golden/image_encoder.npz`` at the tiny config;
-5. prints the kernels' numbers, the throughputs, the card's name and power
+6. prints the kernels' numbers, the throughputs, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -76,16 +83,32 @@ REL_STRESS = 15.0
 GOLDEN_TOL = 0.02
 # full-width decode on the card vs the CPU, both fp32 (TF32 off)
 DECODE_RTOL = 1e-3
+# estimated Dice, card vs CPU and batch vs image by image
+DICE_TOL = 1e-4
 
-KERNELS = {
-    "K1": ("samcarriestheburden_torch/csrc/mlp.cu",
+# the enhance path (bench.py:223, 340-411): 16 images per enhance_batch, the
+# U-Net grid, and the sizes bench.py gives its seeded embeddings
+ENHANCE_N = 16
+ENH_ORIGINAL_HW = (2304, 1344)   # the grid x 6
+ENH_INPUT_HW = (1024, 597)       # its resize-longest-side to 1024
+TWO_ROUNDS = [["box"], ["pos_points", "neg_points"]]
+# K8 on stressed maps runs truncated at a cap that is not a multiple of the
+# check interval (16), and to the fixpoint
+K8_TRUNCATED = 37
+# H100 SXM: 132 SMs of 64 INT32 lanes each (NVIDIA Hopper white paper)
+H100_SMS, INT32_LANES = 132, 64
+
+KERNELS = {  # name: (path, source, replaced TPU kernel)
+    "K1": ("embed", "samcarriestheburden_torch/csrc/mlp.cu",
            "samcarriestheburden_tpu/kernels/mlp.py:135"),
-    "K3": ("samcarriestheburden_torch/csrc/mlp.cu",
+    "K3": ("embed", "samcarriestheburden_torch/csrc/mlp.cu",
            "samcarriestheburden_tpu/kernels/mlp.py:75"),
-    "K5": ("samcarriestheburden_torch/csrc/attention.cu",
+    "K5": ("embed", "samcarriestheburden_torch/csrc/attention.cu",
            "samcarriestheburden_tpu/kernels/attention.py:492"),
-    "K7": ("samcarriestheburden_torch/csrc/attention.cu",
+    "K7": ("embed", "samcarriestheburden_torch/csrc/attention.cu",
            "samcarriestheburden_tpu/kernels/attention.py:639"),
+    "K8": ("enhance", "samcarriestheburden_torch/csrc/ccl.cu",
+           "samcarriestheburden_tpu/ops/ccl.py:211"),
 }
 
 
@@ -240,12 +263,16 @@ def phase_stress(torch, name, kern, plain, args, kw, gen) -> float:
     return err
 
 
-def gpu_identity() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
+def nvidia_smi(query: str, units: bool = True) -> str:
+    cmd = ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"
+           + ("" if units else ",nounits")]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def gpu_identity() -> str:
+    return nvidia_smi("name,power.limit")
 
 
 def phase_build(build) -> None:
@@ -258,9 +285,9 @@ def phase_build(build) -> None:
                 log(f"  ptxas {name}: {line.strip()}")
 
 
-def phase_profile(torch, fn, top: int = 12) -> None:
-    """Where one encoder call's device time goes, by kernel (torch.profiler),
-    and the card's idle share over the call's wall time."""
+def phase_profile(torch, fn, what: str, top: int = 12) -> None:
+    """Where one call's device time goes, by kernel (torch.profiler), and
+    the card's idle share over the call's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -274,9 +301,9 @@ def phase_profile(torch, fn, top: int = 12) -> None:
               and e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in events) / 1e3
     if busy_ms == 0:
-        log("encoder profile: no device time recorded; not measured")
+        log(f"{what} profile: no device time recorded; not measured")
         return
-    log(f"encoder profile: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
+    log(f"{what} profile: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
         f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.3f})")
     for e in sorted(events, key=lambda e: -e.device_time_total)[:top]:
         log(f"  {e.device_time_total / 1e3:8.3f} ms  {e.count:4d} x  {e.key[:90]}")
@@ -296,6 +323,308 @@ def phase_golden(torch, np, cfg_t, ImageEncoderViT, KERNEL_OPS) -> float:
         f"(tol {GOLDEN_TOL})")
     check(err <= GOLDEN_TOL, f"golden vit_t encoder off by {err}")
     return err
+
+
+class MemoryEmbeddings:
+    """Embeddings held on the card, read the way ``EmbeddingReader`` reads
+    an h5 file (this machine need not have ``h5py``)."""
+
+    checkpoint = "random-weights"
+
+    def __init__(self, img_size: int, features: dict, sizes: dict):
+        self.img_encoder_img_size = img_size
+        self._features, self._sizes = features, sizes
+
+    def features(self, stem):
+        return self._features[stem]
+
+    def sizes(self, stem):
+        return self._sizes[stem]
+
+
+def enhance_probs(np, rng, n: int, classes: int, hw) -> "np.ndarray":
+    """(n, classes, H, W) U-Net-like probabilities: bench.py:393-400's soft
+    elongated blob per class, a smaller second blob in every odd class (so
+    the selection has a choice), and single-pixel specks at 0.6 (components
+    that touch only through corners)."""
+    h, w = hw
+    yy, xx = np.mgrid[:h, :w]
+    prob = np.zeros((n, classes, h, w), np.float32)
+    for i in range(n):
+        for c in range(classes):
+            cy, cx = rng.uniform(0.2, 0.8) * h, rng.uniform(0.2, 0.8) * w
+            ry, rx = rng.uniform(0.1, 0.3) * h, rng.uniform(0.05, 0.2) * w
+            p = np.clip(1.2 - ((yy - cy) / ry) ** 2 - ((xx - cx) / rx) ** 2, 0, 1)
+            if c % 2:
+                cy, cx = rng.uniform(0.1, 0.9) * h, rng.uniform(0.1, 0.9) * w
+                d2 = ((yy - cy) / (ry / 3)) ** 2 + ((xx - cx) / (rx / 3)) ** 2
+                p = np.maximum(p, 0.9 * np.clip(1.2 - d2, 0, 1))
+            specks = rng.random((h, w)) < 2e-3
+            p[specks] = np.maximum(p[specks], 0.6)
+            prob[i, c] = p
+    return prob
+
+
+def k8_stress_maps(np, rng, hw) -> "np.ndarray":
+    """Maps of the main path's shape that stress K8: Bernoulli(0.45)
+    speckle (thousands of components), a 1-pixel square spiral (a geodesic
+    far beyond any small cap), 1-pixel diagonal chains (8-connected only),
+    an empty and a full map."""
+    h, w = hw
+    spiral = np.zeros((h, w), np.float32)
+    top, left, bottom, right = 0, 0, h - 1, w - 1
+    while top <= bottom and left <= right:
+        spiral[top, left:right + 1] = 1
+        spiral[top:bottom + 1, right] = 1
+        if bottom - top >= 2:
+            spiral[bottom, left:right + 1] = 1
+        if right - left >= 2 and bottom - top >= 4:
+            spiral[top + 2:bottom + 1, left] = 1
+            spiral[top + 2, left + 1] = 1               # on into the next ring
+        top, left, bottom, right = top + 2, left + 2, bottom - 2, right - 2
+    chains = np.zeros((h, w), np.float32)
+    for i in range(0, h, 24):                     # parallel diagonal chains
+        for j in range(min(h - i, w)):
+            chains[i + j, j] = 1
+    for j in range(min(h, w)):                    # one anti-diagonal across them
+        chains[j, w - 1 - j] = 1
+    speckle = (rng.random((4, h, w)) < 0.45).astype(np.float32)
+    return np.concatenate([speckle, spiral[None], chains[None],
+                           np.zeros((1, h, w), np.float32), np.ones((1, h, w), np.float32)])
+
+
+def k8_faults(torch, kccl, maps, cap: int) -> dict:
+    """Planted faults of K8's plain version on ``maps`` truncated at ``cap``:
+    {what: labels}."""
+    F = torch.nn.functional
+    m, h, w = maps.shape
+    fg = (maps > 0.5).float()
+    init = torch.arange(1, h * w + 1, device=maps.device, dtype=torch.float32).view(h, w) * fg
+
+    def hmax(rows):                                   # (M, W) -> 3-wide row max
+        return F.max_pool1d(rows[:, None], 3, stride=1, padding=1)[:, 0]
+
+    cross = init
+    for _ in range(cap):                              # 4-connected Jacobi steps
+        p = F.pad(cross, (1, 1, 1, 1))
+        cross = torch.stack([cross, p[:, :-2, 1:-1], p[:, 2:, 1:-1], p[:, 1:-1, :-2],
+                             p[:, 1:-1, 2:]]).amax(0) * fg
+    seidel = init.clone()
+    for _ in range(cap):                              # in place, row after row
+        old = seidel.clone()
+        for r in range(h):
+            rows = [hmax(old[:, r])] + ([hmax(seidel[:, r - 1])] if r > 0 else []) \
+                + ([hmax(old[:, r + 1])] if r + 1 < h else [])
+            seidel[:, r] = torch.stack(rows).amax(0) * fg[:, r]
+    return {"4-connected steps": cross.int(),
+            "cap off by one": kccl.propagate_plain(maps, cap + 1)[0],
+            "Gauss-Seidel steps": seidel.int()}
+
+
+def k8_equal(torch, got, want) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def phase_k8(torch, np, kccl, recorded, gen_np) -> dict:
+    """K8 against its plain version on the main path's recorded input and on
+    stressed maps of the same shape; returns the kernel's numbers."""
+    mask, cap, check_every = recorded
+    out_k = kccl.propagate(mask, cap, check_every)
+    out_p = kccl.propagate_plain(mask, cap, check_every)
+    torch.cuda.synchronize()
+    err = (out_k[0].long() - out_p[0].long()).abs().max().item()
+    steps = out_p[2]
+    log(f"K8 on {tuple(mask.shape)}, cap {cap}: labels max abs err {err} (tol 0); "
+        f"converged {int(out_k[1].sum())} / {mask.shape[0]} maps (plain "
+        f"{int(out_p[1].sum())}); steps per map {int(steps.min())}..{int(steps.max())}, "
+        f"mean {steps.float().mean().item():.1f}")
+    check(k8_equal(torch, out_k, out_p), "K8 disagrees with its plain version on the main path")
+
+    maps = torch.from_numpy(k8_stress_maps(np, gen_np, mask.shape[-2:])).to(mask.device)
+    for cap_s in (K8_TRUNCATED, maps[0].numel()):
+        got = kccl.propagate(maps, cap_s)
+        want = kccl.propagate_plain(maps, cap_s)
+        log(f"K8 stressed, cap {cap_s}: labels, flags and steps equal: "
+            f"{k8_equal(torch, got, want)}; converged {want[1].tolist()}; "
+            f"steps {want[2].tolist()}")
+        check(k8_equal(torch, got, want), f"K8 disagrees with its plain version on "
+              f"stressed maps at cap {cap_s}")
+        if cap_s == K8_TRUNCATED:
+            truncated = want[0]
+            check(not bool(want[1][4]), "the spiral must stay truncated")
+    for what, labels in k8_faults(torch, kccl, maps, K8_TRUNCATED).items():
+        misses = int((labels != truncated).sum())
+        log(f"K8 planted fault '{what}': {misses} labels differ from the plain version")
+        check(misses > 0, f"K8: the stressed check cannot see '{what}'")
+
+    ms = card_ms(torch, lambda: kccl.propagate(mask, cap, check_every))
+    plain_ms = card_ms(torch, lambda: kccl.propagate_plain(mask, cap, check_every),
+                       iters=2, warmup=1)
+    m, h, w = mask.shape
+    clock_mhz = float(nvidia_smi("clocks.max.sm", units=False))
+    int_rate = H100_SMS * INT32_LANES * clock_mhz * 1e6
+    int_ops = float(steps.sum()) * h * w * 5
+    nbytes = m * h * w * (4 + 4)
+    t_ops, t_bytes = int_ops / int_rate * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    log(f"K8: {ms:.4f} ms (plain {plain_ms:.4f}, library None, bound {bound_ms:.4f} by "
+        f"{bound_by}: {int_ops:.4g} int ops at {H100_SMS} SMs x {INT32_LANES} lanes x "
+        f"{clock_mhz:.0f} MHz max SM clock = {int_rate / 1e12:.2f} Tops/s, {nbytes / 1e6:.1f} MB "
+        f"at {PEAK_HBM_BYTES / 1e12} TB/s)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def enhance_modules():
+    """The port's enhance path, as one namespace."""
+    from types import SimpleNamespace
+
+    from samcarriestheburden_torch import kernels
+    from samcarriestheburden_torch.config import N_CLASSES, UNET_INPUT_HW
+    from samcarriestheburden_torch.engine import refinement
+    from samcarriestheburden_torch.engine.decoder_head import SamMaskDecoderHead
+    from samcarriestheburden_torch.engine.prompts import extract_prompt_arrays
+    from samcarriestheburden_torch.kernels import ccl as kccl
+    from samcarriestheburden_torch.ops.ccl import remove_all_but_one_connected_component
+
+    return SimpleNamespace(
+        kernels=kernels, N_CLASSES=N_CLASSES, UNET_INPUT_HW=UNET_INPUT_HW,
+        refinement=refinement, SegEnhance=refinement.SegEnhance,
+        SamSegRefiner=refinement.SamSegRefiner, SamMaskDecoderHead=SamMaskDecoderHead,
+        extract_prompt_arrays=extract_prompt_arrays, kccl=kccl,
+        remove_all_but_one_connected_component=remove_all_but_one_connected_component)
+
+
+def phase_enhance(torch, np, port, model, emb, embed_ips: float):
+    """The enhance path at full width, counted; then its checks (card vs
+    CPU, batch vs image by image, outputs), its throughput and profile.
+    Returns the launches of the counted run and K8's recorded input."""
+    dev = emb.device
+    n_classes = port.N_CLASSES
+    h, w = port.UNET_INPUT_HW
+    stems = [f"image{i:02d}" for i in range(ENHANCE_N)]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    feats, sizes = {}, {}
+    for i, stem in enumerate(stems):
+        if i < emb.shape[0]:            # the embeddings the encoder just made
+            feats[stem] = emb[i:i + 1]
+            sizes[stem] = (np.array(ORIGINAL_HW), np.array(INPUT_HW))
+        else:
+            feats[stem] = torch.randn((1, *emb.shape[1:]), generator=gen, device=dev)
+            sizes[stem] = (np.array(ENH_ORIGINAL_HW), np.array(ENH_INPUT_HW))
+
+    def make_enhance(head):
+        return port.SegEnhance(port.SamSegRefiner(head, prompts2use=TWO_ROUNDS),
+                               "highest_probability", "dilation", "square", 8)
+
+    head = port.SamMaskDecoderHead(None, "vit_h", MemoryEmbeddings(model.img_size, feats, sizes),
+                                   device=dev, params=model, cfg=model.cfg)
+    enh = make_enhance(head)
+    probs = torch.from_numpy(enhance_probs(np, np.random.default_rng(4), ENHANCE_N,
+                                           n_classes, (h, w))).to(dev)
+
+    # the path, counted, with K8's input recorded on the way
+    recorded = []
+    propagate = port.kccl.propagate
+
+    def record(mask, num_iterations, check_every=16):
+        recorded.append((mask, num_iterations, check_every))
+        return propagate(mask, num_iterations, check_every)
+
+    port.kccl.propagate = record
+    try:
+        port.kernels.reset_launches()
+        t0 = time.perf_counter()
+        refined, est = enh.enhance_batch(probs, stems)
+        torch.cuda.synchronize()
+        t_once = time.perf_counter() - t0
+        launches = dict(port.kernels.LAUNCHES)
+    finally:
+        port.kccl.propagate = propagate
+    log(f"enhance path launches: {launches} ({t_once * 1e3:.1f} ms for {ENHANCE_N} images, "
+        f"first call)")
+    for name, (path, _, _) in KERNELS.items():
+        if path == "enhance":
+            check(launches[name] > 0, f"{name} was not launched on the enhance path")
+    check(len(recorded) == 1, "enhance_batch must label the whole stack in one K8 call")
+
+    # outputs
+    check(tuple(refined.shape) == (ENHANCE_N, n_classes, h, w) and refined.dtype == torch.bool,
+          f"refined {tuple(refined.shape)} {refined.dtype}")
+    check(tuple(est.shape) == (ENHANCE_N, n_classes) and est.dtype == torch.float32,
+          f"est_dice {tuple(est.shape)} {est.dtype}")
+    check(tuple(enh.last_preprocessed_seg.shape) == (ENHANCE_N, n_classes, h, w),
+          f"last_preprocessed_seg {tuple(enh.last_preprocessed_seg.shape)}")
+    kept = port.remove_all_but_one_connected_component(probs, "highest_probability", max(h, w))
+    valid = torch.stack([port.extract_prompt_arrays(k.bool())["pos_valid"] for k in kept])
+    check(torch.equal(torch.isnan(est), ~valid), "est_dice must be NaN exactly for seedless classes")
+    check(bool(torch.isfinite(est[valid]).all()), "non-finite est_dice")
+    log(f"enhance outputs: refined {tuple(refined.shape)} bool, {int(valid.sum())} of "
+        f"{valid.numel()} classes seeded, {refined.float().mean().item():.4f} of pixels kept")
+
+    # card vs CPU on image 0, and the batch vs image by image on the card
+    calls = []
+    post = port.refinement.postprocess_to_grid
+
+    def record_post(*args, **kw):
+        calls.append((args, kw))
+        return post(*args, **kw)
+
+    def logits(call):
+        args, kw = call
+        return post(*args, **dict(kw, threshold_only=False))
+
+    cpu_sd = {k: v.cpu() for k, v in model.state_dict().items()
+              if k.startswith(("prompt_encoder.", "mask_decoder."))}
+    cpu_head = port.SamMaskDecoderHead(
+        None, "vit_h", MemoryEmbeddings(model.img_size, {stems[0]: emb[:1].cpu()},
+                                        {stems[0]: sizes[stems[0]]}),
+        device="cpu", params=cpu_sd, cfg=model.cfg)
+    enh_c = make_enhance(cpu_head)
+    port.refinement.postprocess_to_grid = record_post
+    try:
+        out_g = enh.enhance(probs[0], stems[0])
+        morph_g = enh.last_preprocessed_seg
+        out_c = enh_c.enhance(probs[0].cpu(), stems[0])
+        per_image = [enh.enhance(probs[i], stems[i]) for i in range(ENHANCE_N)]
+    finally:
+        port.refinement.postprocess_to_grid = post
+    ccl_g = port.remove_all_but_one_connected_component(probs[0], "highest_probability", max(h, w))
+    ccl_c = port.remove_all_but_one_connected_component(probs[0].cpu(), "highest_probability",
+                                                        max(h, w))
+    check(torch.equal(ccl_g.cpu(), ccl_c), "the CCL output differs between the card and the CPU")
+    check(torch.equal(morph_g.cpu(), enh_c.last_preprocessed_seg),
+          "the morphology differs between the card and the CPU")
+    logit_g, logit_c = logits(calls[0]).cpu(), logits(calls[1])
+    scale = max(1.0, logit_c.abs().max().item())
+    tol = DECODE_RTOL * scale
+
+    def compare(what, a, b, sure):
+        miss = int(((a[0].cpu() != b[0].cpu()) & sure).sum())
+        da, db = a[1].cpu(), b[1].cpu()
+        same_nan = torch.equal(torch.isnan(da), torch.isnan(db))
+        derr = (da - db).nan_to_num().abs().max().item()
+        log(f"{what}: {miss} refined pixels differ where |logit| > {tol:.4g}; est_dice max "
+            f"abs err {derr:.4g} (tol {DICE_TOL}), NaN in the same places: {same_nan}")
+        check(miss == 0 and same_nan and derr <= DICE_TOL, f"{what}: disagreement")
+
+    lerr = (logit_g - logit_c).abs().max().item()
+    log(f"enhance card vs CPU, image 0: CCL output and morphology bit-identical; grid logits "
+        f"max abs err {lerr:.4g} (tol {DECODE_RTOL} x {scale:.4g})")
+    check(lerr <= tol, "enhance logits differ between the card and the CPU")
+    compare("enhance card vs CPU, image 0", out_g, out_c, logit_c[:, 0].abs() > tol)
+    for i, one in enumerate(per_image):
+        sure = logits(calls[2 + i])[:, 0].abs().cpu() > tol
+        compare(f"enhance_batch vs enhance, image {i}", (refined[i], est[i]), one, sure)
+
+    # throughput and profile
+    t_ms = card_ms(torch, lambda: enh.enhance_batch(probs, stems), iters=3, warmup=1)
+    enhance_ips = ENHANCE_N / (t_ms / 1e3)
+    log(f"enhance: {enhance_ips:.3f} images/s ({t_ms:.2f} ms per batch of {ENHANCE_N}, "
+        f"fp32 decode)")
+    log(f"embed + enhance: {1.0 / (1.0 / embed_ips + 1.0 / enhance_ips):.3f} images/s")
+    phase_profile(torch, lambda: enh.enhance_batch(probs, stems), "enhance")
+    return launches, recorded[0]
 
 
 def main() -> int:
@@ -318,6 +647,7 @@ def main() -> int:
                                                                     EncoderOps,
                                                                     ImageEncoderViT)
         from samcarriestheburden_torch.models.sam import build_sam, two_round_decode
+        port = enhance_modules()
     except ImportError as exc:
         raise SmokeError(f"the port is not importable here: {exc}") from exc
 
@@ -355,7 +685,7 @@ def main() -> int:
     encode(packed, imgs, sizes)                           # warm-up: libraries load
     torch.cuda.synchronize()
 
-    # 3. the main path, counted ---------------------------------------------
+    # 3. the embed path, counted --------------------------------------------
     kernels.reset_launches()
     t0 = time.perf_counter()
     emb = encode(packed, imgs, sizes)
@@ -370,9 +700,10 @@ def main() -> int:
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    log(f"main path launches: {launches}")
-    for name in KERNELS:
-        check(launches[name] > 0, f"{name} was not launched on the main path")
+    log(f"embed path launches: {launches}")
+    for name, (path, _, _) in KERNELS.items():
+        if path == "embed":
+            check(launches[name] > 0, f"{name} was not launched on the embed path")
 
     g = cfg.prompt_encoder.image_embedding_size
     check(tuple(emb.shape) == (B, 256, *g) and emb.dtype == torch.float32,
@@ -395,7 +726,7 @@ def main() -> int:
     log(f"decode: {N_CLASSES / (t_dec_ms / 1e3):.1f} masks/s ({t_dec_ms:.2f} ms per "
         f"{N_CLASSES}-class two-round decode, fp32)")
 
-    phase_profile(torch, lambda: encode(packed, imgs, sizes))
+    phase_profile(torch, lambda: encode(packed, imgs, sizes), "encoder")
 
     # 4. kernel path vs plain path, whole encoder ----------------------------
     emb_plain = make_encode_batch(model, torch.bfloat16, ops=PLAIN_OPS)(packed, imgs, sizes)
@@ -441,7 +772,11 @@ def main() -> int:
     check(dec_err <= DECODE_RTOL * scale, "decode on the card disagrees with the CPU")
     del cpu_model
 
-    # 5. every kernel vs its plain version at the main path's shapes --------
+    # 5. the enhance path, counted, and its checks ----------------------------
+    launches_enh, k8_input = phase_enhance(torch, np, port, model, emb,
+                                           B / (t_enc_ms / 1e3))
+
+    # 6. every kernel vs its plain version at its path's shapes --------------
     recorded = {}
 
     def recorder(name, fn):
@@ -484,13 +819,16 @@ def main() -> int:
             f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
         check(err <= KERNEL_TOL[name] * max(ref, 1e-6), f"{name} disagrees with its plain version")
         phase_stress(torch, name, kern, plain, args, kw, stress_gen)
-        rows.append({"name": name, "route": "cuda", "source": KERNELS[name][0],
-                     "replaces": KERNELS[name][1], "launches": launches[name],
+        rows.append({"name": name, "route": "cuda", "source": KERNELS[name][1],
+                     "replaces": KERNELS[name][2], "launches": launches[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
     del recorded
+    k8 = phase_k8(torch, np, port.kccl, k8_input, np.random.default_rng(5))
+    rows.append({"name": "K8", "route": "cuda", "source": KERNELS["K8"][1],
+                 "replaces": KERNELS["K8"][2], "launches": launches_enh["K8"], **k8})
 
-    # 6. the tiny config through the kernels vs the reference golden --------
+    # 7. the tiny config through the kernels vs the reference golden --------
     phase_golden(torch, np, sam_vit_t_config(), ImageEncoderViT, KERNEL_OPS)
 
     log(json.dumps({"kernels": rows}))

@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of samcarriestheburden_tpu for NVIDIA Hopper (H100).
 
 The SAM ViT-H image encoder runs in bf16 through four hand-written CUDA
-kernels (``kernels/``, sources in ``csrc/``); the prompt encoder and mask
-decoder run in plain PyTorch.  Entry points run on the card unless the
-caller passes ``device="cpu"``, where every kernel wrapper takes its plain
-PyTorch version.  This package imports nothing of the JAX package.
+kernels, and the enhance leg (``engine/refinement.py``) labels connected
+components with a fifth (``kernels/``, sources in ``csrc/``); the prompt
+encoder, the mask decoder and the rest of enhance run in plain PyTorch.
+Entry points run on the card unless the caller passes ``device="cpu"``,
+where every kernel wrapper takes its plain PyTorch version.  This package
+imports nothing of the JAX package.
 """
 
 from samcarriestheburden_torch.config import (N_CLASSES, SamConfig,

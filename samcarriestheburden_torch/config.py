@@ -116,6 +116,18 @@ def sam_vit_h_config() -> SamConfig:
         embed_dim=1280, depth=32, num_heads=16, global_attn_indexes=(7, 15, 23, 31)))
 
 
+def sam_vit_l_config() -> SamConfig:
+    """ViT-L preset (reference build_sam.py:27-34)."""
+    return SamConfig(image_encoder=ImageEncoderConfig(
+        embed_dim=1024, depth=24, num_heads=16, global_attn_indexes=(5, 11, 17, 23)))
+
+
+def sam_vit_b_config() -> SamConfig:
+    """ViT-B preset (reference build_sam.py:37-44)."""
+    return SamConfig(image_encoder=ImageEncoderConfig(
+        embed_dim=768, depth=12, num_heads=12, global_attn_indexes=(2, 5, 8, 11)))
+
+
 def sam_vit_t_config(img_size: int = 128) -> SamConfig:
     """Tiny test config: the full architecture at toy widths (8x8 grid,
     window 5, so windows are ragged and carry dead slots)."""
@@ -135,3 +147,7 @@ def sam_vit_t_config(img_size: int = 128) -> SamConfig:
 
 #: The 17 wrist-bone classes of GrazPedWri (reference seg_grazpedwri_dataset.py:26-43).
 N_CLASSES = 17
+
+#: U-Net input resolution (H, W), the grid the refinement lands on
+#: (reference seg_grazpedwri_dataset.py:51).
+UNET_INPUT_HW = (384, 224)

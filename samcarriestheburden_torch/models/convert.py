@@ -149,3 +149,35 @@ def load_reference_checkpoint(path) -> StateDict:
     with open(path, "rb") as f:
         sd = torch.load(f, map_location="cpu", weights_only=True)
     return sam_state_dict_from_torch(sd)
+
+
+def _unflatten(flat: Mapping[str, np.ndarray]):
+    """'/'-joined keys -> the nested pytree, all-digit levels as lists."""
+    root: dict = {}
+    for path, value in flat.items():
+        *parents, leaf = path.split("/")
+        node = root
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = value
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [listify(node[str(i)]) for i in range(len(node))]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)
+
+
+def load_jax_decoder_checkpoint(path) -> StateDict:
+    """The prompt encoder and mask decoder of a JAX-package ``.npz`` SAM
+    checkpoint (its params flattened to '/'-joined keys, an optional JSON
+    config under ``__config__``) as a state dict with this package's names."""
+    with np.load(path, allow_pickle=False) as data:
+        params = _unflatten({k: data[k] for k in data.files if k != "__config__"})
+    sd: StateDict = {}
+    _prompt_encoder(sd, params["prompt_encoder"], "prompt_encoder.")
+    _mask_decoder(sd, params["mask_decoder"], "mask_decoder.")
+    return sd

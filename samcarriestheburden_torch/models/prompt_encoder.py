@@ -89,6 +89,14 @@ class PromptEncoder(nn.Module):
         """(B, 1, 4H, 4W) mask logits -> (B, embed_dim, H, W)."""
         return self.mask_downscaling(masks)
 
+    def embed_masks_or_default(self, masks: torch.Tensor, use_mask: torch.Tensor) -> torch.Tensor:
+        """The mask or no-mask dense embedding per batch item, with static
+        shapes: the downscaler runs on every (B, 1, 4H, 4W) mask and
+        ``use_mask`` (B,) bool picks it or the no-mask embedding."""
+        dense = self.embed_masks(masks)
+        return torch.where(use_mask[:, None, None, None], dense,
+                           self.no_mask_dense(masks.shape[0]))
+
     def forward(self, points: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 boxes: Optional[torch.Tensor] = None,
                 masks: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -34,6 +34,22 @@ def resize_bilinear(image: torch.Tensor, out_hw: Tuple[int, int], *,
     return y.reshape(*lead, *out_hw)
 
 
+def scale_coords(coords, original_size, target_size) -> torch.Tensor:
+    """Scale (N, 2) xy coords between two (H, W) frames
+    (reference segment_anything/utils/prompt_utils.py:146-166)."""
+    coords = torch.as_tensor(coords, dtype=torch.float32)
+    original = torch.as_tensor(original_size, dtype=torch.float32, device=coords.device)
+    target = torch.as_tensor(target_size, dtype=torch.float32, device=coords.device)
+    return coords * (target / original).flip(0)        # (H, W) ratio -> (x, y)
+
+
+def scale_box(box, original_size, target_size) -> torch.Tensor:
+    """Scale (N, 4) xyxy boxes between two (H, W) frames
+    (reference prompt_utils.py:169-184)."""
+    coords = torch.as_tensor(box, dtype=torch.float32).reshape(-1, 2)
+    return scale_coords(coords, original_size, target_size).reshape(-1, 4)
+
+
 def pad_bottom_right(image: torch.Tensor, out_hw: Tuple[int, int],
                      value: float = 0.0) -> torch.Tensor:
     """Pad the last two axes at the bottom/right to ``out_hw``

@@ -41,6 +41,21 @@ def test_every_module_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_every_module_imports_without_h5py():
+    """The card's machine has no h5py: the port imports it only where an h5
+    file is opened (``data/h5io.py``), never with a module."""
+    modules = _port_modules()
+    for name in ("data.h5io", "engine.decoder_head", "engine.refinement", "kernels.ccl"):
+        assert f"samcarriestheburden_torch.{name}" in modules
+    code = ("import sys\nsys.modules['h5py'] = None\n"
+            + "import importlib\n"
+            + f"for name in {modules!r}:\n    importlib.import_module(name)\n"
+            + "import chip_smoke\nchip_smoke.enhance_modules()\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
                          + ["chip_smoke.py"])
 def test_no_import_of_jax_or_the_jax_package(path):
