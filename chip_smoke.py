@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-1. builds the port's CUDA kernels (K1, K3, K5, K7, K8) from
+1. builds the port's CUDA kernels (K1, K2, K3, K4, K5, K7, K7-int8, K8) from
    ``samcarriestheburden_torch/csrc``, one ``nvcc`` per source, all at once;
 2. drives the embed path once at full ViT-H width with seeded random
    weights: ``make_serving_encoder`` in bf16 on two padded 1024x1024 uint8
@@ -15,16 +15,22 @@
    images of 17 seeded U-Net-like probability maps on the 384x224 grid,
    reading the two embeddings just made and 14 seeded ones; K8 must have
    launched in that run;
-4. holds each kernel against its plain PyTorch version on the card, on the
+4. drives the int8 embed path once, the serving mode: ``make_serving_encoder
+   (model, torch.bfloat16, quantize="int8")`` (weights prequantized once) on
+   the same two images, then the same decode of its embeddings; K2 and K4
+   must have launched once per block, K5 once per windowed and K7-int8 once
+   per global block, and K1, K3 and K7 not at all; its drift from the bf16
+   embedding and the share of decoded mask pixels that agree are reported;
+5. holds each kernel against its plain PyTorch version on the card, on the
    inputs its path gives it and on stressed inputs of the same shapes
    (with planted faults that the check must be able to see), the whole
-   kernel-path encoder against the plain-path encoder, with the random rel
-   tables as they are and scaled up, and enhance on the card against
-   enhance on the CPU and against itself image by image;
-5. checks the outputs: finite and of the expected shape, the decode against
+   kernel-path encoder against the plain-path encoder (bf16 and int8), with
+   the random rel tables as they are and scaled up, and enhance on the card
+   against enhance on the CPU and against itself image by image;
+6. checks the outputs: finite and of the expected shape, the decode against
    the same decode on the CPU, and the kernels against the reference
    golden ``tests/golden/image_encoder.npz`` at the tiny config;
-6. prints the kernels' numbers, the throughputs, the card's name and power
+7. prints the kernels' numbers, the throughputs, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -43,6 +49,7 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
 B = 2                        # images per encoder call
@@ -55,7 +62,13 @@ ORIGINAL_HW = (1600, 1119)   # the X-ray before resizing (1600 * 0.64 = 1024)
 # unnormalised probabilities to bf16 inside the online softmax where the
 # plain version rounds normalised ones.  Readings on the H100 are one bf16
 # ulp of the largest value (0.4-0.7 %); the tolerance is two (1.6 %).
-KERNEL_TOL = {"K1": 1.6e-2, "K3": 1.6e-2, "K5": 1.6e-2, "K7": 1.6e-2}
+# The int8 kernels' integer products are exact, so K2 and K4 differ from their
+# plain versions only where an fp32 value lands on the other side of a bf16 or
+# int8 rounding boundary: readings 0.24 % (K2) and 0.38 % (K4) of max |plain|,
+# nearly every entry equal; the tolerance is one bf16 ulp of the largest value
+# (0.8 %).  K7-int8 shares K7's softmax and p.v: reading 0.63 %, tolerance 1.6 %.
+KERNEL_TOL = {"K1": 1.6e-2, "K3": 1.6e-2, "K5": 1.6e-2, "K7": 1.6e-2,
+              "K2": 0.8e-2, "K4": 0.8e-2, "K7-int8": 1.6e-2}
 # The random weights leave parts of each function nearly invisible at those
 # inputs (near-uniform softmax, rel tables of std 0.02, qkv bias <= 0.03), so
 # each kernel is held again at the same shapes on stressed inputs where every
@@ -67,7 +80,18 @@ KERNEL_TOL = {"K1": 1.6e-2, "K3": 1.6e-2, "K5": 1.6e-2, "K7": 1.6e-2}
 # at least FAULT_MARGIN x that tolerance, so the check would catch it.
 # Readings on the H100 (x max|plain|): K1 0.32 %, K3 0.51 %, K5 0.79 %,
 # K7 0.96 %; the smallest fault misses by 20x, 15x, 72x and 64x the tolerance.
-STRESS_TOL = {"K1": 1e-2, "K3": 1e-2, "K5": 2e-2, "K7": 2e-2}
+# The int8 kernels' stressed inputs add what their quantization depends on:
+# LayerNorm rows of very different absmax (one spike in every 7th row), an
+# all-zero masked row, weight channels of very different scale (K2, K4); key
+# channels and query rows of very different scale and a few query rows with an
+# outlier channel (K7-int8).  Their planted faults include the wrong
+# quantization steps: one activation scale per tensor, channel scales replaced
+# by their mean, the hidden's row scale dropped, the key scales not folded into
+# q, one q scale per tensor, the rel bias taken from the quantized q.  Readings:
+# K2 0.21 %, K4 0.55 %, K7-int8 1.6 % (a rel term that rounds to the other bf16
+# neighbour shifts a peaked softmax more at these scales than at K7's).
+STRESS_TOL = {"K1": 1e-2, "K2": 1e-2, "K3": 1e-2, "K4": 1e-2, "K5": 2e-2, "K7": 2e-2,
+              "K7-int8": 3e-2}
 FAULT_MARGIN = 4.0
 # the whole 32-layer encoder, kernel path vs plain path, both bf16: the
 # per-layer differences above compound through 32 residual blocks; the
@@ -77,10 +101,24 @@ FAULT_MARGIN = 4.0
 # tol.  Readings on the H100: max 0.058 / 0.063, mean 0.0080 / 0.0093; the
 # dropped rel bias misses by max 2.47, mean 0.248.
 ENCODER_TOL_MAX, ENCODER_TOL_MEAN = 0.1, 0.015
+# the same for the int8 path (K2, K4, K5, K7-int8 vs their plain versions).
+# On identical inputs K2 and K4 agree with their plain versions almost bit for
+# bit, but once two paths' inputs differ by a bf16 ulp the int8 rounding lands
+# on other steps, so a difference between the paths grows to the size of the
+# quantization noise itself, not of bf16 rounding.  Readings on the H100: max
+# 0.1461, mean 0.01654 (the int8 embedding's drift from the bf16 one is of
+# the same size: relative L2 0.0207).
+ENCODER_INT8_TOL_MAX, ENCODER_INT8_TOL_MEAN = 0.25, 0.03
+# the int8 embedding must differ from the bf16 one (quantization happened);
+# the JAX package's own test asks the same of its int8 encoder at 1e-5
+INT8_DRIFT_MIN = 1e-5
 REL_STRESS = 15.0
 # vit_t in bf16 through the kernels vs the fp32 reference golden: the bf16
 # plain path on the CPU is 2.5e-3 off it
 GOLDEN_TOL = 0.02
+# vit_t in int8 mode, kernels vs plain versions, both bf16 on the card
+# (reading 5.8e-5: two blocks, almost no rounding lands differently)
+GOLDEN_INT8_TOL = 0.01
 # full-width decode on the card vs the CPU, both fp32 (TF32 off)
 DECODE_RTOL = 1e-3
 # estimated Dice, card vs CPU and batch vs image by image
@@ -101,12 +139,18 @@ H100_SMS, INT32_LANES = 132, 64
 KERNELS = {  # name: (path, source, replaced TPU kernel)
     "K1": ("embed", "samcarriestheburden_torch/csrc/mlp.cu",
            "samcarriestheburden_tpu/kernels/mlp.py:135"),
+    "K2": ("embed-int8", "samcarriestheburden_torch/csrc/quant.cu",
+           "samcarriestheburden_tpu/kernels/quant.py:175"),
     "K3": ("embed", "samcarriestheburden_torch/csrc/mlp.cu",
            "samcarriestheburden_tpu/kernels/mlp.py:75"),
+    "K4": ("embed-int8", "samcarriestheburden_torch/csrc/quant.cu",
+           "samcarriestheburden_tpu/kernels/quant.py:106"),
     "K5": ("embed", "samcarriestheburden_torch/csrc/attention.cu",
            "samcarriestheburden_tpu/kernels/attention.py:492"),
     "K7": ("embed", "samcarriestheburden_torch/csrc/attention.cu",
            "samcarriestheburden_tpu/kernels/attention.py:639"),
+    "K7-int8": ("embed-int8", "samcarriestheburden_torch/csrc/attention.cu",
+                "samcarriestheburden_tpu/kernels/attention.py:639"),
     "K8": ("enhance", "samcarriestheburden_torch/csrc/ccl.cu",
            "samcarriestheburden_tpu/ops/ccl.py:211"),
 }
@@ -140,29 +184,35 @@ def card_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
-    """(bound_ms, bound_by): the larger of bf16 tensor-core time and HBM time."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+def bound(flops: float, nbytes: float, int8_ops: float = 0.0):
+    """(bound_ms, bound_by): the larger of tensor-core time (the bf16
+    operations at the bf16 peak plus the int8 ones at the int8 peak) and HBM time."""
+    t_ops = (flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS) * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def kernel_work(name: str, args, kw) -> tuple:
-    """(flops, bytes) the kernel's function needs on these inputs: each input
-    read once, each output written once."""
-    if name == "K1":
-        x, mask, g, b, w, bias = args[:6]
+    """(bf16 flops, int8 ops, bytes) the kernel's function needs on these
+    inputs: each input read once, each output written once."""
+    if name in ("K1", "K2"):
+        x, mask, w = args[0], args[1], args[4]
         t, e = x.shape
         o = w.shape[0]
-        nbytes = 2 * (t * e + o * e + t * o) + 4 * (2 * e + o)
+        nbytes = 2 * (t * e + t * o) + w.element_size() * o * e + 4 * (2 * e + o)
         nbytes += 2 * t if mask is not None else 0
-        return 2.0 * t * e * o, nbytes
-    if name == "K3":
-        x, g, b, w1, b1, w2, b2 = args[:7]
+        if name == "K2":                                   # + the channel scales
+            return 0.0, 2.0 * t * e * o, nbytes + 4 * o
+        return 2.0 * t * e * o, 0.0, nbytes
+    if name in ("K3", "K4"):
+        x, w1 = args[0], args[3]
         t, e = x.shape
         m = w1.shape[0]
         n_in = 2 if kw.get("add") is not None else 1
-        nbytes = 2 * (n_in * t * e + 2 * m * e + t * e) + 4 * (3 * e + m)
-        return 4.0 * t * e * m, nbytes
+        nbytes = 2 * (n_in * t * e + t * e) + w1.element_size() * 2 * m * e + 4 * (3 * e + m)
+        if name == "K4":
+            return 0.0, 4.0 * t * e * m, nbytes + 4 * (m + e)
+        return 4.0 * t * e * m, 0.0, nbytes
     qkv, tables = args[:2]
     s, n, _ = qkv.shape
     heads, hd = kw["heads"], kw["hd"]
@@ -172,9 +222,12 @@ def kernel_work(name: str, args, kw) -> tuple:
         kh, khw = kw["kh"], kw["kw"]
     nkeys = kh * khw
     nt = tables.shape[0]
-    flops = 2.0 * s * heads * n * (2 * nkeys * hd + nt * hd)
+    qk = 2.0 * s * heads * n * nkeys * hd                 # q.k; the same again for p.v
+    rel = 2.0 * s * heads * n * nt * hd
     nbytes = 2 * (qkv.numel() + tables.numel() + s * n * heads * hd)
-    return flops, nbytes
+    if name == "K7-int8":
+        return qk + rel, qk, nbytes
+    return 2 * qk + rel, 0.0, nbytes
 
 
 def sdpa_inputs(torch, qkv, tables, heads, hd, kh, kw):
@@ -197,10 +250,71 @@ def sdpa_inputs(torch, qkv, tables, heads, hd, kh, kw):
     return q, k, v, (bias * scale).to(qkv.dtype)
 
 
+def exact_product(xq, wq):
+    """Integer-valued (T, I) x int8 (O, I) -> the exact product, in fp32."""
+    return (xq.double() @ wq.double().T).float()
+
+
+def k2_one_tensor_scale(torch, x, mask, ln_w, ln_b, wq, s, b, eps=1e-6):
+    """Planted fault of K2: one activation scale for the whole tensor in
+    place of one per row."""
+    xn = torch.nn.functional.layer_norm(x.float(), x.shape[-1:], ln_w, ln_b, eps)
+    if mask is not None:
+        xn = xn * mask.float()
+    sx = xn.abs().amax().clamp(min=1e-12) / 127.0
+    return (exact_product(torch.round(xn / sx), wq) * (sx * s) + b).to(x.dtype)
+
+
+def k4_hidden_scale_reused(torch, quant_k, x, ln_w, ln_b, w1q, s1, b1, w2q, s2, b2,
+                           add=None, eps=1e-6):
+    """Planted fault of K4: the second product dequantized with the first
+    quantization's row scale (the hidden's own scale dropped)."""
+    xf = x.float() + add.float()
+    xq, sx = quant_k.row_quant(torch.nn.functional.layer_norm(xf, x.shape[-1:], ln_w, ln_b, eps))
+    h = quant_k.gelu_phi_poly(exact_product(xq, w1q) * (sx * s1) + b1)
+    hq, _ = quant_k.row_quant(h)
+    return (xf + exact_product(hq, w2q) * (sx * s2) + b2).to(x.dtype)
+
+
+def k7_int8_variant(torch, qkv, tables, *, kh, kw, heads, hd, fault):
+    """Planted faults of K7-int8: its plain arithmetic with one step wrong.
+    ``unfolded``: the key scales are not folded into q; ``tensor_q``: one q
+    scale per (image, head) in place of one per row; ``rel_from_qi``: the
+    rel-pos bias taken from the dequantized int8 q."""
+    s, n, _ = qkv.shape
+    dt, dev = qkv.dtype, qkv.device
+    scale = hd ** -0.5
+    x = qkv.reshape(s, n, heads, 3 * hd).float()
+    tab = tables.float()
+    tok = torch.arange(n, device=dev)
+    idx_h = ((tok // kw)[:, None] - (tok // kw)[None] + kh - 1).expand(s, n, n)
+    idx_w = ((tok % kw)[:, None] - (tok % kw)[None] + kw - 1 + 2 * kh - 1).expand(s, n, n)
+    out = torch.empty((s, n, heads, hd), dtype=dt, device=dev)
+    for h in range(heads):
+        q, k, v = x[:, :, h, :hd], x[:, :, h, hd:2 * hd], x[:, :, h, 2 * hd:]
+        sk = k.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-12
+        ki = torch.round(k / sk)
+        qs = q if fault == "unfolded" else q * sk
+        amax = qs.abs().amax(dim=(1, 2), keepdim=True) if fault == "tensor_q" \
+            else qs.abs().amax(dim=-1, keepdim=True)
+        sq = amax / 127.0 + 1e-12
+        qi = torch.round(qs / sq)
+        q_rel = qi * sq / sk if fault == "rel_from_qi" else q
+        g = (q_rel @ tab.T * (1.0 / scale)).to(dt).float()
+        bias = g.gather(2, idx_h) + g.gather(2, idx_w)
+        logits = ((qi @ ki.transpose(1, 2)) * sq + bias) * scale
+        p = torch.softmax(logits, dim=-1).to(dt).float()
+        out[:, :, h] = (p @ v).to(dt)
+    return out.reshape(s, n, heads * hd)
+
+
 def stressed(torch, name, args, kw, gen):
     """(args, kw, faults) at the shapes of the recorded call ``args, kw``:
     stressed inputs, and the planted faults as {what: (args, kw)} of the
-    plain version."""
+    plain version, or {what: function} where the fault is a wrong step of
+    the arithmetic and not a wrong input."""
+    from samcarriestheburden_torch.kernels import quant as quant_k
+
     dev, bf = args[0].device, torch.bfloat16
 
     def randn(*shape, std=1.0, mean=0.0, dtype=torch.float32):
@@ -220,6 +334,47 @@ def stressed(torch, name, args, kw, gen):
         if mask is not None:
             faults["pad mask ignored"] = (sub(a, 1, None), kw)
         return a, kw, faults
+    if name == "K2":
+        # every 7th row carries one spike, so its LayerNorm output has ~8x the
+        # absmax of its neighbours (rows of very different int8 scale); output
+        # channels of very different weight scale; the recorded pad mask keeps
+        # its all-zero rows
+        x, mask, _, _, wq = args[:5]
+        (t, e), o = x.shape, wq.shape[0]
+        xs = randn(t, e, std=2.0, mean=0.5)
+        rows = torch.arange(0, t, 7, device=dev)
+        xs[rows, rows % e] += 400.0
+        w = randn(o, e, std=e ** -0.5) * (0.2 + 2.8 * torch.rand((o, 1), generator=gen,
+                                                                  device=dev))
+        a = (xs.to(bf), mask, randn(e, std=0.5, mean=1.0), randn(e, std=0.5),
+             *quant_k.quantize_weight(w), randn(o, mean=1.0)) + tuple(args[7:])
+        faults = {"qkv bias dropped": (sub(a, 6, torch.zeros_like(a[6])), kw),
+                  "LayerNorm shift dropped": (sub(a, 3, torch.zeros_like(a[3])), kw),
+                  "weight scales replaced by their mean":
+                      (sub(a, 5, a[5].mean().expand_as(a[5]).contiguous()), kw),
+                  "one activation scale per tensor": lambda: k2_one_tensor_scale(torch, *a, **kw)}
+        if mask is not None:
+            faults["pad mask ignored"] = (sub(a, 1, None), kw)
+        return a, kw, faults
+    if name == "K4":
+        x, _, _, w1q = args[:4]
+        (t, e), m = x.shape, w1q.shape[0]
+
+        def chan(n):
+            return 0.2 + 2.8 * torch.rand((n, 1), generator=gen, device=dev)
+
+        a = (randn(t, e, dtype=bf), randn(e, std=0.5, mean=1.0), randn(e, std=0.5),
+             *quant_k.quantize_weight(randn(m, e, std=e ** -0.5) * chan(m)), randn(m, std=0.5),
+             *quant_k.quantize_weight(randn(e, m, std=m ** -0.5) * chan(e)), randn(e, mean=1.0))
+        k = dict(kw, add=randn(t, e, dtype=bf))
+        faults = {"add dropped": (a, dict(k, add=None)),
+                  "lin1 bias dropped": (sub(a, 5, torch.zeros_like(a[5])), k),
+                  "lin2 bias dropped": (sub(a, 8, torch.zeros_like(a[8])), k),
+                  "lin2 scales replaced by their mean":
+                      (sub(a, 7, a[7].mean().expand_as(a[7]).contiguous()), k),
+                  "hidden's row scale dropped": lambda: k4_hidden_scale_reused(torch, quant_k,
+                                                                               *a, **k)}
+        return a, k, faults
     if name == "K3":
         x, _, _, w1 = args[:4]
         (t, e), m = x.shape, w1.shape[0]
@@ -233,12 +388,29 @@ def stressed(torch, name, args, kw, gen):
         return a, k, faults
     qkv, tables = args[:2]
     kh = kw["ws"] if name == "K5" else kw["kh"]
-    a = (randn(*qkv.shape, std=2.0, dtype=bf), randn(*tables.shape, std=0.3, dtype=bf))
+    if name == "K7-int8":
+        # key channels and query rows of very different scale on top of the
+        # peaked softmax, and a few query rows with an outlier channel, so the
+        # folded key scales and the per-row query scales both carry the result
+        s, n, _ = qkv.shape
+        heads, hd = kw["heads"], kw["hd"]
+        x = randn(s, n, heads, 3, hd, std=2.0)
+        x[:, :, :, 1] *= 0.1 + 1.9 * torch.rand((1, 1, heads, hd), generator=gen, device=dev)
+        x[:, :, :, 0] *= 0.1 + 1.4 * torch.rand((s, n, heads, 1), generator=gen, device=dev)
+        x[:, ::61, :, 0, 0] *= 8.0        # a few rows with one outlier channel
+        a = (x.reshape(qkv.shape).to(bf), randn(*tables.shape, std=0.3, dtype=bf))
+    else:
+        a = (randn(*qkv.shape, std=2.0, dtype=bf), randn(*tables.shape, std=0.3, dtype=bf))
     rh, rw = a[1][:2 * kh - 1], a[1][2 * kh - 1:]
     faults = {"rel bias dropped": ((a[0], torch.zeros_like(a[1])), kw),
               "rel tables reversed": ((a[0], torch.cat([rh.flip(0), rw.flip(0)])), kw)}
     if rh.shape == rw.shape:
         faults["Rh and Rw swapped"] = ((a[0], torch.cat([rw, rh])), kw)
+    if name == "K7-int8":
+        for what, fault in (("key scales not folded into q", "unfolded"),
+                            ("one q scale per tensor", "tensor_q"),
+                            ("rel bias from the quantized q", "rel_from_qi")):
+            faults[what] = lambda fault=fault: k7_int8_variant(torch, *a, **kw, fault=fault)
     return a, kw, faults
 
 
@@ -253,7 +425,8 @@ def phase_stress(torch, name, kern, plain, args, kw, gen) -> float:
     out_p = plain(*a, **k)
     err = max_err(kern(*a, **k), out_p)
     tol = STRESS_TOL[name] * out_p.float().abs().max().item()
-    misses = {what: max_err(plain(*fa, **fk), out_p) for what, (fa, fk) in faults.items()}
+    misses = {what: max_err(f() if callable(f) else plain(*f[0], **f[1]), out_p)
+              for what, f in faults.items()}
     log(f"{name} stressed: max abs err {err:.4g} (tol {tol:.4g}); planted faults miss by "
         + ", ".join(f"{what} {m:.4g}" for what, m in misses.items())
         + f" (must be >= {FAULT_MARGIN * tol:.4g})")
@@ -309,8 +482,50 @@ def phase_profile(torch, fn, what: str, top: int = 12) -> None:
         log(f"  {e.device_time_total / 1e3:8.3f} ms  {e.count:4d} x  {e.key[:90]}")
 
 
-def phase_golden(torch, np, cfg_t, ImageEncoderViT, KERNEL_OPS) -> float:
-    """vit_t encoder in bf16 through the kernels on the card vs the golden."""
+def phase_encoder_vs_plain(torch, make_encode_batch, model, encode, packed, plain_ops, emb,
+                           inputs, what: str, tol_max: float, tol_mean: float) -> None:
+    """The whole encoder, kernel path (``encode``, whose output on ``inputs``
+    is ``emb``) vs plain path on the same packed weights; then the same with
+    the rel tables scaled up, and the rel bias dropped as the planted fault."""
+    plain = make_encode_batch(model, torch.bfloat16, ops=plain_ops)
+    t0 = time.perf_counter()
+    emb_plain = plain(packed, *inputs)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    diff = (emb - emb_plain).abs()
+    enc_max, enc_mean = diff.max().item(), diff.mean().item()
+    log(f"{what} kernel path vs plain path: max abs err {enc_max:.4g} (tol {tol_max}), mean "
+        f"{enc_mean:.4g} (tol {tol_mean}); max |plain| {emb_plain.abs().max().item():.4g}; "
+        f"the plain path took {t_plain:.2f} s")
+    check(enc_max <= tol_max and enc_mean <= tol_mean,
+          f"{what} kernel path disagrees with the plain path")
+    del emb_plain
+
+    def with_tables(scale):
+        return [dict(pk, tables=(pk["tables"].float() * scale).to(pk["tables"].dtype))
+                for pk in packed]
+
+    hot = with_tables(REL_STRESS)
+    plain_hot = plain(hot, *inputs)
+    diff = (encode(hot, *inputs) - plain_hot).abs()
+    hot_max, hot_mean = diff.max().item(), diff.mean().item()
+    fault = (plain(with_tables(0.0), *inputs) - plain_hot).abs()
+    log(f"{what}, rel tables x{REL_STRESS}: kernel path vs plain path max abs err "
+        f"{hot_max:.4g}, mean {hot_mean:.4g}; rel bias dropped misses by max "
+        f"{fault.max().item():.4g}, mean {fault.mean().item():.4g} (must be >= "
+        f"{FAULT_MARGIN} x tol)")
+    check(hot_max <= tol_max and hot_mean <= tol_mean,
+          f"{what} kernel path disagrees with the plain path at scaled rel tables")
+    check(fault.max().item() >= FAULT_MARGIN * tol_max
+          and fault.mean().item() >= FAULT_MARGIN * tol_mean,
+          f"the {what} check cannot see a dropped rel bias")
+
+
+def phase_golden(torch, np, cfg_t, ImageEncoderViT, KERNEL_OPS, KERNEL_OPS_INT8,
+                 PLAIN_OPS_INT8) -> float:
+    """vit_t encoder in bf16 through the kernels on the card vs the golden;
+    then its int8 mode, kernels vs plain versions (ragged tiles: 128 tokens,
+    E = 32, head dim 16)."""
     data = np.load(ROOT / "tests" / "golden" / "image_encoder.npz")
     sd = {k[3:]: torch.from_numpy(data[k]) for k in data.files if k.startswith("sd/")}
     enc = ImageEncoderViT(cfg_t.image_encoder)
@@ -322,6 +537,15 @@ def phase_golden(torch, np, cfg_t, ImageEncoderViT, KERNEL_OPS) -> float:
     log(f"golden vit_t (bf16 kernels vs fp32 reference): max abs err {err:.4g} "
         f"(tol {GOLDEN_TOL})")
     check(err <= GOLDEN_TOL, f"golden vit_t encoder off by {err}")
+    x = torch.from_numpy(data["x"]).cuda()
+    packed = enc.pack(torch.bfloat16, quantize="int8")
+    out_k = enc(x, dtype=torch.bfloat16, packed=packed, ops=KERNEL_OPS_INT8)
+    out_p = enc(x, dtype=torch.bfloat16, packed=packed, ops=PLAIN_OPS_INT8)
+    torch.cuda.synchronize()
+    err8, off = max_err(out_k, out_p), max_err(out_k.cpu(), torch.from_numpy(data["out"]))
+    log(f"vit_t int8 (kernels vs plain versions, bf16): max abs err {err8:.4g} (tol "
+        f"{GOLDEN_INT8_TOL}); {off:.4g} off the fp32 reference")
+    check(err8 <= GOLDEN_INT8_TOL, f"vit_t int8 kernels off their plain versions by {err8}")
     return err
 
 
@@ -624,7 +848,69 @@ def phase_enhance(torch, np, port, model, emb, embed_ips: float):
         f"fp32 decode)")
     log(f"embed + enhance: {1.0 / (1.0 / embed_ips + 1.0 / enhance_ips):.3f} images/s")
     phase_profile(torch, lambda: enh.enhance_batch(probs, stems), "enhance")
-    return launches, recorded[0]
+    return launches, recorded[0], enhance_ips
+
+
+def phase_embed_int8(torch, kernels, cfg, model, make_serving_encoder, two_round_decode,
+                     inputs, n_classes: int, emb_bf16, results_bf16, bf16_ips: float,
+                     enhance_ips: float):
+    """The int8 embed path at full width and depth, counted; its outputs, its
+    drift from the bf16 path, its throughput and profile.  Returns the
+    launches of the counted run, the encode function, its weights and the
+    embeddings."""
+    imgs, sizes, coords, labels = inputs
+    t0 = time.perf_counter()
+    encode, packed = make_serving_encoder(model, torch.bfloat16, quantize="int8")
+    encode(packed, imgs, sizes)                           # warm-up
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for pk in packed for t in pk.values())
+    log(f"int8 weights prequantized once and one warm-up call in "
+        f"{time.perf_counter() - t0:.1f} s; the pack holds {nbytes / 1e6:.1f} MB")
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    emb = encode(packed, imgs, sizes)
+    torch.cuda.synchronize()
+    t_embed = time.perf_counter() - t0
+    results = []
+    for i in range(B):
+        low, iou = two_round_decode(model, emb[i:i + 1], coords, labels)
+        results.append((low, iou, model.postprocess_masks(low, INPUT_HW, ORIGINAL_HW)))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"int8 embed path launches: {launches} ({t_embed * 1e3:.1f} ms for {B} images)")
+    enc = cfg.image_encoder
+    n_global = len(enc.global_attn_indexes)
+    want = {"K2": enc.depth, "K4": enc.depth, "K5": enc.depth - n_global, "K7-int8": n_global,
+            "K1": 0, "K3": 0, "K7": 0, "K8": 0}
+    check(launches == want, f"int8 embed path launches {launches}, expected {want}")
+
+    g = cfg.prompt_encoder.image_embedding_size
+    check(tuple(emb.shape) == (B, 256, *g) and emb.dtype == torch.float32,
+          f"int8 embedding shape {tuple(emb.shape)} {emb.dtype}")
+    check(bool(torch.isfinite(emb).all()), "non-finite int8 embedding")
+    agree = []
+    for (low, iou, masks), (_, _, masks_bf16) in zip(results, results_bf16):
+        check(tuple(low.shape) == (n_classes, 1, 4 * g[0], 4 * g[1]), f"low-res {low.shape}")
+        check(tuple(masks.shape) == (n_classes, 1, *ORIGINAL_HW), f"masks {masks.shape}")
+        for t in (low, iou, masks):
+            check(bool(torch.isfinite(t).all()), "non-finite decode output of the int8 embedding")
+        agree.append(((masks > 0) == (masks_bf16 > 0)).float().mean().item())
+    drift = ((emb - emb_bf16).norm() / emb_bf16.norm()).item()
+    log(f"int8 vs bf16 embedding: relative L2 drift {drift:.4g} (must be finite and > "
+        f"{INT8_DRIFT_MIN}); decoded mask pixels that agree: "
+        + ", ".join(f"{a:.4f}" for a in agree))
+    check(drift == drift and drift > INT8_DRIFT_MIN,
+          "the int8 embedding equals the bf16 one: nothing was quantized")
+
+    t_ms = card_ms(torch, lambda: encode(packed, imgs, sizes), iters=5, warmup=1)
+    ips = B / (t_ms / 1e3)
+    log(f"embed int8: {ips:.3f} images/s ({t_ms:.2f} ms per batch of {B}; bf16 {bf16_ips:.3f} "
+        f"images/s)")
+    log(f"embed int8 + enhance: {1.0 / (1.0 / ips + 1.0 / enhance_ips):.3f} images/s (with the "
+        f"bf16 embed {1.0 / (1.0 / bf16_ips + 1.0 / enhance_ips):.3f})")
+    phase_profile(torch, lambda: encode(packed, imgs, sizes), "int8 encoder")
+    return launches, encode, packed, emb
 
 
 def main() -> int:
@@ -643,7 +929,9 @@ def main() -> int:
         from samcarriestheburden_torch.kernels import attention as attn_k
         from samcarriestheburden_torch.kernels import build
         from samcarriestheburden_torch.kernels import mlp as mlp_k
-        from samcarriestheburden_torch.models.image_encoder import (KERNEL_OPS, PLAIN_OPS,
+        from samcarriestheburden_torch.kernels import quant as quant_k
+        from samcarriestheburden_torch.models.image_encoder import (KERNEL_OPS, KERNEL_OPS_INT8,
+                                                                    PLAIN_OPS, PLAIN_OPS_INT8,
                                                                     EncoderOps,
                                                                     ImageEncoderViT)
         from samcarriestheburden_torch.models.sam import build_sam, two_round_decode
@@ -729,37 +1017,8 @@ def main() -> int:
     phase_profile(torch, lambda: encode(packed, imgs, sizes), "encoder")
 
     # 4. kernel path vs plain path, whole encoder ----------------------------
-    emb_plain = make_encode_batch(model, torch.bfloat16, ops=PLAIN_OPS)(packed, imgs, sizes)
-    diff = (emb - emb_plain).abs()
-    enc_max, enc_mean = diff.max().item(), diff.mean().item()
-    log(f"encoder kernel path vs plain path (bf16): max abs err {enc_max:.4g} (tol "
-        f"{ENCODER_TOL_MAX}), mean {enc_mean:.4g} (tol {ENCODER_TOL_MEAN}); "
-        f"max |plain| {emb_plain.abs().max().item():.4g}")
-    check(enc_max <= ENCODER_TOL_MAX and enc_mean <= ENCODER_TOL_MEAN,
-          "encoder kernel path disagrees with the plain path")
-    del emb_plain
-
-    # the same with the rel tables scaled up, and the rel bias dropped as the fault
-    def with_tables(scale):
-        return [dict(pk, tables=(pk["tables"].float() * scale).to(pk["tables"].dtype))
-                for pk in packed]
-
-    hot = with_tables(REL_STRESS)
-    plain_hot = make_encode_batch(model, torch.bfloat16, ops=PLAIN_OPS)(hot, imgs, sizes)
-    diff = (encode(hot, imgs, sizes) - plain_hot).abs()
-    hot_max, hot_mean = diff.max().item(), diff.mean().item()
-    fault = (make_encode_batch(model, torch.bfloat16, ops=PLAIN_OPS)(
-        with_tables(0.0), imgs, sizes) - plain_hot).abs()
-    log(f"encoder, rel tables x{REL_STRESS}: kernel path vs plain path max abs err "
-        f"{hot_max:.4g}, mean {hot_mean:.4g}; rel bias dropped misses by max "
-        f"{fault.max().item():.4g}, mean {fault.mean().item():.4g} (must be >= "
-        f"{FAULT_MARGIN} x tol)")
-    check(hot_max <= ENCODER_TOL_MAX and hot_mean <= ENCODER_TOL_MEAN,
-          "encoder kernel path disagrees with the plain path at scaled rel tables")
-    check(fault.max().item() >= FAULT_MARGIN * ENCODER_TOL_MAX
-          and fault.mean().item() >= FAULT_MARGIN * ENCODER_TOL_MEAN,
-          "the encoder check cannot see a dropped rel bias")
-    del hot, plain_hot, diff, fault
+    phase_encoder_vs_plain(torch, make_encode_batch, model, encode, packed, PLAIN_OPS, emb,
+                           (imgs, sizes), "encoder (bf16)", ENCODER_TOL_MAX, ENCODER_TOL_MEAN)
 
     # decode on the card vs on the CPU, fp32
     cpu_model = build_sam(cfg, device="cpu", state_dict={
@@ -773,8 +1032,16 @@ def main() -> int:
     del cpu_model
 
     # 5. the enhance path, counted, and its checks ----------------------------
-    launches_enh, k8_input = phase_enhance(torch, np, port, model, emb,
-                                           B / (t_enc_ms / 1e3))
+    bf16_ips = B / (t_enc_ms / 1e3)
+    launches_enh, k8_input, enhance_ips = phase_enhance(torch, np, port, model, emb, bf16_ips)
+
+    # 5b. the int8 embed path, counted, and the whole int8 encoder vs its plain path
+    launches_int8, encode8, packed8, emb8 = phase_embed_int8(
+        torch, kernels, cfg, model, make_serving_encoder, two_round_decode,
+        (imgs, sizes, coords, labels), N_CLASSES, emb, results, bf16_ips, enhance_ips)
+    phase_encoder_vs_plain(torch, make_encode_batch, model, encode8, packed8, PLAIN_OPS_INT8,
+                           emb8, (imgs, sizes), "encoder (int8)", ENCODER_INT8_TOL_MAX,
+                           ENCODER_INT8_TOL_MEAN)
 
     # 6. every kernel vs its plain version at its path's shapes --------------
     recorded = {}
@@ -787,10 +1054,17 @@ def main() -> int:
 
     rec_ops = EncoderOps(*(recorder(n, f) for n, f in zip(("K1", "K3", "K5", "K7"), KERNEL_OPS)))
     make_encode_batch(model, torch.bfloat16, ops=rec_ops)(packed, imgs, sizes)
+    rec_ops = EncoderOps(*(recorder(n, f) for n, f in zip(("K2", "K4", "K5", "K7-int8"),
+                                                          KERNEL_OPS_INT8)), int8=True)
+    make_encode_batch(model, torch.bfloat16, ops=rec_ops)(packed8, imgs, sizes)
     pairs = {"K1": (mlp_k.ln_masked_linear, mlp_k.ln_masked_linear_plain),
+             "K2": (quant_k.ln_masked_linear_int8, quant_k.ln_masked_linear_int8_plain),
              "K3": (mlp_k.ln_mlp_residual, mlp_k.ln_mlp_residual_plain),
+             "K4": (quant_k.ln_mlp_residual_int8, quant_k.ln_mlp_residual_int8_plain),
              "K5": (attn_k.rel_attention_window, attn_k.rel_attention_window_plain),
-             "K7": (attn_k.rel_attention_global, attn_k.rel_attention_global_plain)}
+             "K7": (attn_k.rel_attention_global, attn_k.rel_attention_global_plain),
+             "K7-int8": (KERNEL_OPS_INT8.rel_attention_global,
+                         PLAIN_OPS_INT8.rel_attention_global)}
     rows = []
     stress_gen = torch.Generator(device=dev).manual_seed(2)
     for name, (kern, plain) in pairs.items():
@@ -803,24 +1077,31 @@ def main() -> int:
         ms = card_ms(torch, lambda: kern(*args, **kw))
         plain_ms = card_ms(torch, lambda: plain(*args, **kw), iters=3, warmup=1)
         library_ms = None
-        if name in ("K5", "K7"):
+        if name in ("K5", "K7", "K7-int8"):
             kh, kwid = (kw["ws"], kw["ws"]) if name == "K5" else (kw["kh"], kw["kw"])
             q, k, v, bias = sdpa_inputs(torch, args[0], args[1], kw["heads"], kw["hd"],
                                         kh, kwid)
             sdpa = torch.nn.functional.scaled_dot_product_attention
             library_ms = card_ms(torch, lambda: sdpa(q, k, v, attn_mask=bias))
             del q, k, v, bias
-        flops, nbytes = kernel_work(name, args, kw)
-        bound_ms, bound_by = bound(flops, nbytes)
+        flops, int8_ops, nbytes = kernel_work(name, args, kw)
+        bound_ms, bound_by = bound(flops, nbytes, int8_ops)
         shape = tuple(args[0].shape)
         log(f"{name} on {shape}: max abs err {err:.4g} vs max |plain| {ref:.4g} "
             f"(tol {KERNEL_TOL[name]} x max |plain|), {ms:.4f} ms (plain {plain_ms:.4f}, library "
             f"{library_ms}, bound {bound_ms:.4f} by {bound_by}); "
-            f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+            f"{(flops + int8_ops) / (ms * 1e-3) / 1e12:.1f} Tops/s")
         check(err <= KERNEL_TOL[name] * max(ref, 1e-6), f"{name} disagrees with its plain version")
+        if name == "K4":    # its other GELU, which the main path does not run
+            err_erf = max_err(kern(*args, **kw, gelu="erf"), plain(*args, **kw, gelu="erf"))
+            log(f"K4 with gelu='erf': max abs err {err_erf:.4g}")
+            check(err_erf <= KERNEL_TOL[name] * max(ref, 1e-6),
+                  "K4 with gelu='erf' disagrees with its plain version")
         phase_stress(torch, name, kern, plain, args, kw, stress_gen)
         rows.append({"name": name, "route": "cuda", "source": KERNELS[name][1],
-                     "replaces": KERNELS[name][2], "launches": launches[name],
+                     "replaces": KERNELS[name][2],
+                     "launches": (launches_int8 if KERNELS[name][0] == "embed-int8"
+                                  else launches)[name],
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
     del recorded
@@ -829,7 +1110,8 @@ def main() -> int:
                  "replaces": KERNELS["K8"][2], "launches": launches_enh["K8"], **k8})
 
     # 7. the tiny config through the kernels vs the reference golden --------
-    phase_golden(torch, np, sam_vit_t_config(), ImageEncoderViT, KERNEL_OPS)
+    phase_golden(torch, np, sam_vit_t_config(), ImageEncoderViT, KERNEL_OPS, KERNEL_OPS_INT8,
+                 PLAIN_OPS_INT8)
 
     log(json.dumps({"kernels": rows}))
     log(identity)

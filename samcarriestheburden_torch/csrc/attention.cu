@@ -1,10 +1,11 @@
-// K5 and K7: attention with the decomposed relative-position bias of SAM's
-// ViT encoder, bf16 on sm_90a.
+// K5, K7 and K7-int8: attention with the decomposed relative-position bias of
+// SAM's ViT encoder, on sm_90a.
 //
 // K5 replaces samcarriestheburden_tpu/kernels/attention.py:fused_rel_attention_window3d
 //    (one 14x14 window per sequence, 200 slots of which 196 are live keys),
 // K7 replaces samcarriestheburden_tpu/kernels/attention.py:fused_rel_attention_global3d
-//    with int8_qk=False (the whole 64x64 grid, 4096 keys).
+//    with int8_qk=False (the whole 64x64 grid, 4096 keys),
+// K7-int8 the same TPU kernel with int8_qk=True (below).
 // Both compute, per sequence s, head h and query i at grid cell (ph, pw):
 //    rel_h[i, kh] = bf16(q_i . Rh[ph - kh + KH - 1] / scale)      (same for w)
 //    logit[i, j] = scale * (q_i . k_j + rel_h[i, kh(j)] + rel_w[i, kw(j)])
@@ -30,6 +31,20 @@
 // and are not carried over.
 // K5 runs 13 warps so one block holds all 200 rows of a window and reads its
 // q/k/v once; K7 runs 8 warps per 128-row query tile.
+//
+// K7-int8 computes q . k on the int8 tensor cores (mma.sync m16n8k32):
+//    sk[c]  = absmax_j |k[j, c]| / 127 + 1e-12       per (sequence, head, channel)
+//    ki     = rint(k / sk)                            int8
+//    qs     = q * sk;  sq[i] = absmax_c |qs[i, c]| / 127 + 1e-12;  qi = rint(qs / sq)
+//    logit[i, j] = scale * (int32(qi . ki_j) * sq[i] + (rel_h[i, kh(j)] + rel_w[i, kw(j)]))
+// with the rel terms from the unquantized q as above, and the softmax and
+// p . v of K7 in bf16.  sk needs every key before the first tile, so two
+// small passes run first: a column absmax over the keys (atomicMax on the
+// float bits, which order as integers for non-negative values) and the
+// quantization of k to int8 rows zero-padded from hd to a multiple of the
+// 32-wide int8 k-step (80 -> 96), written once per (sequence, head) and then
+// streamed by every query block in place of the bf16 keys.  The accumulant
+// stays below 127^2 * 96 < 2^24, so its fp32 conversion is exact.
 #include <math.h>
 
 #include "common.cuh"
@@ -43,17 +58,95 @@ constexpr size_t attn_smem_bytes(int kh, int kw) {
   return (size_t)(NW * 16 * (HD + 8) + 4 * BKV * (HD + 8) + NW * 16 * (kh + kw)) * sizeof(bf16);
 }
 
+// int8 keys: hd padded to the 32-wide k-step, rows padded by 16 bytes so the
+// eight 16-byte rows of an ldmatrix tile fall in distinct banks
+__host__ __device__ constexpr int padded_hd(int hd) { return (hd + 31) / 32 * 32; }
+
 template <int HD, int NW>
+constexpr size_t attn_smem_bytes_int8(int kh, int kw) {
+  return attn_smem_bytes<HD, NW>(kh, kw) + NW * 16 * (padded_hd(HD) + 16) +
+         (NW * 16 + HD) * sizeof(float);
+}
+
+// kmax[s, h, c] = max_j |k[s, j, h, c]|, folded in with atomicMax (kmax zeroed before).
+template <int HD>
+__global__ void __launch_bounds__(HD * 4)
+k_absmax_kernel(const bf16* __restrict__ qkv, float* __restrict__ kmax, int nrows, int heads,
+                int rows_per_block) {
+  constexpr int CH = HD / 8;
+  __shared__ float sm[32][HD];
+  const int tid = threadIdx.x, cc = tid % CH, r0 = tid / CH;
+  const int h = blockIdx.y, s = blockIdx.z;
+  const int stride = heads * 3 * HD;
+  const bf16* base = qkv + (size_t)s * nrows * stride + h * 3 * HD + HD + cc * 8;
+  const int j0 = blockIdx.x * rows_per_block, j1 = min(j0 + rows_per_block, nrows);
+  float m[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) m[e] = 0.f;
+  for (int j = j0 + r0; j < j1; j += 32) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(base + (size_t)j * stride);
+    const bf16* v = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) m[e] = fmaxf(m[e], fabsf(__bfloat162float(v[e])));
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) sm[r0][cc * 8 + e] = m[e];
+  __syncthreads();
+  if (tid < HD) {
+    float r = 0.f;
+    for (int i = 0; i < 32; ++i) r = fmaxf(r, sm[i][tid]);
+    atomicMax(reinterpret_cast<int*>(kmax + (size_t)(s * heads + h) * HD + tid),
+              __float_as_int(r));
+  }
+}
+
+// kq[s, h, j, :] = rint(k[s, j, h, :] / sk) as int8, zero beyond HD.
+template <int HD>
+__global__ void __launch_bounds__(256)
+k_quant_kernel(const bf16* __restrict__ qkv, const float* __restrict__ kmax,
+               int8_t* __restrict__ kq, int nrows, int heads) {
+  constexpr int CH = HD / 8, HDP = padded_hd(HD), CHP = HDP / 8;
+  const int c = blockIdx.x * 256 + threadIdx.x;
+  if (c >= nrows * CHP) return;
+  const int j = c / CHP, cc = c % CHP;
+  const int h = blockIdx.y, s = blockIdx.z;
+  uint32_t w[2] = {0u, 0u};
+  if (cc < CH) {
+    const int stride = heads * 3 * HD;
+    const uint4 raw = *reinterpret_cast<const uint4*>(
+        qkv + ((size_t)s * nrows + j) * stride + h * 3 * HD + HD + cc * 8);
+    const bf16* v = reinterpret_cast<const bf16*>(&raw);
+    const float* km = kmax + (size_t)(s * heads + h) * HD + cc * 8;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float sk = km[e] / 127.f + 1e-12f;
+      const int q = __float2int_rn(__bfloat162float(v[e]) / sk);
+      w[e >> 2] |= (uint32_t)(q & 0xff) << (8 * (e & 3));
+    }
+  }
+  *reinterpret_cast<uint2*>(kq + ((size_t)(s * heads + h) * nrows + j) * HDP + cc * 8) =
+      make_uint2(w[0], w[1]);
+}
+
+template <int HD, int NW, bool INT8>
 __global__ void __launch_bounds__(NW * 32)
 rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
+                     const int8_t* __restrict__ kq, const float* __restrict__ kmax,
                      bf16* __restrict__ out, int nrows, int nkeys, int heads, int KH, int KW,
                      float scale, float inv_scale) {
   constexpr int BQ = NW * 16, LD = HD + 8, KSTEPS = HD / 16, DT = HD / 8, CH = HD / 8;
+  constexpr int HDP = padded_hd(HD), LDK = HDP + 16, KSTEPS8 = HDP / 32, CHK = HDP / 16;
   constexpr int NTHREADS = NW * 32;
+  // the ring's stage: bf16 K and V tiles, or an int8 K tile and a bf16 V tile
+  constexpr int STAGE_BYTES = INT8 ? BKV * LDK + BKV * LD * 2 : 2 * BKV * LD * 2;
+  static_assert(2 * STAGE_BYTES <= 4 * BKV * LD * 2, "the ring outgrows the tables' space");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);  // [BQ][LD]
-  bf16* sKV = sQ + BQ * LD;                  // [2 stages][K | V][BKV][LD]; tables first
+  bf16* sKV = sQ + BQ * LD;                  // [2 stages][K | V][BKV][..]; tables first
   bf16* sRel = sKV + 4 * BKV * LD;           // [BQ][KH + KW]
+  int8_t* sQi = reinterpret_cast<int8_t*>(sRel + BQ * (KH + KW));  // [BQ][LDK]    (INT8)
+  float* sSq = reinterpret_cast<float*>(sQi + BQ * LDK);           // [BQ] row scales
+  float* sSk = sSq + BQ;                                           // [HD] key channel scales
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, s = blockIdx.z;
@@ -74,6 +167,9 @@ rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
     cp_async16(sKV + r * LD + cc, ok ? tab + (size_t)r * HD + cc : tab, ok ? 16 : 0);
   }
   cp_async_commit();
+  if (INT8)
+    for (int c = tid; c < HD; c += NTHREADS)
+      sSk[c] = kmax[(size_t)(s * heads + h) * HD + c] / 127.f + 1e-12f;
   cp_async_wait<0>();
   __syncthreads();
 
@@ -90,6 +186,35 @@ rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
 #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk)
     ldmatrix_x4(qf[kk], sQ + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+
+  // int8: fold the key channel scales into q, quantize each of this warp's
+  // rows by its own absmax, and take the int8 fragments
+  uint32_t qf8[KSTEPS8][4];
+  float sq[2] = {0.f, 0.f};
+  if (INT8) {
+    for (int r = 0; r < 16; ++r) {
+      const int row = warp * 16 + r;
+      float qs[KSTEPS8];
+      float amax = 0.f;
+#pragma unroll
+      for (int i = 0; i < KSTEPS8; ++i) {
+        const int c = lane + 32 * i;
+        qs[i] = c < HD ? __bfloat162float(sQ[row * LD + c]) * sSk[c] : 0.f;
+        amax = fmaxf(amax, fabsf(qs[i]));
+      }
+      const float sr = warp_max(amax) / 127.f + 1e-12f;
+#pragma unroll
+      for (int i = 0; i < KSTEPS8; ++i)
+        sQi[row * LDK + lane + 32 * i] = (int8_t)__float2int_rn(qs[i] / sr);
+      if (lane == 0) sSq[row] = sr;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS8; ++kk)
+      ldmatrix_x4(qf8[kk], sQi + (warp * 16 + (lane & 15)) * LDK + kk * 32 + (lane >> 4) * 16);
+    sq[0] = sSq[rl[0]];
+    sq[1] = sSq[rl[1]];
+  }
 
   // 2. rel terms: g = q . table_row, scattered to the (row, kh) and
   //    (row, KH + kw) entries each table row serves for this query
@@ -124,17 +249,31 @@ rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
 
   // 3. flash loop over 64-key tiles
   const int NKT = (nkeys + BKV - 1) / BKV;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(sKV);
+  const int8_t* kq_base = INT8 ? kq + (size_t)(s * heads + h) * nrows * HDP : nullptr;
+  auto stage_k = [&](int stage) { return ring + stage * STAGE_BYTES; };
+  auto stage_v = [&](int stage) {
+    return reinterpret_cast<bf16*>(stage_k(stage) + (INT8 ? BKV * LDK : BKV * LD * 2));
+  };
   auto load_kv = [&](int stage, int kt) {
-    bf16* sK = sKV + stage * 2 * BKV * LD;
-    bf16* sV = sK + BKV * LD;
+    bf16* sK = reinterpret_cast<bf16*>(stage_k(stage));
+    bf16* sV = stage_v(stage);
     for (int c = tid; c < BKV * CH; c += NTHREADS) {
       const int r = c / CH, cc = (c % CH) * 8;
       const int j = kt * BKV + r;
       const bool ok = j < nkeys;
       const bf16* src = base + (size_t)j * stride + cc;
-      cp_async16(sK + r * LD + cc, ok ? src + HD : base, ok ? 16 : 0);
+      if (!INT8) cp_async16(sK + r * LD + cc, ok ? src + HD : base, ok ? 16 : 0);
       cp_async16(sV + r * LD + cc, ok ? src + 2 * HD : base, ok ? 16 : 0);
     }
+    if (INT8)
+      for (int c = tid; c < BKV * CHK; c += NTHREADS) {
+        const int r = c / CHK, cc = (c % CHK) * 16;
+        const int j = kt * BKV + r;
+        const bool ok = j < nkeys;
+        cp_async16(stage_k(stage) + r * LDK + cc, ok ? kq_base + (size_t)j * HDP + cc : kq_base,
+                   ok ? 16 : 0);
+      }
   };
 
   float o[DT][4];
@@ -155,24 +294,47 @@ rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const bf16* sK = sKV + (kt & 1) * 2 * BKV * LD;
-    const bf16* sV = sK + BKV * LD;
+    const bf16* sK = reinterpret_cast<const bf16*>(stage_k(kt & 1));
+    const bf16* sV = stage_v(kt & 1);
 
     float sc[8][4];
+    if (INT8) {
+      const unsigned char* sK8 = stage_k(kt & 1);
+      int si[8][4];
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
+      for (int t = 0; t < 8; ++t)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sc[t][e] = 0.f;
+        for (int e = 0; e < 4; ++e) si[t][e] = 0;
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk)
+      for (int kk = 0; kk < KSTEPS8; ++kk)
 #pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        uint32_t r[4];
-        ldmatrix_x4(r, sK + (nj * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
-                           ((lane >> 3) & 1) * 8);
-        mma_bf16(sc[2 * nj], qf[kk], r[0], r[1]);
-        mma_bf16(sc[2 * nj + 1], qf[kk], r[2], r[3]);
-      }
+        for (int nj = 0; nj < 4; ++nj) {
+          uint32_t r[4];
+          ldmatrix_x4(r, sK8 + (nj * 16 + (lane & 7) + (lane >> 4) * 8) * LDK + kk * 32 +
+                             ((lane >> 3) & 1) * 16);
+          mma_s8(si[2 * nj], qf8[kk], r[0], r[1]);
+          mma_s8(si[2 * nj + 1], qf8[kk], r[2], r[3]);
+        }
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[t][e] = (float)si[t][e] * sq[e >> 1];
+    } else {
+#pragma unroll
+      for (int t = 0; t < 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[t][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+          uint32_t r[4];
+          ldmatrix_x4(r, sK + (nj * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                             ((lane >> 3) & 1) * 8);
+          mma_bf16(sc[2 * nj], qf[kk], r[0], r[1]);
+          mma_bf16(sc[2 * nj + 1], qf[kk], r[2], r[3]);
+        }
+    }
 
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -185,7 +347,8 @@ rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
           const int kh = __float2int_rz((j + 0.5f) * inv_kw);
           const int kw = j - kh * KW;
           const bf16* rel = (e >> 1) ? rel1 : rel0;
-          v = (sc[t][e] + __bfloat162float(rel[kh]) + __bfloat162float(rel[KH + kw])) * scale;
+          const float rh = __bfloat162float(rel[kh]), rw = __bfloat162float(rel[KH + kw]);
+          v = INT8 ? (sc[t][e] + (rh + rw)) * scale : (sc[t][e] + rh + rw) * scale;
         }
         sc[t][e] = v;
         mx[e >> 1] = fmaxf(mx[e >> 1], v);
@@ -253,33 +416,63 @@ rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
   }
 }
 
-template <int HD, int NW>
-cudaError_t launch(const bf16* qkv, const bf16* tab, bf16* out, int nseq, int nrows, int nkeys,
-                   int heads, int kh, int kw, float scale, float inv_scale, cudaStream_t stream) {
+// kq and kmax are the int8 path's scratch (null for bf16): kq (nseq, heads,
+// nrows, padded hd) int8, kmax (nseq, heads, hd) fp32.
+template <int HD, int NW, bool INT8>
+cudaError_t launch(const bf16* qkv, const bf16* tab, int8_t* kq, float* kmax, bf16* out, int nseq,
+                   int nrows, int nkeys, int heads, int kh, int kw, float scale, float inv_scale,
+                   cudaStream_t stream) {
   const int nt = 2 * kh - 1 + 2 * kw - 1;
   if ((nt + 15) / 16 * 16 > 4 * BKV || nkeys < 1 || nkeys > nrows) return cudaErrorInvalidValue;
-  const size_t smem = attn_smem_bytes<HD, NW>(kh, kw);
-  cudaError_t err = cudaFuncSetAttribute(rel_attention_kernel<HD, NW>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err;
+  if (INT8) {
+    if (nkeys != nrows) return cudaErrorInvalidValue;
+    err = cudaMemsetAsync(kmax, 0, (size_t)nseq * heads * HD * sizeof(float), stream);
+    if (err != cudaSuccess) return err;
+    const int rows_per_block = 256;
+    k_absmax_kernel<HD><<<dim3((nrows + rows_per_block - 1) / rows_per_block, heads, nseq),
+                          HD * 4, 0, stream>>>(qkv, kmax, nrows, heads, rows_per_block);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const int chunks = nrows * (padded_hd(HD) / 8);
+    k_quant_kernel<HD><<<dim3((chunks + 255) / 256, heads, nseq), 256, 0, stream>>>(
+        qkv, kmax, kq, nrows, heads);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  const size_t smem = INT8 ? attn_smem_bytes_int8<HD, NW>(kh, kw) : attn_smem_bytes<HD, NW>(kh, kw);
+  err = cudaFuncSetAttribute(rel_attention_kernel<HD, NW, INT8>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((nrows + NW * 16 - 1) / (NW * 16), heads, nseq);
-  rel_attention_kernel<HD, NW><<<grid, NW * 32, smem, stream>>>(qkv, tab, out, nrows, nkeys, heads,
-                                                                kh, kw, scale, inv_scale);
+  rel_attention_kernel<HD, NW, INT8><<<grid, NW * 32, smem, stream>>>(
+      qkv, tab, kq, kmax, out, nrows, nkeys, heads, kh, kw, scale, inv_scale);
   return cudaGetLastError();
 }
 
-template <int NW>
-int dispatch(int hd, const void* qkv, const void* tab, void* out, int nseq, int nrows, int nkeys,
-             int heads, int kh, int kw, float scale, float inv_scale, void* stream) {
+template <int NW, bool INT8>
+int dispatch(int hd, const void* qkv, const void* tab, void* kq, void* kmax, void* out, int nseq,
+             int nrows, int nkeys, int heads, int kh, int kw, float scale, float inv_scale,
+             void* stream) {
   const bf16* q = static_cast<const bf16*>(qkv);
   const bf16* t = static_cast<const bf16*>(tab);
+  int8_t* k8 = static_cast<int8_t*>(kq);
+  float* km = static_cast<float*>(kmax);
   bf16* o = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch<16, NW>(q, t, o, nseq, nrows, nkeys, heads, kh, kw, scale, inv_scale, s);
-    case 32: return launch<32, NW>(q, t, o, nseq, nrows, nkeys, heads, kh, kw, scale, inv_scale, s);
-    case 64: return launch<64, NW>(q, t, o, nseq, nrows, nkeys, heads, kh, kw, scale, inv_scale, s);
-    case 80: return launch<80, NW>(q, t, o, nseq, nrows, nkeys, heads, kh, kw, scale, inv_scale, s);
+    case 16:
+      return launch<16, NW, INT8>(q, t, k8, km, o, nseq, nrows, nkeys, heads, kh, kw, scale,
+                                  inv_scale, s);
+    case 32:
+      return launch<32, NW, INT8>(q, t, k8, km, o, nseq, nrows, nkeys, heads, kh, kw, scale,
+                                  inv_scale, s);
+    case 64:
+      return launch<64, NW, INT8>(q, t, k8, km, o, nseq, nrows, nkeys, heads, kh, kw, scale,
+                                  inv_scale, s);
+    case 80:
+      return launch<80, NW, INT8>(q, t, k8, km, o, nseq, nrows, nkeys, heads, kh, kw, scale,
+                                  inv_scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -291,13 +484,24 @@ int dispatch(int hd, const void* qkv, const void* tab, void* out, int nseq, int 
 extern "C" int k5_rel_attention_window(const void* qkv, const void* tab, void* out, int nseq,
                                        int nrows, int nkeys, int heads, int hd, int ws,
                                        float scale, float inv_scale, void* stream) {
-  return dispatch<13>(hd, qkv, tab, out, nseq, nrows, nkeys, heads, ws, ws, scale, inv_scale,
-                      stream);
+  return dispatch<13, false>(hd, qkv, tab, nullptr, nullptr, out, nseq, nrows, nkeys, heads, ws,
+                             ws, scale, inv_scale, stream);
 }
 
 extern "C" int k7_rel_attention_global(const void* qkv, const void* tab, void* out, int nseq,
                                        int nrows, int heads, int hd, int kh, int kw, float scale,
                                        float inv_scale, void* stream) {
-  return dispatch<8>(hd, qkv, tab, out, nseq, nrows, nrows, heads, kh, kw, scale, inv_scale,
-                     stream);
+  return dispatch<8, false>(hd, qkv, tab, nullptr, nullptr, out, nseq, nrows, nrows, heads, kh,
+                            kw, scale, inv_scale, stream);
+}
+
+// As K7, with the q . k product in int8.  Scratch: kq (nseq, nrows-major per
+// head: nseq, heads, nrows, hd padded to a multiple of 32) int8 and kmax
+// (nseq, heads, hd) fp32, both written here.
+extern "C" int k7_rel_attention_global_int8(const void* qkv, const void* tab, void* kq,
+                                            void* kmax, void* out, int nseq, int nrows,
+                                            int heads, int hd, int kh, int kw, float scale,
+                                            float inv_scale, void* stream) {
+  return dispatch<8, true>(hd, qkv, tab, kq, kmax, out, nseq, nrows, nrows, heads, kh, kw, scale,
+                           inv_scale, stream);
 }

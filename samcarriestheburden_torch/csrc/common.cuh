@@ -6,6 +6,10 @@
 //   B (16x8):  b0 = (k..k+1, n), b1 = (k+8.., n)
 //   C (16x8):  c0,c1 = (r, c..c+1), c2,c3 = (r+8, c..c+1)
 // with r = lane/4, c = k = 2*(lane%4), n = lane/4.
+// The int8 product mma.m16n8k32 (s8 x s8 -> s32) has the same fragments with
+// 16-byte column groups in place of 8 bf16: a thread's register holds the
+// four int8 at k = 4*(lane%4).. of its row (a0, a1: k < 16; a2, a3: k >= 16;
+// b0: k < 16, b1: k >= 16), so ldmatrix's 8 x 16-byte tiles load them too.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,6 +53,15 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Two floats -> one register of two bf16, the lower column in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -58,5 +71,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }

@@ -8,22 +8,28 @@ padding mask run on the device, so the encoder always sees one shape
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from samcarriestheburden_torch.models.image_encoder import KERNEL_OPS, EncoderOps
+from samcarriestheburden_torch.models.image_encoder import EncoderOps, default_ops
+from samcarriestheburden_torch.models.quantize import prequantize_sam
 from samcarriestheburden_torch.models.sam import SamModel
 
 Packed = List[Dict[str, torch.Tensor]]
 
 
 def make_encode_batch(model: SamModel, dtype=torch.bfloat16, *,
-                      ops: EncoderOps = KERNEL_OPS) -> Callable:
+                      quantize: Optional[str] = None,
+                      ops: Optional[EncoderOps] = None) -> Callable:
     """``encode(packed, imgs, input_sizes)``: (B, 3, S, S) uint8 + (B, 2)
     int sizes -> (B, 256, G, G) fp32 embeddings, on the model's device.
-    ``packed`` is ``model.image_encoder.pack(dtype)``."""
+    ``packed`` is ``model.image_encoder.pack(dtype, quantize)``;
+    ``quantize="int8"`` selects the int8 serving mode (K2, K4, K7-int8 over
+    prequantized weights).  ``ops`` overrides the mode's kernel wrappers."""
     size = model.img_size
+    if ops is None:
+        ops = default_ops(quantize)
 
     @torch.no_grad()
     def encode(packed: Packed, imgs: torch.Tensor, input_sizes: torch.Tensor) -> torch.Tensor:
@@ -40,8 +46,14 @@ def make_encode_batch(model: SamModel, dtype=torch.bfloat16, *,
     return encode
 
 
-def make_serving_encoder(model: SamModel, dtype=torch.bfloat16) -> Tuple[Callable, Packed]:
+def make_serving_encoder(model: SamModel, dtype=torch.bfloat16,
+                         quantize: Optional[str] = None) -> Tuple[Callable, Packed]:
     """(encode_fn, ready-to-serve weights) for the batched encoder: the
     weights are packed once into the kernels' layout and types, outside the
-    serving loop, and every call reuses them."""
-    return make_encode_batch(model, dtype), model.image_encoder.pack(dtype)
+    serving loop, and every call reuses them.  With ``quantize="int8"`` that
+    one pass also prequantizes the encoder's matrices
+    (``models/quantize.py:prequantize_sam``), so no call quantizes a weight."""
+    encode = make_encode_batch(model, dtype, quantize=quantize)
+    if quantize == "int8":
+        return encode, prequantize_sam(model, dtype)
+    return encode, model.image_encoder.pack(dtype)

@@ -1,6 +1,6 @@
 """Weight loaders of the port.
 
-Two sources:
+Three sources:
 
 * :func:`sam_state_dict_from_jax` maps the JAX package's SAM parameter pytree
   (nested dicts of numpy arrays) to this package's state dict, undoing the
@@ -16,16 +16,22 @@ Two sources:
 * :func:`sam_state_dict_from_torch` / :func:`load_reference_checkpoint` take
   a reference SAM state dict (``sam_vit_h_4b8939.pth`` and the goldens'
   ``sd/`` keys), whose names are already this package's.
+
+* :func:`encoder_pack_from_jax_prequantized` carries the JAX package's
+  *prequantized* encoder blocks (its ``models/quantize.py`` pytree: int8
+  ``qkv_hm`` with 128-lane head padding, int8 ``mlp.lin1``/``lin2``) across
+  into the port's int8 pack, without requantizing anything.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
 
-from samcarriestheburden_torch.config import SamConfig
+from samcarriestheburden_torch.config import ImageEncoderConfig, SamConfig
+from samcarriestheburden_torch.kernels.attention import prepare_rel_tables
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -135,6 +141,49 @@ def sam_state_dict_from_jax(params: Mapping, cfg: SamConfig) -> StateDict:
     _prompt_encoder(sd, params["prompt_encoder"], "prompt_encoder.")
     _mask_decoder(sd, params["mask_decoder"], "mask_decoder.")
     return sd
+
+
+def _int8_linear(p: Mapping, keep=None):
+    """A JAX prequantized linear {wq (I, O) int8, s (1, O), b (O,)} -> wq
+    (O', I) int8, s (O',), b (O',) fp32; ``keep`` indexes the output channels
+    that survive (the rest is layout padding)."""
+    wq = np.asarray(p["wq"]).T
+    s = np.asarray(p["s"], np.float32).reshape(-1)
+    b = np.asarray(p["b"], np.float32).reshape(-1)
+    if keep is not None:
+        wq, s, b = wq[keep], s[keep], b[keep]
+    return (torch.tensor(np.ascontiguousarray(wq, np.int8)), torch.tensor(s.copy()),
+            torch.tensor(b.copy()))
+
+
+def encoder_pack_from_jax_prequantized(params: Mapping, cfg: ImageEncoderConfig,
+                                       dtype=torch.float32) -> List[Dict[str, torch.Tensor]]:
+    """The JAX package's prequantized image-encoder params (the pytree of its
+    ``prequantize_image_encoder``, numpy leaves) -> the port's per-block int8
+    pack (``ImageEncoderViT.pack(dtype, quantize="int8")``'s layout).
+
+    The JAX qkv pack groups each head's [q | k | v] columns and pads the
+    group with zero columns to a multiple of 128 lanes; the padding is
+    stripped and the int8 matrices are transposed to ``(out, in)``.  The
+    patch embed, pos embed and neck stay in the model's state dict."""
+    heads, hd = cfg.num_heads, cfg.head_dim
+    packed = []
+    for i, blk in enumerate(params["blocks"]):
+        attn = blk["attn"]
+        group = np.asarray(attn["qkv_hm"]["wq"]).shape[1] // heads       # padded width
+        keep = (np.arange(heads)[:, None] * group + np.arange(3 * hd)[None]).reshape(-1)
+        s = cfg.grid_size if i in cfg.global_attn_indexes else cfg.window_size
+        pk = {"norm1_w": _t(blk["norm1"]["scale"]), "norm1_b": _t(blk["norm1"]["bias"]),
+              "tables": prepare_rel_tables(_t(attn["rel_pos_h"]), _t(attn["rel_pos_w"]),
+                                           s, s, dtype),
+              "proj_w": _t(np.asarray(attn["proj"]["w"]).T).to(dtype),
+              "proj_b": _t(attn["proj"]["b"]).to(dtype),
+              "norm2_w": _t(blk["norm2"]["scale"]), "norm2_b": _t(blk["norm2"]["bias"])}
+        pk["qkv_wq"], pk["qkv_s"], pk["qkv_b"] = _int8_linear(attn["qkv_hm"], keep)
+        for name in ("lin1", "lin2"):
+            pk[f"{name}_wq"], pk[f"{name}_s"], pk[f"{name}_b"] = _int8_linear(blk["mlp"][name])
+        packed.append(pk)
+    return packed
 
 
 def sam_state_dict_from_torch(sd: Mapping) -> StateDict:

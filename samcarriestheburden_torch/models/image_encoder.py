@@ -13,11 +13,19 @@ np = ceil(ws^2 / 8) * 8 slots, and every block is
 in the compute dtype (bf16 on the card), then the neck in fp32.  The
 re-zeroing of pad tokens after LN1 reproduces the reference's fresh zero
 padding at every window partition: a pad token's k and v are the qkv bias.
+
+The int8 serving mode (JAX ``quantize="int8"``) runs the same blocks over
+prequantized weights (``models/quantize.py``):
+
+    qkv = K2(x, pad mask)             LN1 + re-zeroing + per-row int8 + int8 product
+    a   = proj(K5 or K7-int8(qkv))     K5 stays bf16; K7's q.k product runs in int8
+    x   = K4(x, add=a)                 K3 with both products in int8
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Tuple
+from functools import partial
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,17 +34,22 @@ from torch import nn
 from samcarriestheburden_torch.config import ImageEncoderConfig
 from samcarriestheburden_torch.kernels import attention as attn_k
 from samcarriestheburden_torch.kernels import mlp as mlp_k
+from samcarriestheburden_torch.kernels import quant as quant_k
 from samcarriestheburden_torch.models.common import LayerNorm2d, MLPBlock
+from samcarriestheburden_torch.models.quantize import is_prequantized, quantize_block
 
 
 class EncoderOps(NamedTuple):
-    """The four kernels a forward runs: the wrappers (:data:`KERNEL_OPS`) or,
-    to hold the kernels against them on the card, the plain versions."""
+    """The four kernels a forward runs: the wrappers (:data:`KERNEL_OPS`,
+    :data:`KERNEL_OPS_INT8`) or, to hold the kernels against them on the card,
+    the plain versions.  ``int8`` says which weights the first two take: the
+    floating-point pack (K1, K3) or the prequantized one (K2, K4)."""
 
     ln_masked_linear: object
     ln_mlp_residual: object
     rel_attention_window: object
     rel_attention_global: object
+    int8: bool = False
 
 
 KERNEL_OPS = EncoderOps(mlp_k.ln_masked_linear, mlp_k.ln_mlp_residual,
@@ -44,6 +57,21 @@ KERNEL_OPS = EncoderOps(mlp_k.ln_masked_linear, mlp_k.ln_mlp_residual,
 PLAIN_OPS = EncoderOps(mlp_k.ln_masked_linear_plain, mlp_k.ln_mlp_residual_plain,
                        attn_k.rel_attention_window_plain,
                        attn_k.rel_attention_global_plain)
+KERNEL_OPS_INT8 = EncoderOps(quant_k.ln_masked_linear_int8, quant_k.ln_mlp_residual_int8,
+                             attn_k.rel_attention_window,
+                             partial(attn_k.rel_attention_global, int8_qk=True), int8=True)
+PLAIN_OPS_INT8 = EncoderOps(quant_k.ln_masked_linear_int8_plain,
+                            quant_k.ln_mlp_residual_int8_plain,
+                            attn_k.rel_attention_window_plain,
+                            partial(attn_k.rel_attention_global_plain, int8_qk=True),
+                            int8=True)
+
+
+def default_ops(quantize: Optional[str]) -> EncoderOps:
+    """The kernel wrappers of a serving mode: ``None`` (bf16) or ``"int8"``."""
+    if quantize not in (None, "int8"):
+        raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+    return KERNEL_OPS_INT8 if quantize == "int8" else KERNEL_OPS
 
 
 # ---------------------------------------------------------------------------
@@ -137,14 +165,26 @@ def pad_valid_flat(b: int, h: int, w: int, ws: int, dtype, device) -> torch.Tens
 # ---------------------------------------------------------------------------
 
 
+def _weights(pk, name: str, ops) -> tuple:
+    """The operands a matrix product of ``ops`` takes for ``name``: (w, b),
+    or (wq, s, b) of the int8 pack."""
+    if ops.int8:
+        return pk[f"{name}_wq"], pk[f"{name}_s"], pk[f"{name}_b"]
+    return pk[f"{name}_w"], pk[f"{name}_b"]
+
+
+def _ln_qkv(pk, x2d, mask, cfg: ImageEncoderConfig, ops):
+    """LN1 + pad re-zeroing + the per-head-grouped qkv projection (JAX ``_ln_qkv``)."""
+    return ops.ln_masked_linear(x2d, mask, pk["norm1_w"], pk["norm1_b"],
+                                *_weights(pk, "qkv", ops), cfg.layer_norm_eps)
+
+
 def windowed_attention(pk, x3, pad3, cfg: ImageEncoderConfig, ops):
     """Attention of a windowed block over flat (Wb, np, E) windows
     (JAX ``_windowed_attention_headmajor3d``) -> (Wb*np, E)."""
     wb, np_, e = x3.shape
     t = wb * np_
-    qkv = ops.ln_masked_linear(x3.reshape(t, e), pad3.reshape(t, 1),
-                               pk["norm1_w"], pk["norm1_b"], pk["qkv_w"],
-                               pk["qkv_b"], cfg.layer_norm_eps)
+    qkv = _ln_qkv(pk, x3.reshape(t, e), pad3.reshape(t, 1), cfg, ops)
     out = ops.rel_attention_window(qkv.reshape(wb, np_, -1), pk["tables"],
                                    ws=cfg.window_size, heads=cfg.num_heads,
                                    hd=cfg.head_dim)
@@ -156,9 +196,7 @@ def global_attention(pk, x, cfg: ImageEncoderConfig, ops):
     (JAX ``_global_attention_headmajor``) -> (B*gh*gw, E)."""
     b, gh, gw, e = x.shape
     t = b * gh * gw
-    qkv = ops.ln_masked_linear(x.reshape(t, e), None, pk["norm1_w"],
-                               pk["norm1_b"], pk["qkv_w"], pk["qkv_b"],
-                               cfg.layer_norm_eps)
+    qkv = _ln_qkv(pk, x.reshape(t, e), None, cfg, ops)
     out = ops.rel_attention_global(qkv.reshape(b, gh * gw, -1), pk["tables"],
                                    kh=gh, kw=gw, heads=cfg.num_heads,
                                    hd=cfg.head_dim)
@@ -166,9 +204,9 @@ def global_attention(pk, x, cfg: ImageEncoderConfig, ops):
 
 
 def _mlp_residual(pk, x2d, a, cfg: ImageEncoderConfig, ops):
-    return ops.ln_mlp_residual(x2d, pk["norm2_w"], pk["norm2_b"], pk["lin1_w"],
-                               pk["lin1_b"], pk["lin2_w"], pk["lin2_b"], add=a,
-                               eps=cfg.layer_norm_eps)
+    return ops.ln_mlp_residual(x2d, pk["norm2_w"], pk["norm2_b"],
+                               *_weights(pk, "lin1", ops), *_weights(pk, "lin2", ops),
+                               add=a, eps=cfg.layer_norm_eps)
 
 
 def block_windowed(pk, x3, pad3, cfg: ImageEncoderConfig, ops):
@@ -210,10 +248,16 @@ class ImageEncoderViT(nn.Module):
         )
 
     @torch.no_grad()
-    def pack(self, dtype=torch.float32) -> List[Dict[str, torch.Tensor]]:
+    def pack(self, dtype=torch.float32, quantize: Optional[str] = None
+             ) -> List[Dict[str, torch.Tensor]]:
         """Per-block weights in the layout and types the kernels take: matrices
         in ``dtype``, biases and LayerNorm affines fp32, qkv grouped per head,
-        rel-pos tables stacked.  A serving loop packs once and reuses."""
+        rel-pos tables stacked.  With ``quantize="int8"`` the qkv (after its
+        regrouping), lin1 and lin2 matrices are int8 ``(out, in)`` with fp32
+        per-output-channel scales (``models/quantize.py``).  A serving loop
+        packs once and reuses."""
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
         cfg = self.cfg
         packed = []
         for blk in self.blocks:
@@ -222,18 +266,20 @@ class ImageEncoderViT(nn.Module):
                 torch.zeros(at.qkv.out_features, device=at.qkv.weight.device)
             w, b = attn_k.group_qkv_per_head(at.qkv.weight, qkv_b, cfg.num_heads)
             s = blk.window_size or cfg.grid_size
-            packed.append({
+            mat = torch.float32 if quantize else dtype   # quantized from fp32
+            pk = {
                 "norm1_w": blk.norm1.weight.float(), "norm1_b": blk.norm1.bias.float(),
-                "qkv_w": w.to(dtype), "qkv_b": b.float(),
+                "qkv_w": w.to(mat), "qkv_b": b.float(),
                 "tables": attn_k.prepare_rel_tables(at.rel_pos_h, at.rel_pos_w, s, s, dtype),
                 "proj_w": at.proj.weight.to(dtype).contiguous(),
                 "proj_b": at.proj.bias.to(dtype),
                 "norm2_w": blk.norm2.weight.float(), "norm2_b": blk.norm2.bias.float(),
-                "lin1_w": blk.mlp.lin1.weight.to(dtype).contiguous(),
+                "lin1_w": blk.mlp.lin1.weight.to(mat).contiguous(),
                 "lin1_b": blk.mlp.lin1.bias.float(),
-                "lin2_w": blk.mlp.lin2.weight.to(dtype).contiguous(),
+                "lin2_w": blk.mlp.lin2.weight.to(mat).contiguous(),
                 "lin2_b": blk.mlp.lin2.bias.float(),
-            })
+            }
+            packed.append(quantize_block(pk) if quantize else pk)
         return packed
 
     @torch.no_grad()
@@ -242,13 +288,20 @@ class ImageEncoderViT(nn.Module):
         """(B, 3, img, img) NCHW -> (B, out_chans, grid, grid) NCHW fp32.
         ``dtype`` is the compute type of the transformer stack (None: bf16
         on the card, the only type the kernels take, fp32 on the CPU);
-        ``packed`` the output of :meth:`pack` for that dtype (packed here
-        when None)."""
+        ``packed`` the output of :meth:`pack` for that dtype and for the
+        mode of ``ops`` (packed here when None).  Int8 weights run only on
+        int8 ops, floating-point weights only on the others."""
         cfg = self.cfg
         if dtype is None:
             dtype = torch.bfloat16 if x.device.type == "cuda" else torch.float32
         if packed is None:
-            packed = self.pack(dtype)
+            packed = self.pack(dtype, quantize="int8" if ops.int8 else None)
+        if is_prequantized(packed) != ops.int8:
+            raise ValueError(
+                "prequantized int8 weights run only on the int8 ops (KERNEL_OPS_INT8, "
+                "PLAIN_OPS_INT8) and floating-point weights only on the others: got "
+                f"{'int8' if is_prequantized(packed) else 'floating-point'} weights with "
+                f"{'int8' if ops.int8 else 'floating-point'} ops")
         pe = self.patch_embed.proj
         x = F.conv2d(x.to(dtype), pe.weight.to(dtype), pe.bias.to(dtype),
                      stride=cfg.patch_size)

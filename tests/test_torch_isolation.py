@@ -4,6 +4,7 @@ and its entry points run on the card unless the caller asks for the CPU."""
 import ast
 import json
 import pkgutil
+import re
 import shutil
 import subprocess
 import sys
@@ -15,6 +16,7 @@ import torch
 import samcarriestheburden_torch
 from samcarriestheburden_torch.config import sam_vit_t_config
 from samcarriestheburden_torch.device import resolve_device
+from samcarriestheburden_torch.kernels import build
 from samcarriestheburden_torch.models.sam import build_sam
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -30,7 +32,8 @@ def _port_modules():
 
 def test_every_module_imports_without_jax():
     modules = _port_modules()
-    assert "samcarriestheburden_torch.kernels.attention" in modules
+    for name in ("kernels.attention", "kernels.quant", "models.quantize"):
+        assert f"samcarriestheburden_torch.{name}" in modules
     code = ("import sys\n"
             + "".join(f"sys.modules[{name!r}] = None\n" for name in FORBIDDEN)
             + "import importlib\n"
@@ -69,6 +72,79 @@ def test_no_import_of_jax_or_the_jax_package(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+def test_the_parametrized_scan_covers_the_int8_modules():
+    scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"kernels/quant.py", "models/quantize.py", "models/convert.py"} <= scanned
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT))
+                                        for p in (PORT / "kernels").glob("*.py")))
+def test_kernels_build_only_inside_the_launching_function(path):
+    """Importing a kernel module compiles nothing and needs no Triton: the
+    library is built and loaded (``build.load``/``build.build``), and
+    ``triton`` imported, only inside functions."""
+    tree = ast.parse((ROOT / path).read_text())
+    for stmt in tree.body:
+        if isinstance(stmt, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            continue
+        for node in ast.walk(stmt):
+            if isinstance(node, ast.Import):
+                assert all(a.name.split(".")[0] != "triton" for a in node.names), path
+            elif isinstance(node, ast.ImportFrom):
+                assert (node.module or "").split(".")[0] != "triton", path
+            elif isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+                called = (getattr(node.func.value, "id", None), node.func.attr)
+                assert called not in {("build", "load"), ("build", "build"),
+                                      ("ctypes", "CDLL"), ("subprocess", "Popen"),
+                                      ("subprocess", "run")}, f"{path}:{node.lineno}"
+
+
+def test_cuda_sources_are_registered_and_stand_alone():
+    """Every ``csrc/*.cu`` is built by ``kernels/build.py`` (the int8 kernels'
+    ``quant.cu`` among them) with a plain C interface: CUDA's own headers and
+    the port's ``common.cuh`` only, nothing of PyTorch or another framework."""
+    sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    assert sources == sorted(build.SOURCES) and "quant" in sources
+    allowed = {"common.cuh", "cuda_bf16.h", "cuda_runtime.h", "cooperative_groups.h",
+               "stdint.h", "math.h"}
+    for path in sorted(build.CSRC.glob("*.cu*")):
+        text = path.read_text()
+        includes = re.findall(r'#include\s+[<"]([^>"]+)[>"]', text)
+        assert includes and set(includes) <= allowed, (path.name, includes)
+        if path.suffix == ".cu":
+            assert 'extern "C"' in text, path.name
+    quant = (build.CSRC / "quant.cu").read_text()
+    for symbol in ("k2_ln_masked_linear_int8", "k4_ln_mlp_residual_int8", "mma_s8"):
+        assert symbol in quant
+    attention = (build.CSRC / "attention.cu").read_text()
+    assert "k7_rel_attention_global_int8" in attention and "mma_s8" in attention
+    assert "m16n8k32.row.col.s32.s8.s8.s32" in (build.CSRC / "common.cuh").read_text()
+
+
+def test_the_int8_wrappers_never_reach_the_compiler_on_cpu(monkeypatch):
+    """On CPU tensors K2, K4 and K7-int8 run their plain versions: the build
+    is not touched (it would raise here: there is no ``nvcc``)."""
+    from samcarriestheburden_torch.kernels import attention as attn_k
+    from samcarriestheburden_torch.kernels import quant as quant_k
+
+    def refuse(*a, **k):
+        raise AssertionError("the CUDA build was reached for a CPU tensor")
+
+    monkeypatch.setattr(build, "load", refuse)
+    monkeypatch.setattr(build, "build", refuse)
+    e, m = 32, 64
+    x = torch.randn(8, e)
+    wq, s = quant_k.quantize_weight(torch.randn(3 * e, e))
+    w1q, s1 = quant_k.quantize_weight(torch.randn(m, e))
+    w2q, s2 = quant_k.quantize_weight(torch.randn(e, m))
+    ones, zeros = torch.ones(e), torch.zeros(e)
+    qkv = quant_k.ln_masked_linear_int8(x[:4], None, ones, zeros, wq, s, torch.zeros(3 * e))
+    out = quant_k.ln_mlp_residual_int8(x, ones, zeros, w1q, s1, torch.zeros(m), w2q, s2, zeros)
+    att = attn_k.rel_attention_global(qkv.reshape(1, 4, 3 * e), torch.zeros(6, 16), kh=2, kw=2,
+                                      heads=2, hd=16, int8_qk=True)
+    assert torch.isfinite(out).all() and tuple(att.shape) == (1, 4, e)
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
