@@ -3,35 +3,51 @@
 
     python3 chip_smoke.py
 
-1. builds the port's CUDA kernels (K1, K2, K3, K4, K5, K7, K7-int8, K8) from
-   ``samcarriestheburden_torch/csrc``, one ``nvcc`` per source, all at once;
-2. drives the embed path once at full ViT-H width with seeded random
-   weights: ``make_serving_encoder`` in bf16 on two padded 1024x1024 uint8
-   images (input size 1024x716), then the 17-class two-round refinement
-   decode and ``postprocess_masks`` on each embedding; K1, K3, K5 and K7
-   must have launched in that run;
+1. builds the port's CUDA kernels (K1, K2, K3, K4, K5, K6, K7, K7-int8, K8)
+   from ``samcarriestheburden_torch/csrc``, one ``nvcc`` per source, all at once;
+2. drives the flat embed path once at full ViT-H width and depth with seeded
+   random weights: ``make_serving_encoder(model, torch.bfloat16,
+   compact_windows=False)`` on two padded 1024x1024 uint8 images (input size
+   1024x716), then the 17-class two-round refinement decode and
+   ``postprocess_masks`` on each embedding; launches K1 32, K3 32, K5 28,
+   K7 4 and no other;
 3. drives the enhance path once: ``SegEnhance.enhance_batch`` with
    ``SamSegRefiner`` (box, then points with round 1's logits) over 16
    images of 17 seeded U-Net-like probability maps on the 384x224 grid,
    reading the two embeddings just made and 14 seeded ones; K8 must have
    launched in that run;
-4. drives the int8 embed path once, the serving mode: ``make_serving_encoder
-   (model, torch.bfloat16, quantize="int8")`` (weights prequantized once) on
-   the same two images, then the same decode of its embeddings; K2 and K4
-   must have launched once per block, K5 once per windowed and K7-int8 once
-   per global block, and K1, K3 and K7 not at all; its drift from the bf16
-   embedding and the share of decoded mask pixels that agree are reported;
+4. drives the flat int8 embed path once: ``make_serving_encoder(model,
+   torch.bfloat16, quantize="int8", compact_windows=False)`` (weights
+   prequantized once) on the same two images, then the same decode of its
+   embeddings; K2 and K4 must have launched once per block, K5 once per
+   windowed and K7-int8 once per global block, and K1, K3 and K7 not at all;
+   its drift from the bf16 embedding and the share of decoded mask pixels
+   that agree are reported;
+4b. drives the two compact embed paths once each, the serving default:
+   ``make_serving_encoder(model, torch.bfloat16)`` and ``(..., quantize=
+   "int8")`` on the same two images (4208 slot-rows per image in one stream
+   instead of 5000), each with its decode; launches K1 = K3 (int8: K2 = K4)
+   32, K5 28, K6 56 (two edge groups in each of 28 windowed blocks), K7 (int8:
+   K7-int8) 4 and no other; each compact embedding is held against the flat
+   one, and the MedSAM encode (``medsam=True``) runs once and must equal the
+   encoder fed the same normalised input;
 5. holds each kernel against its plain PyTorch version on the card, on the
-   inputs its path gives it and on stressed inputs of the same shapes
-   (with planted faults that the check must be able to see), the whole
-   kernel-path encoder against the plain-path encoder (bf16 and int8), with
-   the random rel tables as they are and scaled up, and enhance on the card
-   against enhance on the CPU and against itself image by image;
+   inputs each of its paths gives it (the flat rows and windows, and the
+   compact stream's: K1-K4 on 8416 rows, K5 on 32 windows and K6, both
+   writing into an ``out=`` view of a larger buffer as the path has them do)
+   and on stressed inputs of the same shapes (with planted faults that the
+   check must be able to see), the whole
+   kernel-path encoder against the plain-path encoder (bf16 and int8, flat
+   and compact), with the random rel tables as they are and scaled up, K6
+   also against K5 on the materialised padded windows, and enhance on the
+   card against enhance on the CPU and against itself image by image;
 6. checks the outputs: finite and of the expected shape, the decode against
    the same decode on the CPU, and the kernels against the reference
    golden ``tests/golden/image_encoder.npz`` at the tiny config;
-7. prints the kernels' numbers, the throughputs, the card's name and power
-   limit, and as the last line ``{"ok": true, "device": {...}}``.
+7. prints the kernels' numbers (one row per kernel and path: ``path`` says
+   whose launches and ``shape`` whose input the row's times are), the
+   throughputs, the card's name and power limit, and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or any
 phase fails.
@@ -67,7 +83,13 @@ ORIGINAL_HW = (1600, 1119)   # the X-ray before resizing (1600 * 0.64 = 1024)
 # int8 rounding boundary: readings 0.24 % (K2) and 0.38 % (K4) of max |plain|,
 # nearly every entry equal; the tolerance is one bf16 ulp of the largest value
 # (0.8 %).  K7-int8 shares K7's softmax and p.v: reading 0.63 %, tolerance 1.6 %.
-KERNEL_TOL = {"K1": 1.6e-2, "K3": 1.6e-2, "K5": 1.6e-2, "K7": 1.6e-2,
+# K6 shares K5's loop and adds the pad keys in fp32: same tolerance (readings on
+# the H100: 0.67 % on the 14x8 windows, 0.40 % on the 8x14 ones, and the same
+# against K5 run on the materialised padded windows).  Every kernel is held
+# at the flat paths' inputs and again at the compact paths' (K1-K4 on 8416
+# rows, K5 on 32 windows and K6 writing into an out= view): readings there
+# K1 0.48 %, K2 0.24 %, K3 and K4 0.38 %, K5 0.53 %, K7 and K7-int8 0.63 %.
+KERNEL_TOL = {"K1": 1.6e-2, "K3": 1.6e-2, "K5": 1.6e-2, "K6": 1.6e-2, "K7": 1.6e-2,
               "K2": 0.8e-2, "K4": 0.8e-2, "K7-int8": 1.6e-2}
 # The random weights leave parts of each function nearly invisible at those
 # inputs (near-uniform softmax, rel tables of std 0.02, qkv bias <= 0.03), so
@@ -90,8 +112,15 @@ KERNEL_TOL = {"K1": 1.6e-2, "K3": 1.6e-2, "K5": 1.6e-2, "K7": 1.6e-2,
 # q, one q scale per tensor, the rel bias taken from the quantized q.  Readings:
 # K2 0.21 %, K4 0.55 %, K7-int8 1.6 % (a rel term that rounds to the other bf16
 # neighbour shifts a peaked softmax more at these scales than at K7's).
-STRESS_TOL = {"K1": 1e-2, "K2": 1e-2, "K3": 1e-2, "K4": 1e-2, "K5": 2e-2, "K7": 2e-2,
-              "K7-int8": 3e-2}
+# K6's stressed inputs are K5's with a qkv bias of mean 0.5, std 0.5, so that
+# its pad keys (k = b_k, v = b_v) carry real weight; its planted faults: the pad
+# keys dropped, their rel terms dropped, the query cells indexed by the
+# window's width in place of the carried rectangle's (on the 14x8 shape; the
+# 8x14 rectangle has the window's width), rh and rw swapped, b_v's contribution
+# dropped.  Readings: 0.65 % and 0.68 % of max |plain|; the smallest fault (b_v's
+# contribution dropped) misses by 2.4x and 2.8x the 4x-tolerance line.
+STRESS_TOL = {"K1": 1e-2, "K2": 1e-2, "K3": 1e-2, "K4": 1e-2, "K5": 2e-2, "K6": 2e-2,
+              "K7": 2e-2, "K7-int8": 3e-2}
 FAULT_MARGIN = 4.0
 # the whole 32-layer encoder, kernel path vs plain path, both bf16: the
 # per-layer differences above compound through 32 residual blocks; the
@@ -109,6 +138,13 @@ ENCODER_TOL_MAX, ENCODER_TOL_MEAN = 0.1, 0.015
 # 0.1461, mean 0.01654 (the int8 embedding's drift from the bf16 one is of
 # the same size: relative L2 0.0207).
 ENCODER_INT8_TOL_MAX, ENCODER_INT8_TOL_MEAN = 0.25, 0.03
+# The compact embedding vs the flat one, both through the kernels: the same
+# function at every image position, computed in another order (K6's pad keys
+# in fp32 after the real ones; other GEMM row tiles), so the two differ as a
+# kernel path differs from its plain path, and are held to those tolerances.
+# Readings on the H100: bf16 max 0.05141, mean 0.007053; int8 max 0.133, mean
+# 0.01456.  A K6 built without b_v's contribution, or with its query cells
+# indexed by the window's width, moves the bf16 figure to max 0.2501 and 0.1699.
 # the int8 embedding must differ from the bf16 one (quantization happened);
 # the JAX package's own test asks the same of its int8 encoder at 1e-5
 INT8_DRIFT_MIN = 1e-5
@@ -147,6 +183,8 @@ KERNELS = {  # name: (path, source, replaced TPU kernel)
            "samcarriestheburden_tpu/kernels/quant.py:106"),
     "K5": ("embed", "samcarriestheburden_torch/csrc/attention.cu",
            "samcarriestheburden_tpu/kernels/attention.py:492"),
+    "K6": ("embed-compact", "samcarriestheburden_torch/csrc/attention.cu",
+           "samcarriestheburden_tpu/kernels/attention.py:769"),
     "K7": ("embed", "samcarriestheburden_torch/csrc/attention.cu",
            "samcarriestheburden_tpu/kernels/attention.py:639"),
     "K7-int8": ("embed-int8", "samcarriestheburden_torch/csrc/attention.cu",
@@ -216,7 +254,7 @@ def kernel_work(name: str, args, kw) -> tuple:
     qkv, tables = args[:2]
     s, n, _ = qkv.shape
     heads, hd = kw["heads"], kw["hd"]
-    if name == "K5":
+    if name in ("K5", "K6"):
         kh = khw = kw["ws"]
     else:
         kh, khw = kw["kh"], kw["kw"]
@@ -225,6 +263,10 @@ def kernel_work(name: str, args, kw) -> tuple:
     qk = 2.0 * s * heads * n * nkeys * hd                 # q.k; the same again for p.v
     rel = 2.0 * s * heads * n * nt * hd
     nbytes = 2 * (qkv.numel() + tables.numel() + s * n * heads * hd)
+    if name == "K6":    # products over the carried keys only; a pad key costs its logit
+        nreal = kw["rh"] * kw["rw"]
+        pad = 2.0 * s * heads * n * (2 * hd + 2 * (nkeys - nreal))
+        return 2 * qk * nreal / nkeys + rel + pad, 0.0, nbytes + 4 * args[2].numel()
     if name == "K7-int8":
         return qk + rel, qk, nbytes
     return 2 * qk + rel, 0.0, nbytes
@@ -308,11 +350,75 @@ def k7_int8_variant(torch, qkv, tables, *, kh, kw, heads, hd, fault):
     return out.reshape(s, n, heads * hd)
 
 
+def materialised_windows(torch, qkv, qkv_bias, ws, rh, rw):
+    """The flat layout's (Wb, np, C) windows of K6's compact ones: the
+    carried slots at their cells, the qkv bias rounded to bf16 (a zero-masked
+    row's projection) at every other cell, zeros in the dead slots."""
+    wb, _, c = qkv.shape
+    n = ws * ws
+    full = torch.zeros((wb, -(-n // 8) * 8, c), dtype=qkv.dtype, device=qkv.device)
+    full[:, :n] = qkv_bias.to(qkv.dtype)
+    full[:, :n].view(wb, ws, ws, c)[:, :rh, :rw] = qkv[:, :rh * rw].view(wb, rh, rw, c)
+    return full
+
+
+def live_cells(out, ws, rh, rw):
+    """The (Wb, rh*rw, C) carried cells of a (Wb, np, C) full-window result."""
+    wb, _, c = out.shape
+    return out[:, :ws * ws].view(wb, ws, ws, c)[:, :rh, :rw].reshape(wb, rh * rw, c)
+
+
+def k6_variant(torch, attn_k, qkv, tables, qkv_bias, *, ws, rh, rw, heads, hd, fault):
+    """Planted faults of K6: its plain arithmetic with one step wrong.
+    ``no_pad``: the pad keys dropped; ``pad_no_rel``: their rel terms dropped;
+    ``query_ws``: query cells taken as (t // ws, t % ws); ``transposed``: the
+    carried rectangle taken as rw x rh; ``no_bv``: the pad weights' product
+    with b_v dropped."""
+    s, n, _ = qkv.shape
+    dt, dev = qkv.dtype, qkv.device
+    scale = hd ** -0.5
+    nreal = rh * rw
+    if fault == "transposed":
+        rh, rw = rw, rh
+    x = qkv.reshape(s, n, heads, 3 * hd).float()
+    bias = qkv_bias.to(dt).float().reshape(heads, 3, hd)
+    tab = tables.float()
+    tok = torch.arange(n, device=dev)
+    qw = ws if fault == "query_ws" else rw
+    ph, pw = (tok // qw).clamp(max=rh - 1), tok % qw
+    pad = torch.tensor(attn_k.rect_pad_cells(ws, rh, rw), device=dev).reshape(-1, 2)
+    key_h = torch.cat([tok[:nreal] // rw, pad[:, 0]])
+    key_w = torch.cat([tok[:nreal] % rw, pad[:, 1]])
+    nk = key_h.numel()
+    idx_h = (ph[:, None] - key_h[None] + ws - 1).clamp(0, 2 * ws - 2).expand(s, n, nk)
+    idx_w = (pw[:, None] - key_w[None] + ws - 1).clamp(0, 2 * ws - 2).expand(s, n, nk) \
+        + 2 * ws - 1
+    out = torch.empty((s, n, heads, hd), dtype=dt, device=dev)
+    for h in range(heads):
+        q, k, v = x[:, :, h, :hd], x[:, :nreal, h, hd:2 * hd], x[:, :nreal, h, 2 * hd:]
+        g = (q @ tab.T * (1.0 / scale)).to(dt).float()
+        rel = g.gather(2, idx_h) + g.gather(2, idx_w)
+        if fault == "pad_no_rel":
+            rel[..., nreal:] = 0.0
+        qk = torch.cat([q @ k.transpose(1, 2),
+                        (q @ bias[h, 1]).unsqueeze(-1).expand(s, n, nk - nreal)], -1)
+        logits = (qk + rel) * scale
+        if fault == "no_pad":
+            logits[..., nreal:] = float("-inf")
+        p = torch.softmax(logits, dim=-1)
+        o = p[..., :nreal].to(dt).float() @ v
+        if fault != "no_bv":
+            o = o + p[..., nreal:].sum(-1, keepdim=True) * bias[h, 2]
+        out[:, :, h] = o.to(dt)
+    return out.reshape(s, n, heads * hd)
+
+
 def stressed(torch, name, args, kw, gen):
     """(args, kw, faults) at the shapes of the recorded call ``args, kw``:
     stressed inputs, and the planted faults as {what: (args, kw)} of the
     plain version, or {what: function} where the fault is a wrong step of
     the arithmetic and not a wrong input."""
+    from samcarriestheburden_torch.kernels import attention as attn_k
     from samcarriestheburden_torch.kernels import quant as quant_k
 
     dev, bf = args[0].device, torch.bfloat16
@@ -387,7 +493,7 @@ def stressed(torch, name, args, kw, gen):
                   "lin2 bias dropped": (sub(a, 6, torch.zeros_like(a[6])), k)}
         return a, k, faults
     qkv, tables = args[:2]
-    kh = kw["ws"] if name == "K5" else kw["kh"]
+    kh = kw["ws"] if name in ("K5", "K6") else kw["kh"]
     if name == "K7-int8":
         # key channels and query rows of very different scale on top of the
         # peaked softmax, and a few query rows with an outlier channel, so the
@@ -401,11 +507,23 @@ def stressed(torch, name, args, kw, gen):
         a = (x.reshape(qkv.shape).to(bf), randn(*tables.shape, std=0.3, dtype=bf))
     else:
         a = (randn(*qkv.shape, std=2.0, dtype=bf), randn(*tables.shape, std=0.3, dtype=bf))
+    if name == "K6":    # a non-zero-mean qkv bias: the pad keys carry real weight
+        a += (randn(*args[2].shape, std=0.5, mean=0.5),)
+    rest = a[2:]
     rh, rw = a[1][:2 * kh - 1], a[1][2 * kh - 1:]
-    faults = {"rel bias dropped": ((a[0], torch.zeros_like(a[1])), kw),
-              "rel tables reversed": ((a[0], torch.cat([rh.flip(0), rw.flip(0)])), kw)}
+    faults = {"rel bias dropped": ((a[0], torch.zeros_like(a[1])) + rest, kw),
+              "rel tables reversed": ((a[0], torch.cat([rh.flip(0), rw.flip(0)])) + rest, kw)}
     if rh.shape == rw.shape:
-        faults["Rh and Rw swapped"] = ((a[0], torch.cat([rw, rh])), kw)
+        faults["Rh and Rw swapped"] = ((a[0], torch.cat([rw, rh])) + rest, kw)
+    if name == "K6":
+        for what, fault in (("pad keys dropped", "no_pad"),
+                            ("pad keys' rel terms dropped", "pad_no_rel"),
+                            ("query cells indexed by ws", "query_ws"),
+                            ("rh and rw swapped", "transposed"),
+                            ("b_v contribution dropped", "no_bv")):
+            if fault == "query_ws" and kw["rw"] == kw["ws"]:
+                continue    # a full-width rectangle: ws is its width (the 14x8 shape sees it)
+            faults[what] = lambda fault=fault: k6_variant(torch, attn_k, *a, **kw, fault=fault)
     if name == "K7-int8":
         for what, fault in (("key scales not folded into q", "unfolded"),
                             ("one q scale per tensor", "tensor_q"),
@@ -418,21 +536,44 @@ def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def phase_stress(torch, name, kern, plain, args, kw, gen) -> float:
-    """The kernel vs its plain version on stressed inputs, and each planted
+def call_as_recorded(torch, what: str, fn, args, kw):
+    """``fn(*args, **kw)``.  Where the recorded call wrote into ``out=`` (the
+    compact path hands K5 and K6 a view of its attention buffer), the result
+    goes into a fresh view of the same shape in the middle of a larger
+    NaN-filled buffer: ``fn`` must return that view, filled, and leave what
+    lies on either side of it untouched."""
+    if "out" not in kw:
+        return fn(*args, **kw)
+    n = kw["out"].numel()
+    frame = torch.full((3 * n,), float("nan"), dtype=kw["out"].dtype, device=kw["out"].device)
+    view = frame[n:2 * n].view(kw["out"].shape)
+    res = fn(*args, **dict(kw, out=view))
+    torch.cuda.synchronize()
+    check(res.data_ptr() == view.data_ptr() and res.shape == view.shape,
+          f"{what} did not return the out= view it was given")
+    check(bool(torch.isnan(frame[:n]).all()) and bool(torch.isnan(frame[2 * n:]).all()),
+          f"{what} wrote outside the out= view it was given")
+    check(not bool(torch.isnan(view).any()), f"{what} left part of its out= view unwritten")
+    return view
+
+
+def phase_stress(torch, key, kern, plain, args, kw, gen) -> float:
+    """The kernel vs its plain version on stressed inputs at the shapes of the
+    recorded call ``key`` ("K1", "K1 compact", "K6 14x8"), and each planted
     fault vs the plain version; returns the kernel's max abs error."""
+    name = key.split()[0]
     a, k, faults = stressed(torch, name, args, kw, gen)
     out_p = plain(*a, **k)
     err = max_err(kern(*a, **k), out_p)
     tol = STRESS_TOL[name] * out_p.float().abs().max().item()
     misses = {what: max_err(f() if callable(f) else plain(*f[0], **f[1]), out_p)
               for what, f in faults.items()}
-    log(f"{name} stressed: max abs err {err:.4g} (tol {tol:.4g}); planted faults miss by "
+    log(f"{key} stressed: max abs err {err:.4g} (tol {tol:.4g}); planted faults miss by "
         + ", ".join(f"{what} {m:.4g}" for what, m in misses.items())
         + f" (must be >= {FAULT_MARGIN * tol:.4g})")
-    check(err <= tol, f"{name} disagrees with its plain version on stressed inputs")
+    check(err <= tol, f"{key} disagrees with its plain version on stressed inputs")
     for what, m in misses.items():
-        check(m >= FAULT_MARGIN * tol, f"{name}: the stressed check cannot see '{what}'")
+        check(m >= FAULT_MARGIN * tol, f"{key}: the stressed check cannot see '{what}'")
     return err
 
 
@@ -483,11 +624,14 @@ def phase_profile(torch, fn, what: str, top: int = 12) -> None:
 
 
 def phase_encoder_vs_plain(torch, make_encode_batch, model, encode, packed, plain_ops, emb,
-                           inputs, what: str, tol_max: float, tol_mean: float) -> None:
+                           inputs, what: str, tol_max: float, tol_mean: float,
+                           compact_windows: bool) -> None:
     """The whole encoder, kernel path (``encode``, whose output on ``inputs``
-    is ``emb``) vs plain path on the same packed weights; then the same with
-    the rel tables scaled up, and the rel bias dropped as the planted fault."""
-    plain = make_encode_batch(model, torch.bfloat16, ops=plain_ops)
+    is ``emb``) vs plain path on the same packed weights and layout; then the
+    same with the rel tables scaled up, and the rel bias dropped as the
+    planted fault."""
+    plain = make_encode_batch(model, torch.bfloat16, ops=plain_ops,
+                              compact_windows=compact_windows)
     t0 = time.perf_counter()
     emb_plain = plain(packed, *inputs)
     torch.cuda.synchronize()
@@ -522,7 +666,7 @@ def phase_encoder_vs_plain(torch, make_encode_batch, model, encode, packed, plai
 
 
 def phase_golden(torch, np, cfg_t, ImageEncoderViT, KERNEL_OPS, KERNEL_OPS_INT8,
-                 PLAIN_OPS_INT8) -> float:
+                 PLAIN_OPS_INT8, LAUNCHES) -> float:
     """vit_t encoder in bf16 through the kernels on the card vs the golden;
     then its int8 mode, kernels vs plain versions (ragged tiles: 128 tokens,
     E = 32, head dim 16)."""
@@ -538,6 +682,16 @@ def phase_golden(torch, np, cfg_t, ImageEncoderViT, KERNEL_OPS, KERNEL_OPS_INT8,
         f"(tol {GOLDEN_TOL})")
     check(err <= GOLDEN_TOL, f"golden vit_t encoder off by {err}")
     x = torch.from_numpy(data["x"]).cuda()
+    # the compact layout at 8x8 tokens, ws=5: K6 on 5x3 and 3x5 windows with one
+    # dead slot each, head dim 16
+    before = LAUNCHES["K6"]
+    out_c = enc(x, dtype=torch.bfloat16, ops=KERNEL_OPS, compact_windows=True)
+    torch.cuda.synchronize()
+    err_c = max_err(out_c.cpu(), torch.from_numpy(data["out"]))
+    log(f"golden vit_t, compact layout (K6 launched {LAUNCHES['K6'] - before} times): max abs "
+        f"err {err_c:.4g} (tol {GOLDEN_TOL})")
+    check(LAUNCHES["K6"] - before == 2 and err_c <= GOLDEN_TOL,
+          f"golden vit_t compact encoder off by {err_c}")
     packed = enc.pack(torch.bfloat16, quantize="int8")
     out_k = enc(x, dtype=torch.bfloat16, packed=packed, ops=KERNEL_OPS_INT8)
     out_p = enc(x, dtype=torch.bfloat16, packed=packed, ops=PLAIN_OPS_INT8)
@@ -854,13 +1008,14 @@ def phase_enhance(torch, np, port, model, emb, embed_ips: float):
 def phase_embed_int8(torch, kernels, cfg, model, make_serving_encoder, two_round_decode,
                      inputs, n_classes: int, emb_bf16, results_bf16, bf16_ips: float,
                      enhance_ips: float):
-    """The int8 embed path at full width and depth, counted; its outputs, its
-    drift from the bf16 path, its throughput and profile.  Returns the
-    launches of the counted run, the encode function, its weights and the
-    embeddings."""
+    """The flat int8 embed path at full width and depth, counted; its outputs,
+    its drift from the bf16 path, its throughput and profile.  Returns the
+    launches of the counted run, the encode function, its weights, the
+    embeddings and its images/s."""
     imgs, sizes, coords, labels = inputs
     t0 = time.perf_counter()
-    encode, packed = make_serving_encoder(model, torch.bfloat16, quantize="int8")
+    encode, packed = make_serving_encoder(model, torch.bfloat16, quantize="int8",
+                                          compact_windows=False)
     encode(packed, imgs, sizes)                           # warm-up
     torch.cuda.synchronize()
     nbytes = sum(t.numel() * t.element_size() for pk in packed for t in pk.values())
@@ -881,8 +1036,9 @@ def phase_embed_int8(torch, kernels, cfg, model, make_serving_encoder, two_round
     log(f"int8 embed path launches: {launches} ({t_embed * 1e3:.1f} ms for {B} images)")
     enc = cfg.image_encoder
     n_global = len(enc.global_attn_indexes)
-    want = {"K2": enc.depth, "K4": enc.depth, "K5": enc.depth - n_global, "K7-int8": n_global,
-            "K1": 0, "K3": 0, "K7": 0, "K8": 0}
+    want = dict.fromkeys(launches, 0)
+    want.update({"K2": enc.depth, "K4": enc.depth, "K5": enc.depth - n_global,
+                 "K7-int8": n_global})
     check(launches == want, f"int8 embed path launches {launches}, expected {want}")
 
     g = cfg.prompt_encoder.image_embedding_size
@@ -910,7 +1066,87 @@ def phase_embed_int8(torch, kernels, cfg, model, make_serving_encoder, two_round
     log(f"embed int8 + enhance: {1.0 / (1.0 / ips + 1.0 / enhance_ips):.3f} images/s (with the "
         f"bf16 embed {1.0 / (1.0 / bf16_ips + 1.0 / enhance_ips):.3f})")
     phase_profile(torch, lambda: encode(packed, imgs, sizes), "int8 encoder")
+    return launches, encode, packed, emb, ips
+
+
+def phase_embed_compact(torch, kernels, cfg, model, make_serving_encoder, two_round_decode,
+                        inputs, n_classes: int, quantize, flat, enhance_ips: float):
+    """A compact embed path (the serving default) at full width and depth,
+    counted, with its decode; its outputs, its embedding against the flat
+    path's (``flat``: embedding, images/s, tolerances) and its throughput.
+    Returns the launches of the counted run, the encode function, its
+    weights and the embeddings."""
+    imgs, sizes, coords, labels = inputs
+    emb_flat, flat_ips, tol_max, tol_mean = flat
+    what = "compact int8" if quantize else "compact bf16"
+    encode, packed = make_serving_encoder(model, torch.bfloat16, quantize=quantize)
+    encode(packed, imgs, sizes)                           # warm-up
+    torch.cuda.synchronize()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    emb = encode(packed, imgs, sizes)
+    torch.cuda.synchronize()
+    t_embed = time.perf_counter() - t0
+    results = []
+    for i in range(B):
+        low, iou = two_round_decode(model, emb[i:i + 1], coords, labels)
+        results.append((low, iou, model.postprocess_masks(low, INPUT_HW, ORIGINAL_HW)))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"{what} embed path launches: {launches} ({t_embed * 1e3:.1f} ms for {B} images)")
+    enc = cfg.image_encoder
+    n_global = len(enc.global_attn_indexes)
+    n_windowed = enc.depth - n_global
+    want = dict.fromkeys(launches, 0)
+    want.update({"K5": n_windowed, "K6": 2 * n_windowed})   # two edge groups at 64x64, ws=14
+    want.update({"K2": enc.depth, "K4": enc.depth, "K7-int8": n_global} if quantize else
+                {"K1": enc.depth, "K3": enc.depth, "K7": n_global})
+    check(launches == want, f"{what} embed path launches {launches}, expected {want}")
+
+    g = cfg.prompt_encoder.image_embedding_size
+    check(tuple(emb.shape) == (B, 256, *g) and emb.dtype == torch.float32,
+          f"{what} embedding shape {tuple(emb.shape)} {emb.dtype}")
+    check(bool(torch.isfinite(emb).all()), f"non-finite {what} embedding")
+    for low, iou, masks in results:
+        check(tuple(low.shape) == (n_classes, 1, 4 * g[0], 4 * g[1]), f"low-res {low.shape}")
+        check(tuple(masks.shape) == (n_classes, 1, *ORIGINAL_HW), f"masks {masks.shape}")
+        for t in (low, iou, masks):
+            check(bool(torch.isfinite(t).all()), f"non-finite decode output of the {what} "
+                  "embedding")
+    diff = (emb - emb_flat).abs()
+    d_max, d_mean = diff.max().item(), diff.mean().item()
+    log(f"{what} vs flat embedding: max abs err {d_max:.4g} (tol {tol_max}), mean {d_mean:.4g} "
+        f"(tol {tol_mean}); relative L2 {(diff.norm() / emb_flat.norm()).item():.4g}")
+    check(d_max <= tol_max and d_mean <= tol_mean,
+          f"the {what} embedding disagrees with the flat one")
+
+    t_ms = card_ms(torch, lambda: encode(packed, imgs, sizes), iters=5, warmup=1)
+    ips = B / (t_ms / 1e3)
+    log(f"embed {what}: {ips:.3f} images/s ({t_ms:.2f} ms per batch of {B}; flat "
+        f"{flat_ips:.3f} images/s)")
+    log(f"embed {what} + enhance: {1.0 / (1.0 / ips + 1.0 / enhance_ips):.3f} images/s (with "
+        f"the flat embed {1.0 / (1.0 / flat_ips + 1.0 / enhance_ips):.3f})")
     return launches, encode, packed, emb
+
+
+def phase_medsam(torch, cfg, model, make_serving_encoder, KERNEL_OPS, imgs) -> None:
+    """The MedSAM encode entry point once on the card: finite, of the right
+    shape, and bit for bit the encoder fed the same normalised input."""
+    encode, packed = make_serving_encoder(model, torch.bfloat16, medsam=True)
+    emb = encode(packed, imgs, None)
+    x = imgs.float()
+    lo, hi = x.amin(dim=(1, 2, 3), keepdim=True), x.amax(dim=(1, 2, 3), keepdim=True)
+    same = model.image_encoder((x - lo) / (hi - lo).clamp(min=1e-8), dtype=torch.bfloat16,
+                               packed=packed, ops=KERNEL_OPS, compact_windows=True)
+    torch.cuda.synchronize()
+    log(f"MedSAM encode: {tuple(emb.shape)} {emb.dtype}, finite "
+        f"{bool(torch.isfinite(emb).all())}, max abs err vs the encoder on the normalised "
+        f"input {max_err(emb, same):.4g} (tol 0)")
+    g = cfg.prompt_encoder.image_embedding_size
+    check(tuple(emb.shape) == (imgs.shape[0], 256, *g) and emb.dtype == torch.float32
+          and bool(torch.isfinite(emb).all()), "MedSAM embedding: wrong shape or non-finite")
+    check(torch.equal(emb, same), "the MedSAM encode differs from the encoder on its input")
 
 
 def main() -> int:
@@ -954,7 +1190,7 @@ def main() -> int:
     cfg = sam_vit_h_config()
     t0 = time.perf_counter()
     model = build_sam(cfg, device=dev, seed=0)
-    encode, packed = make_serving_encoder(model, torch.bfloat16)
+    encode, packed = make_serving_encoder(model, torch.bfloat16, compact_windows=False)
     torch.cuda.synchronize()
     log(f"ViT-H SAM with random weights (seed 0) on the card in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -973,7 +1209,7 @@ def main() -> int:
     encode(packed, imgs, sizes)                           # warm-up: libraries load
     torch.cuda.synchronize()
 
-    # 3. the embed path, counted --------------------------------------------
+    # 3. the flat embed path, counted ---------------------------------------
     kernels.reset_launches()
     t0 = time.perf_counter()
     emb = encode(packed, imgs, sizes)
@@ -989,9 +1225,12 @@ def main() -> int:
     t_decode = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     log(f"embed path launches: {launches}")
-    for name, (path, _, _) in KERNELS.items():
-        if path == "embed":
-            check(launches[name] > 0, f"{name} was not launched on the embed path")
+    enc_cfg = cfg.image_encoder
+    n_global = len(enc_cfg.global_attn_indexes)
+    want = dict.fromkeys(launches, 0)
+    want.update({"K1": enc_cfg.depth, "K3": enc_cfg.depth, "K5": enc_cfg.depth - n_global,
+                 "K7": n_global})
+    check(launches == want, f"embed path launches {launches}, expected {want}")
 
     g = cfg.prompt_encoder.image_embedding_size
     check(tuple(emb.shape) == (B, 256, *g) and emb.dtype == torch.float32,
@@ -1018,7 +1257,8 @@ def main() -> int:
 
     # 4. kernel path vs plain path, whole encoder ----------------------------
     phase_encoder_vs_plain(torch, make_encode_batch, model, encode, packed, PLAIN_OPS, emb,
-                           (imgs, sizes), "encoder (bf16)", ENCODER_TOL_MAX, ENCODER_TOL_MEAN)
+                           (imgs, sizes), "encoder (bf16)", ENCODER_TOL_MAX, ENCODER_TOL_MEAN,
+                           compact_windows=False)
 
     # decode on the card vs on the CPU, fp32
     cpu_model = build_sam(cfg, device="cpu", state_dict={
@@ -1036,50 +1276,106 @@ def main() -> int:
     launches_enh, k8_input, enhance_ips = phase_enhance(torch, np, port, model, emb, bf16_ips)
 
     # 5b. the int8 embed path, counted, and the whole int8 encoder vs its plain path
-    launches_int8, encode8, packed8, emb8 = phase_embed_int8(
+    launches_int8, encode8, packed8, emb8, int8_ips = phase_embed_int8(
         torch, kernels, cfg, model, make_serving_encoder, two_round_decode,
         (imgs, sizes, coords, labels), N_CLASSES, emb, results, bf16_ips, enhance_ips)
     phase_encoder_vs_plain(torch, make_encode_batch, model, encode8, packed8, PLAIN_OPS_INT8,
                            emb8, (imgs, sizes), "encoder (int8)", ENCODER_INT8_TOL_MAX,
-                           ENCODER_INT8_TOL_MEAN)
+                           ENCODER_INT8_TOL_MEAN, compact_windows=False)
 
-    # 6. every kernel vs its plain version at its path's shapes --------------
+    # 5c. the compact embed paths (the serving default), counted; each against
+    # the flat path and against its plain path; the MedSAM encode
+    inputs = (imgs, sizes, coords, labels)
+    launches_c, encode_c, packed_c, emb_c = phase_embed_compact(
+        torch, kernels, cfg, model, make_serving_encoder, two_round_decode, inputs, N_CLASSES,
+        None, (emb, bf16_ips, ENCODER_TOL_MAX, ENCODER_TOL_MEAN), enhance_ips)
+    phase_encoder_vs_plain(torch, make_encode_batch, model, encode_c, packed_c, PLAIN_OPS, emb_c,
+                           (imgs, sizes), "compact encoder (bf16)", ENCODER_TOL_MAX,
+                           ENCODER_TOL_MEAN, compact_windows=True)
+    launches_c8, encode_c8, packed_c8, emb_c8 = phase_embed_compact(
+        torch, kernels, cfg, model, make_serving_encoder, two_round_decode, inputs, N_CLASSES,
+        "int8", (emb8, int8_ips, ENCODER_INT8_TOL_MAX, ENCODER_INT8_TOL_MEAN), enhance_ips)
+    phase_profile(torch, lambda: encode_c8(packed_c8, imgs, sizes), "compact int8 encoder")
+    phase_encoder_vs_plain(torch, make_encode_batch, model, encode_c8, packed_c8, PLAIN_OPS_INT8,
+                           emb_c8, (imgs, sizes), "compact encoder (int8)",
+                           ENCODER_INT8_TOL_MAX, ENCODER_INT8_TOL_MEAN, compact_windows=True)
+    del encode_c, packed_c, emb_c, encode_c8, packed_c8, emb_c8
+    phase_medsam(torch, cfg, model, make_serving_encoder, KERNEL_OPS, imgs)
+
+    # 6. every kernel vs its plain version at its paths' shapes: the flat
+    # paths' and the compact paths' (the serving default), each recorded with
+    # the out= view it was handed
     recorded = {}
 
-    def recorder(name, fn):
+    def recorder(name, fn, suffix=""):
         def call(*args, **kw):
-            recorded.setdefault(name, (args, kw))
+            key = f"{name} {kw['rh']}x{kw['rw']}" if name == "K6" else name + suffix
+            recorded.setdefault(key, (args, kw))
             return fn(*args, **kw)
         return call
 
-    rec_ops = EncoderOps(*(recorder(n, f) for n, f in zip(("K1", "K3", "K5", "K7"), KERNEL_OPS)))
-    make_encode_batch(model, torch.bfloat16, ops=rec_ops)(packed, imgs, sizes)
-    rec_ops = EncoderOps(*(recorder(n, f) for n, f in zip(("K2", "K4", "K5", "K7-int8"),
-                                                          KERNEL_OPS_INT8)), int8=True)
-    make_encode_batch(model, torch.bfloat16, ops=rec_ops)(packed8, imgs, sizes)
+    def record(names, ops, weights, compact):
+        rec = EncoderOps(*(recorder(n, f, " compact" if compact else "")
+                           for n, f in zip(names, ops)), int8=ops.int8)
+        make_encode_batch(model, torch.bfloat16, ops=rec, compact_windows=compact)(
+            weights, imgs, sizes)
+
+    record(("K1", "K3", "K5", "K7", "K6"), KERNEL_OPS, packed, False)
+    record(("K2", "K4", "K5", "K7-int8", "K6"), KERNEL_OPS_INT8, packed8, False)
+    record(("K1", "K3", "K5", "K7", "K6"), KERNEL_OPS, packed, True)
+    record(("K2", "K4", "K5", "K7-int8", "K6"), KERNEL_OPS_INT8, packed8, True)
+    k6_keys = sorted(k for k in recorded if k.startswith("K6 "))
+    check(len(k6_keys) == 2, f"the compact path must hand K6 two window shapes, got {k6_keys}")
     pairs = {"K1": (mlp_k.ln_masked_linear, mlp_k.ln_masked_linear_plain),
              "K2": (quant_k.ln_masked_linear_int8, quant_k.ln_masked_linear_int8_plain),
              "K3": (mlp_k.ln_mlp_residual, mlp_k.ln_mlp_residual_plain),
              "K4": (quant_k.ln_mlp_residual_int8, quant_k.ln_mlp_residual_int8_plain),
              "K5": (attn_k.rel_attention_window, attn_k.rel_attention_window_plain),
+             "K6": (attn_k.rel_attention_window_rect, attn_k.rel_attention_window_rect_plain),
              "K7": (attn_k.rel_attention_global, attn_k.rel_attention_global_plain),
              "K7-int8": (KERNEL_OPS_INT8.rel_attention_global,
                          PLAIN_OPS_INT8.rel_attention_global)}
+    flat_keys = [k for k in pairs if k != "K6"]
+    compact_keys = [k + " compact" for k in flat_keys]
+    check(all(k in recorded for k in flat_keys + compact_keys),
+          f"a path did not reach every kernel: recorded {sorted(recorded)}")
+    check("out" in recorded["K5 compact"][1] and all("out" in recorded[k][1] for k in k6_keys),
+          "the compact path must hand K5 and K6 an out= view")
+    counts = {"embed": launches, "embed-int8": launches_int8, "embed-compact": launches_c,
+              "embed-compact-int8": launches_c8}
     rows = []
+    k6_rows = []
     stress_gen = torch.Generator(device=dev).manual_seed(2)
-    for name, (kern, plain) in pairs.items():
-        args, kw = recorded[name]
-        out_k = kern(*args, **kw)
-        out_p = plain(*args, **kw)
+    for key in flat_keys + compact_keys + k6_keys:
+        name = key.split()[0]
+        kern, plain = pairs[name]
+        args, kw = recorded[key]
+        path = ("embed-compact" if key in compact_keys or name == "K6" else "embed") \
+            + ("-int8" if KERNELS[name][0] == "embed-int8" else "")
+        out_k = call_as_recorded(torch, key, kern, args, kw)
+        out_p = call_as_recorded(torch, f"{key}'s plain version", plain, args, kw)
         torch.cuda.synchronize()
         err = (out_k.float() - out_p.float()).abs().max().item()
         ref = out_p.float().abs().max().item()
         ms = card_ms(torch, lambda: kern(*args, **kw))
         plain_ms = card_ms(torch, lambda: plain(*args, **kw), iters=3, warmup=1)
+        kw = {k: v for k, v in kw.items() if k != "out"}
         library_ms = None
-        if name in ("K5", "K7", "K7-int8"):
-            kh, kwid = (kw["ws"], kw["ws"]) if name == "K5" else (kw["kh"], kw["kw"])
-            q, k, v, bias = sdpa_inputs(torch, args[0], args[1], kw["heads"], kw["hd"],
+        if name in ("K5", "K6", "K7", "K7-int8"):
+            kh, kwid = (kw["ws"], kw["ws"]) if name in ("K5", "K6") else (kw["kh"], kw["kw"])
+            sdpa_qkv = args[0]
+            if name == "K6":    # the library sees the padded windows, materialised; so does K5
+                sdpa_qkv = materialised_windows(torch, args[0], args[2], kw["ws"], kw["rh"],
+                                                kw["rw"])
+                via_k5 = attn_k.rel_attention_window(sdpa_qkv, args[1], ws=kw["ws"],
+                                                     heads=kw["heads"], hd=kw["hd"])
+                err_k5 = max_err(live_cells(via_k5, kw["ws"], kw["rh"], kw["rw"]),
+                                 out_k[:, :kw["rh"] * kw["rw"]])
+                log(f"{key}: max abs err {err_k5:.4g} vs K5 on the materialised padded windows "
+                    f"(tol {KERNEL_TOL[name]} x max |plain|)")
+                check(err_k5 <= KERNEL_TOL[name] * max(ref, 1e-6),
+                      f"{key} disagrees with K5 on the materialised padded windows")
+            q, k, v, bias = sdpa_inputs(torch, sdpa_qkv, args[1], kw["heads"], kw["hd"],
                                         kh, kwid)
             sdpa = torch.nn.functional.scaled_dot_product_attention
             library_ms = card_ms(torch, lambda: sdpa(q, k, v, attn_mask=bias))
@@ -1087,31 +1383,44 @@ def main() -> int:
         flops, int8_ops, nbytes = kernel_work(name, args, kw)
         bound_ms, bound_by = bound(flops, nbytes, int8_ops)
         shape = tuple(args[0].shape)
-        log(f"{name} on {shape}: max abs err {err:.4g} vs max |plain| {ref:.4g} "
+        log(f"{key} on {shape}{' into an out= view' if 'out' in recorded[key][1] else ''}: "
+            f"max abs err {err:.4g} vs max |plain| {ref:.4g} "
             f"(tol {KERNEL_TOL[name]} x max |plain|), {ms:.4f} ms (plain {plain_ms:.4f}, library "
             f"{library_ms}, bound {bound_ms:.4f} by {bound_by}); "
             f"{(flops + int8_ops) / (ms * 1e-3) / 1e12:.1f} Tops/s")
-        check(err <= KERNEL_TOL[name] * max(ref, 1e-6), f"{name} disagrees with its plain version")
+        check(err <= KERNEL_TOL[name] * max(ref, 1e-6), f"{key} disagrees with its plain version")
         if name == "K4":    # its other GELU, which the main path does not run
             err_erf = max_err(kern(*args, **kw, gelu="erf"), plain(*args, **kw, gelu="erf"))
-            log(f"K4 with gelu='erf': max abs err {err_erf:.4g}")
+            log(f"{key} with gelu='erf': max abs err {err_erf:.4g}")
             check(err_erf <= KERNEL_TOL[name] * max(ref, 1e-6),
-                  "K4 with gelu='erf' disagrees with its plain version")
-        phase_stress(torch, name, kern, plain, args, kw, stress_gen)
-        rows.append({"name": name, "route": "cuda", "source": KERNELS[name][1],
-                     "replaces": KERNELS[name][2],
-                     "launches": (launches_int8 if KERNELS[name][0] == "embed-int8"
-                                  else launches)[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+                  f"{key} with gelu='erf' disagrees with its plain version")
+        phase_stress(torch, key, kern, plain, args, kw, stress_gen)
+        row = {"name": name, "path": path, "shape": list(shape), "route": "cuda",
+               "source": KERNELS[name][1], "replaces": KERNELS[name][2],
+               "launches": counts[path][name],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+        (k6_rows if name == "K6" else rows).append(row)
+    # K6's row: one windowed block's K6 work, its two launches (one per edge
+    # group) taken together; the larger error of the two
+    rows.append({**k6_rows[0], "shape": [r["shape"] for r in k6_rows],
+                 "max_abs_err": max(r["max_abs_err"] for r in k6_rows),
+                 **{k: sum(r[k] for r in k6_rows)
+                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
+    check(launches_c["K6"] == launches_c8["K6"] and launches_c["K5"] == launches_c8["K5"],
+          "K5 and K6 launches differ between the compact paths")
+    log(f"K6: {rows[-1]['ms']:.4f} ms for a block's two launches against a bound of "
+        f"{rows[-1]['bound_ms']:.4f} ms by bytes: each launch fills the card at most once, so "
+        f"launch latency, not the bound, sets its time")
     del recorded
     k8 = phase_k8(torch, np, port.kccl, k8_input, np.random.default_rng(5))
-    rows.append({"name": "K8", "route": "cuda", "source": KERNELS["K8"][1],
+    rows.append({"name": "K8", "path": "enhance", "shape": list(k8_input[0].shape),
+                 "route": "cuda", "source": KERNELS["K8"][1],
                  "replaces": KERNELS["K8"][2], "launches": launches_enh["K8"], **k8})
 
     # 7. the tiny config through the kernels vs the reference golden --------
     phase_golden(torch, np, sam_vit_t_config(), ImageEncoderViT, KERNEL_OPS, KERNEL_OPS_INT8,
-                 PLAIN_OPS_INT8)
+                 PLAIN_OPS_INT8, kernels.LAUNCHES)
 
     log(json.dumps({"kernels": rows}))
     log(identity)

@@ -1,8 +1,11 @@
-// K5, K7 and K7-int8: attention with the decomposed relative-position bias of
-// SAM's ViT encoder, on sm_90a.
+// K5, K6, K7 and K7-int8: attention with the decomposed relative-position bias
+// of SAM's ViT encoder, on sm_90a.
 //
 // K5 replaces samcarriestheburden_tpu/kernels/attention.py:fused_rel_attention_window3d
 //    (one 14x14 window per sequence, 200 slots of which 196 are live keys),
+// K6 replaces samcarriestheburden_tpu/kernels/attention.py:fused_rel_attention_window_rect
+//    (an edge window of the compact layout: only its QH x QW image cells are
+//    carried; the other cells of the 14x14 window are zero-pad tokens; below),
 // K7 replaces samcarriestheburden_tpu/kernels/attention.py:fused_rel_attention_global3d
 //    with int8_qk=False (the whole 64x64 grid, 4096 keys),
 // K7-int8 the same TPU kernel with int8_qk=True (below).
@@ -31,6 +34,19 @@
 // and are not carried over.
 // K5 runs 13 warps so one block holds all 200 rows of a window and reads its
 // q/k/v once; K7 runs 8 warps per 128-row query tile.
+//
+// K6 is the same kernel with a query grid of (QH, QW) inside the key grid of
+// (KH, KW): carried slot t sits at window cell (min(t / QW, QH - 1), t % QW),
+// as a query and as a key, and the rel tables are the full window's.  The
+// KH*KW - QH*QW cells outside the rectangle are pad keys, whose k and v are
+// the qkv bias b_k, b_v of the head (rounded to bf16, as the flat layout's
+// K1/K2 writes them for a zero-masked row).  They never touch the tensor
+// cores: after the real tiles each row takes one fp32 dot q_i . b_k and, per
+// pad cell, its two rel terms from the same per-row table, folds those logits
+// into the running maximum and sum of the online softmax, and adds
+// (sum of pad weights) * b_v to its accumulator, in fp32.  7 warps hold a
+// whole 112-slot window (14x8 or 8x14).  Its bound is bytes, ~3 us per group
+// of the compact ViT-H layout: launch latency, not the bound, sets its time.
 //
 // K7-int8 computes q . k on the int8 tensor cores (mma.sync m16n8k32):
 //    sk[c]  = absmax_j |k[j, c]| / 127 + 1e-12       per (sequence, head, channel)
@@ -128,12 +144,16 @@ k_quant_kernel(const bf16* __restrict__ qkv, const float* __restrict__ kmax,
       make_uint2(w[0], w[1]);
 }
 
-template <int HD, int NW, bool INT8>
+// QH x QW is the grid the carried slots are laid out on, as queries and as
+// keys: the key grid KH x KW itself except for K6 (RECT), whose pad keys take
+// their k and v from qkv_bias (heads * 3 * HD, fp32).
+template <int HD, int NW, bool INT8, bool RECT>
 __global__ void __launch_bounds__(NW * 32)
 rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
                      const int8_t* __restrict__ kq, const float* __restrict__ kmax,
-                     bf16* __restrict__ out, int nrows, int nkeys, int heads, int KH, int KW,
-                     float scale, float inv_scale) {
+                     const float* __restrict__ qkv_bias, bf16* __restrict__ out, int nrows,
+                     int nkeys, int heads, int KH, int KW, int QH, int QW, float scale,
+                     float inv_scale) {
   constexpr int BQ = NW * 16, LD = HD + 8, KSTEPS = HD / 16, DT = HD / 8, CH = HD / 8;
   constexpr int HDP = padded_hd(HD), LDK = HDP + 16, KSTEPS8 = HDP / 32, CHK = HDP / 16;
   constexpr int NTHREADS = NW * 32;
@@ -179,8 +199,8 @@ rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
   for (int i = 0; i < 2; ++i) {
     rl[i] = warp * 16 + (lane >> 2) + i * 8;
     const int t = q0 + rl[i];
-    ph[i] = min(t / KW, KH - 1);  // dead slots clamp, as the reference does
-    pw[i] = t % KW;
+    ph[i] = min(t / QW, QH - 1);  // dead slots clamp, as the reference does
+    pw[i] = t % QW;
   }
   uint32_t qf[KSTEPS][4];
 #pragma unroll
@@ -283,7 +303,7 @@ rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
     for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   constexpr float LOG2E = 1.4426950408889634f;
-  const float inv_kw = 1.f / KW;
+  const float inv_qw = 1.f / QW;
   const bf16* rel0 = sRel + rl[0] * KR;
   const bf16* rel1 = sRel + rl[1] * KR;
 
@@ -344,8 +364,8 @@ rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
         const int j = kt * BKV + t * 8 + (lane & 3) * 2 + (e & 1);
         float v = -INFINITY;
         if (j < nkeys) {
-          const int kh = __float2int_rz((j + 0.5f) * inv_kw);
-          const int kw = j - kh * KW;
+          const int kh = __float2int_rz((j + 0.5f) * inv_qw);
+          const int kw = j - kh * QW;
           const bf16* rel = (e >> 1) ? rel1 : rel0;
           const float rh = __bfloat162float(rel[kh]), rw = __bfloat162float(rel[KH + kw]);
           v = INT8 ? (sc[t][e] + (rh + rw)) * scale : (sc[t][e] + rh + rw) * scale;
@@ -398,6 +418,76 @@ rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
     __syncthreads();  // this stage is reloaded two tiles on
   }
 
+  // K6: the pad keys, the window's cells outside the carried rectangle, all
+  // with k = b_k and v = b_v.  A quad shares a row: its four threads split the
+  // channels of q . b_k and the cells, and fold them into the online softmax.
+  if (RECT) {
+    const float* bh = qkv_bias + h * 3 * HD;
+    float qbk[2] = {0.f, 0.f};
+    for (int c = lane & 3; c < HD; c += 4) {
+      const float bk = __bfloat162float(__float2bfloat16(bh[HD + c]));
+      qbk[0] += __bfloat162float(sQ[rl[0] * LD + c]) * bk;
+      qbk[1] += __bfloat162float(sQ[rl[1] * LD + c]) * bk;
+    }
+    const int ncells = KH * KW;
+    float pm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      qbk[i] += __shfl_xor_sync(0xffffffffu, qbk[i], 1);
+      qbk[i] += __shfl_xor_sync(0xffffffffu, qbk[i], 2);
+    }
+    for (int c = lane & 3; c < ncells; c += 4) {
+      const int pp = c / KW, qq = c - pp * KW;
+      if (pp < QH && qq < QW) continue;
+      pm[0] = fmaxf(pm[0], (qbk[0] + __bfloat162float(rel0[pp]) +
+                            __bfloat162float(rel0[KH + qq])) * scale);
+      pm[1] = fmaxf(pm[1], (qbk[1] + __bfloat162float(rel1[pp]) +
+                            __bfloat162float(rel1[KH + qq])) * scale);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      pm[i] = fmaxf(pm[i], __shfl_xor_sync(0xffffffffu, pm[i], 1));
+      pm[i] = fmaxf(pm[i], __shfl_xor_sync(0xffffffffu, pm[i], 2));
+      const float mn = fmaxf(m[i], pm[i]);  // a pad logit may be the row's largest
+      alpha[i] = exp2f((m[i] - mn) * LOG2E);
+      m[i] = mn;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      o[d][0] *= alpha[0];
+      o[d][1] *= alpha[0];
+      o[d][2] *= alpha[1];
+      o[d][3] *= alpha[1];
+    }
+    float sp[2] = {0.f, 0.f};
+    for (int c = lane & 3; c < ncells; c += 4) {
+      const int pp = c / KW, qq = c - pp * KW;
+      if (pp < QH && qq < QW) continue;
+      sp[0] += exp2f(((qbk[0] + __bfloat162float(rel0[pp]) + __bfloat162float(rel0[KH + qq])) *
+                          scale - m[0]) * LOG2E);
+      sp[1] += exp2f(((qbk[1] + __bfloat162float(rel1[pp]) + __bfloat162float(rel1[KH + qq])) *
+                          scale - m[1]) * LOG2E);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += sp[i];  // this thread's share, summed over the quad below
+      sp[i] += __shfl_xor_sync(0xffffffffu, sp[i], 1);
+      sp[i] += __shfl_xor_sync(0xffffffffu, sp[i], 2);
+    }
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      const int c = 2 * HD + d * 8 + (lane & 3) * 2;
+      const float bv0 = __bfloat162float(__float2bfloat16(bh[c]));
+      const float bv1 = __bfloat162float(__float2bfloat16(bh[c + 1]));
+      o[d][0] += sp[0] * bv0;
+      o[d][1] += sp[0] * bv1;
+      o[d][2] += sp[1] * bv0;
+      o[d][3] += sp[1] * bv1;
+    }
+  }
+
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -418,12 +508,16 @@ rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
 
 // kq and kmax are the int8 path's scratch (null for bf16): kq (nseq, heads,
 // nrows, padded hd) int8, kmax (nseq, heads, hd) fp32.
-template <int HD, int NW, bool INT8>
-cudaError_t launch(const bf16* qkv, const bf16* tab, int8_t* kq, float* kmax, bf16* out, int nseq,
-                   int nrows, int nkeys, int heads, int kh, int kw, float scale, float inv_scale,
-                   cudaStream_t stream) {
+// bias is K6's qkv bias (null otherwise); qh x qw the carried grid (kh x kw unless RECT).
+template <int HD, int NW, bool INT8, bool RECT>
+cudaError_t launch(const bf16* qkv, const bf16* tab, int8_t* kq, float* kmax, const float* bias,
+                   bf16* out, int nseq, int nrows, int nkeys, int heads, int kh, int kw, int qh,
+                   int qw, float scale, float inv_scale, cudaStream_t stream) {
   const int nt = 2 * kh - 1 + 2 * kw - 1;
   if ((nt + 15) / 16 * 16 > 4 * BKV || nkeys < 1 || nkeys > nrows) return cudaErrorInvalidValue;
+  if (RECT ? (qh < 1 || qw < 1 || qh > kh || qw > kw || nkeys != qh * qw || bias == nullptr)
+           : (qh != kh || qw != kw))
+    return cudaErrorInvalidValue;
   cudaError_t err;
   if (INT8) {
     if (nkeys != nrows) return cudaErrorInvalidValue;
@@ -441,38 +535,39 @@ cudaError_t launch(const bf16* qkv, const bf16* tab, int8_t* kq, float* kmax, bf
     if (err != cudaSuccess) return err;
   }
   const size_t smem = INT8 ? attn_smem_bytes_int8<HD, NW>(kh, kw) : attn_smem_bytes<HD, NW>(kh, kw);
-  err = cudaFuncSetAttribute(rel_attention_kernel<HD, NW, INT8>,
+  err = cudaFuncSetAttribute(rel_attention_kernel<HD, NW, INT8, RECT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((nrows + NW * 16 - 1) / (NW * 16), heads, nseq);
-  rel_attention_kernel<HD, NW, INT8><<<grid, NW * 32, smem, stream>>>(
-      qkv, tab, kq, kmax, out, nrows, nkeys, heads, kh, kw, scale, inv_scale);
+  rel_attention_kernel<HD, NW, INT8, RECT><<<grid, NW * 32, smem, stream>>>(
+      qkv, tab, kq, kmax, bias, out, nrows, nkeys, heads, kh, kw, qh, qw, scale, inv_scale);
   return cudaGetLastError();
 }
 
-template <int NW, bool INT8>
-int dispatch(int hd, const void* qkv, const void* tab, void* kq, void* kmax, void* out, int nseq,
-             int nrows, int nkeys, int heads, int kh, int kw, float scale, float inv_scale,
-             void* stream) {
+template <int NW, bool INT8, bool RECT>
+int dispatch(int hd, const void* qkv, const void* tab, void* kq, void* kmax, const void* bias,
+             void* out, int nseq, int nrows, int nkeys, int heads, int kh, int kw, int qh, int qw,
+             float scale, float inv_scale, void* stream) {
   const bf16* q = static_cast<const bf16*>(qkv);
   const bf16* t = static_cast<const bf16*>(tab);
   int8_t* k8 = static_cast<int8_t*>(kq);
   float* km = static_cast<float*>(kmax);
+  const float* b = static_cast<const float*>(bias);
   bf16* o = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16:
-      return launch<16, NW, INT8>(q, t, k8, km, o, nseq, nrows, nkeys, heads, kh, kw, scale,
-                                  inv_scale, s);
+      return launch<16, NW, INT8, RECT>(q, t, k8, km, b, o, nseq, nrows, nkeys, heads, kh, kw, qh,
+                                        qw, scale, inv_scale, s);
     case 32:
-      return launch<32, NW, INT8>(q, t, k8, km, o, nseq, nrows, nkeys, heads, kh, kw, scale,
-                                  inv_scale, s);
+      return launch<32, NW, INT8, RECT>(q, t, k8, km, b, o, nseq, nrows, nkeys, heads, kh, kw, qh,
+                                        qw, scale, inv_scale, s);
     case 64:
-      return launch<64, NW, INT8>(q, t, k8, km, o, nseq, nrows, nkeys, heads, kh, kw, scale,
-                                  inv_scale, s);
+      return launch<64, NW, INT8, RECT>(q, t, k8, km, b, o, nseq, nrows, nkeys, heads, kh, kw, qh,
+                                        qw, scale, inv_scale, s);
     case 80:
-      return launch<80, NW, INT8>(q, t, k8, km, o, nseq, nrows, nkeys, heads, kh, kw, scale,
-                                  inv_scale, s);
+      return launch<80, NW, INT8, RECT>(q, t, k8, km, b, o, nseq, nrows, nkeys, heads, kh, kw, qh,
+                                        qw, scale, inv_scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -484,15 +579,26 @@ int dispatch(int hd, const void* qkv, const void* tab, void* kq, void* kmax, voi
 extern "C" int k5_rel_attention_window(const void* qkv, const void* tab, void* out, int nseq,
                                        int nrows, int nkeys, int heads, int hd, int ws,
                                        float scale, float inv_scale, void* stream) {
-  return dispatch<13, false>(hd, qkv, tab, nullptr, nullptr, out, nseq, nrows, nkeys, heads, ws,
-                             ws, scale, inv_scale, stream);
+  return dispatch<13, false, false>(hd, qkv, tab, nullptr, nullptr, nullptr, out, nseq, nrows,
+                                    nkeys, heads, ws, ws, ws, ws, scale, inv_scale, stream);
+}
+
+// K6: qkv (nseq, nrows, heads*3*hd) bf16 windows of rh*rw carried slots (nrows
+// >= rh*rw) of a ws x ws window; tab as K5's, for the full window; bias
+// (heads*3*hd) fp32, the qkv bias grouped per head like qkv's columns.
+extern "C" int k6_rel_attention_window_rect(const void* qkv, const void* tab, const void* bias,
+                                            void* out, int nseq, int nrows, int heads, int hd,
+                                            int ws, int rh, int rw, float scale, float inv_scale,
+                                            void* stream) {
+  return dispatch<7, false, true>(hd, qkv, tab, nullptr, nullptr, bias, out, nseq, nrows, rh * rw,
+                                  heads, ws, ws, rh, rw, scale, inv_scale, stream);
 }
 
 extern "C" int k7_rel_attention_global(const void* qkv, const void* tab, void* out, int nseq,
                                        int nrows, int heads, int hd, int kh, int kw, float scale,
                                        float inv_scale, void* stream) {
-  return dispatch<8, false>(hd, qkv, tab, nullptr, nullptr, out, nseq, nrows, nrows, heads, kh,
-                            kw, scale, inv_scale, stream);
+  return dispatch<8, false, false>(hd, qkv, tab, nullptr, nullptr, nullptr, out, nseq, nrows,
+                                   nrows, heads, kh, kw, kh, kw, scale, inv_scale, stream);
 }
 
 // As K7, with the q . k product in int8.  Scratch: kq (nseq, nrows-major per
@@ -502,6 +608,6 @@ extern "C" int k7_rel_attention_global_int8(const void* qkv, const void* tab, vo
                                             void* kmax, void* out, int nseq, int nrows,
                                             int heads, int hd, int kh, int kw, float scale,
                                             float inv_scale, void* stream) {
-  return dispatch<8, true>(hd, qkv, tab, kq, kmax, out, nseq, nrows, nrows, heads, kh, kw, scale,
-                           inv_scale, stream);
+  return dispatch<8, true, false>(hd, qkv, tab, kq, kmax, nullptr, out, nseq, nrows, nrows, heads,
+                                  kh, kw, kh, kw, scale, inv_scale, stream);
 }

@@ -14,7 +14,8 @@ from typing import Optional
 import torch
 
 #: launches of each kernel since the last :func:`reset_launches`, by name
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K7": 0, "K7-int8": 0, "K8": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0, "K7-int8": 0,
+            "K8": 0}
 
 
 def reset_launches() -> None:

@@ -14,6 +14,18 @@ in the compute dtype (bf16 on the card), then the neck in fp32.  The
 re-zeroing of pad tokens after LN1 reproduces the reference's fresh zero
 padding at every window partition: a pad token's k and v are the qkv bias.
 
+The compact ragged-window layout (``compact_windows``, the serving default;
+JAX ``apply(compact_windows=True)``) carries no pad token where the token
+grid is no multiple of the window: the windows fall into the groups of
+:func:`compact_window_groups`, full interior windows as above and edge
+windows that hold only their image cells, whose attention (K6) makes the pad
+keys from the qkv bias.  ViT-H carries 4208 slot-rows per image instead of
+5000.  K1-K4 and the output projection are row-wise, so the groups live one
+after the other in one (rows, E) stream and each of those runs once per
+block over all of it; K5 and K6 read and write views of the groups' row
+ranges (the JAX package keeps one carry per group, because a joint stream
+cost it slices and concatenations; views cost nothing here).
+
 The int8 serving mode (JAX ``quantize="int8"``) runs the same blocks over
 prequantized weights (``models/quantize.py``):
 
@@ -40,31 +52,36 @@ from samcarriestheburden_torch.models.quantize import is_prequantized, quantize_
 
 
 class EncoderOps(NamedTuple):
-    """The four kernels a forward runs: the wrappers (:data:`KERNEL_OPS`,
+    """The five kernels a forward runs: the wrappers (:data:`KERNEL_OPS`,
     :data:`KERNEL_OPS_INT8`) or, to hold the kernels against them on the card,
     the plain versions.  ``int8`` says which weights the first two take: the
-    floating-point pack (K1, K3) or the prequantized one (K2, K4)."""
+    floating-point pack (K1, K3) or the prequantized one (K2, K4).  The
+    windowed attentions (K5, K6) are bf16 in both modes."""
 
     ln_masked_linear: object
     ln_mlp_residual: object
     rel_attention_window: object
     rel_attention_global: object
+    rel_attention_window_rect: object
     int8: bool = False
 
 
 KERNEL_OPS = EncoderOps(mlp_k.ln_masked_linear, mlp_k.ln_mlp_residual,
-                        attn_k.rel_attention_window, attn_k.rel_attention_global)
+                        attn_k.rel_attention_window, attn_k.rel_attention_global,
+                        attn_k.rel_attention_window_rect)
 PLAIN_OPS = EncoderOps(mlp_k.ln_masked_linear_plain, mlp_k.ln_mlp_residual_plain,
                        attn_k.rel_attention_window_plain,
-                       attn_k.rel_attention_global_plain)
+                       attn_k.rel_attention_global_plain,
+                       attn_k.rel_attention_window_rect_plain)
 KERNEL_OPS_INT8 = EncoderOps(quant_k.ln_masked_linear_int8, quant_k.ln_mlp_residual_int8,
                              attn_k.rel_attention_window,
-                             partial(attn_k.rel_attention_global, int8_qk=True), int8=True)
+                             partial(attn_k.rel_attention_global, int8_qk=True),
+                             attn_k.rel_attention_window_rect, int8=True)
 PLAIN_OPS_INT8 = EncoderOps(quant_k.ln_masked_linear_int8_plain,
                             quant_k.ln_mlp_residual_int8_plain,
                             attn_k.rel_attention_window_plain,
                             partial(attn_k.rel_attention_global_plain, int8_qk=True),
-                            int8=True)
+                            attn_k.rel_attention_window_rect_plain, int8=True)
 
 
 def default_ops(quantize: Optional[str]) -> EncoderOps:
@@ -161,6 +178,93 @@ def pad_valid_flat(b: int, h: int, w: int, ws: int, dtype, device) -> torch.Tens
 
 
 # ---------------------------------------------------------------------------
+# compact ragged-window layout (JAX image_encoder.py:521-625)
+# ---------------------------------------------------------------------------
+
+
+def compact_window_groups(h: int, w: int, ws: int) -> List[Dict[str, int]]:
+    """The compact layout of an (h, w) token grid: groups in stream order
+    [interior | right edge | bottom strip], each with the carried window
+    shape (rh, rw), the window counts (nh, nw), the region's origin (y0, x0)
+    and the 8-aligned slot count np.  The bottom strip spans the full width:
+    the slots of its last window that lie beyond the image ride as
+    zero-masked slots, which is what the reference's zero-pad tokens are.
+    Empty groups are dropped (JAX ``compact_window_groups``)."""
+    h0, w0 = (h // ws) * ws, (w // ws) * ws
+    groups = []
+
+    def add(rh, rw, nh, nw, y0, x0):
+        if nh and nw and rh and rw:
+            groups.append(dict(rh=rh, rw=rw, nh=nh, nw=nw, y0=y0, x0=x0,
+                               np=-(-(rh * rw) // 8) * 8))
+
+    add(ws, ws, h0 // ws, w0 // ws, 0, 0)
+    add(ws, w - w0, h0 // ws, 1, 0, w0)
+    add(h - h0, ws, 1, -(-w // ws), h0, 0)
+    return groups
+
+
+def compact_group_mask(g: Dict[str, int], h: int, w: int, dtype, device) -> torch.Tensor:
+    """(nh*nw*np, 1) mask of one group: 1 on image positions, 0 on the
+    8-alignment dead slots and on the slots beyond the image."""
+    rh, rw, nh, nw, np_ = g["rh"], g["rw"], g["nh"], g["nw"], g["np"]
+    s = torch.arange(np_, device=device)
+    y = g["y0"] + torch.arange(nh, device=device)[:, None, None] * rh + (s // rw)
+    x = g["x0"] + torch.arange(nw, device=device)[None, :, None] * rw + (s % rw)
+    ok = (s < rh * rw) & (y < h) & (x < w)
+    return ok.to(dtype).reshape(nh * nw * np_, 1)
+
+
+def window_partition_compact(x: torch.Tensor, groups) -> List[torch.Tensor]:
+    """(B, H, W, C) -> per group (Wb, np, C), windows batch-major within a
+    group (JAX ``window_partition_compact``; its masks are
+    :func:`compact_group_mask`, tiled over the batch)."""
+    b, _, _, c = x.shape
+    parts = []
+    for g in groups:
+        rh, rw, nh, nw, np_ = g["rh"], g["rw"], g["nh"], g["nw"], g["np"]
+        n = rh * rw
+        blk = x[:, g["y0"]:g["y0"] + nh * rh, g["x0"]:g["x0"] + nw * rw]
+        pad_h, pad_w = nh * rh - blk.shape[1], nw * rw - blk.shape[2]
+        if pad_h or pad_w:           # bottom strip: beyond-image slots ride as zeros
+            blk = F.pad(blk, (0, 0, 0, pad_w, 0, pad_h))
+        blk = blk.reshape(b, nh, rh, nw, rw, c).permute(0, 1, 3, 2, 4, 5)
+        blk = blk.reshape(b * nh * nw, n, c)
+        if np_ != n:
+            blk = F.pad(blk, (0, 0, 0, np_ - n))
+        parts.append(blk.contiguous())
+    return parts
+
+
+def window_unpartition_compact(parts, groups, b: int, hw: Tuple[int, int]) -> torch.Tensor:
+    """Inverse of :func:`window_partition_compact`: per-group (Wb, np, C)
+    -> (B, H, W, C)."""
+    h, w = hw
+    c = parts[0].shape[-1]
+    x = torch.empty((b, h, w, c), dtype=parts[0].dtype, device=parts[0].device)
+    for g, blk in zip(groups, parts):
+        rh, rw, nh, nw, np_ = g["rh"], g["rw"], g["nh"], g["nw"], g["np"]
+        blk = blk.reshape(b, nh, nw, np_, c)[:, :, :, :rh * rw]
+        blk = blk.reshape(b, nh, nw, rh, rw, c).permute(0, 1, 3, 2, 4, 5)
+        blk = blk.reshape(b, nh * rh, nw * rw, c)
+        y0, x0 = g["y0"], g["x0"]
+        gh, gw = min(nh * rh, h - y0), min(nw * rw, w - x0)   # beyond-image slots dropped
+        x[:, y0:y0 + gh, x0:x0 + gw] = blk[:, :gh, :gw]
+    return x
+
+
+def compact_spans(groups, b: int) -> List[Tuple[Dict[str, int], int, int]]:
+    """(group, first row, end row) of each group in the joint (rows, E)
+    stream of a batch of ``b`` images."""
+    spans, r0 = [], 0
+    for g in groups:
+        r1 = r0 + b * g["nh"] * g["nw"] * g["np"]
+        spans.append((g, r0, r1))
+        r0 = r1
+    return spans
+
+
+# ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
 
@@ -213,6 +317,28 @@ def block_windowed(pk, x3, pad3, cfg: ImageEncoderConfig, ops):
     """One windowed block over flat windows (JAX ``_block_apply_windowed3d``)."""
     a = windowed_attention(pk, x3, pad3, cfg, ops)
     return _mlp_residual(pk, x3.reshape(a.shape), a, cfg, ops).reshape(x3.shape)
+
+
+def block_windowed_compact(pk, x2d, mask, spans, cfg: ImageEncoderConfig, ops):
+    """One windowed block over the compact stream (rows, E) (JAX
+    ``_block_apply_windowed_compact`` over every group at once): LN1 + qkv,
+    the output projection and the MLP run over all rows; the full-window
+    group goes through K5, each edge group through K6
+    (JAX ``_windowed_attention_rect3d``), on views of their row ranges."""
+    e = x2d.shape[1]
+    ws, heads, hd = cfg.window_size, cfg.num_heads, cfg.head_dim
+    qkv = _ln_qkv(pk, x2d, mask, cfg, ops)
+    att = torch.empty_like(x2d)
+    for g, r0, r1 in spans:
+        q3 = qkv[r0:r1].view(-1, g["np"], qkv.shape[-1])
+        o3 = att[r0:r1].view(-1, g["np"], e)
+        if g["rh"] == ws and g["rw"] == ws:
+            ops.rel_attention_window(q3, pk["tables"], ws=ws, heads=heads, hd=hd, out=o3)
+        else:
+            ops.rel_attention_window_rect(q3, pk["tables"], pk["qkv_b"], ws=ws, rh=g["rh"],
+                                          rw=g["rw"], heads=heads, hd=hd, out=o3)
+    a = F.linear(att, pk["proj_w"], pk["proj_b"])
+    return _mlp_residual(pk, x2d, a, cfg, ops)
 
 
 def block_global(pk, x, cfg: ImageEncoderConfig, ops):
@@ -284,13 +410,17 @@ class ImageEncoderViT(nn.Module):
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, *, dtype=None, packed=None,
-                ops: EncoderOps = KERNEL_OPS) -> torch.Tensor:
+                ops: EncoderOps = KERNEL_OPS, compact_windows: bool = False) -> torch.Tensor:
         """(B, 3, img, img) NCHW -> (B, out_chans, grid, grid) NCHW fp32.
         ``dtype`` is the compute type of the transformer stack (None: bf16
         on the card, the only type the kernels take, fp32 on the CPU);
         ``packed`` the output of :meth:`pack` for that dtype and for the
         mode of ``ops`` (packed here when None).  Int8 weights run only on
-        int8 ops, floating-point weights only on the others."""
+        int8 ops, floating-point weights only on the others.
+        ``compact_windows`` runs the windowed blocks on the compact layout
+        (as JAX ``apply``, off unless asked; the serving entry points ask);
+        a token grid that is a window multiple has no pad token to drop and
+        takes the flat layout either way."""
         cfg = self.cfg
         if dtype is None:
             dtype = torch.bfloat16 if x.device.type == "cuda" else torch.float32
@@ -310,17 +440,32 @@ class ImageEncoderViT(nn.Module):
             x = x + self.pos_embed.to(dtype)
         x = x.contiguous()
 
-        b, h, w, _ = x.shape
+        b, h, w, e = x.shape
         ws = cfg.window_size
-        pad3 = pad_valid_flat(b, h, w, ws, dtype, x.device)
+        compact = bool(compact_windows) and (h % ws != 0 or w % ws != 0)
+        if compact:
+            groups = compact_window_groups(h, w, ws)
+            spans = compact_spans(groups, b)
+            mask = torch.cat([compact_group_mask(g, h, w, dtype, x.device).repeat(b, 1)
+                              for g in groups])
+        else:
+            pad3 = pad_valid_flat(b, h, w, ws, dtype, x.device)
         run: List[int] = []
         for i in range(cfg.depth + 1):
             is_global = i < cfg.depth and i in cfg.global_attn_indexes
             if (i == cfg.depth or is_global) and run:
-                x3, pad_hw = window_partition_flat(x, ws)
-                for j in run:
-                    x3 = block_windowed(packed[j], x3, pad3, cfg, ops)
-                x = window_unpartition_flat(x3, ws, pad_hw, (h, w))
+                if compact:
+                    x2d = torch.cat([x3.reshape(-1, e)
+                                     for x3 in window_partition_compact(x, groups)])
+                    for j in run:
+                        x2d = block_windowed_compact(packed[j], x2d, mask, spans, cfg, ops)
+                    parts = [x2d[r0:r1].view(-1, g["np"], e) for g, r0, r1 in spans]
+                    x = window_unpartition_compact(parts, groups, b, (h, w))
+                else:
+                    x3, pad_hw = window_partition_flat(x, ws)
+                    for j in run:
+                        x3 = block_windowed(packed[j], x3, pad3, cfg, ops)
+                    x = window_unpartition_flat(x3, ws, pad_hw, (h, w))
                 run = []
             if i == cfg.depth:
                 break
