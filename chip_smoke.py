@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-1. builds the port's CUDA kernels (K1, K2, K3, K4, K5, K6, K7, K7-int8, K8)
-   from ``samcarriestheburden_torch/csrc``, one ``nvcc`` per source, all at once;
+1. builds the port's CUDA kernels (K1, K2, K3, K4, K5, K6, K7, K7-int8, K8,
+   K9, K10, K11, K12) from ``samcarriestheburden_torch/csrc``, one ``nvcc``
+   per source, all at once;
 2. drives the flat embed path once at full ViT-H width and depth with seeded
    random weights: ``make_serving_encoder(model, torch.bfloat16,
    compact_windows=False)`` on two padded 1024x1024 uint8 images (input size
@@ -31,10 +32,27 @@
    K7-int8) 4 and no other; each compact embedding is held against the flat
    one, and the MedSAM encode (``medsam=True``) runs once and must equal the
    encoder fed the same normalised input;
+4c. drives the encoder's other block formulations, each at full ViT-H width
+   on the same two images: v1 (``make_serving_encoder(model, torch.bfloat16,
+   compact_windows=False, attention_impl=attention_apply_kernel,
+   fused_qkv=False)``: K9 32 and K3 32 launches and no other) and v2
+   (``fused_window_blocks=True``: K12 28, K3 32, K1 4, K7 4) at full depth,
+   each embedding held against the flat bf16 one, with the rel tables as
+   they are and scaled up; v3 as a run of the seven windowed blocks 0-6
+   through ``block_apply_windowed(fused_qkv=True)`` on the patch-embedded
+   grid (K1 7, K10 7, K3 7) against the flat path's state after the same
+   blocks, and ``global_attention_rel_outside`` on global block 7's input
+   (K1 1, K11 1) against K7 on the same qkv; K9 and K10 also against K5, and
+   K9 (global) and K11 against K7, on the same q, k, v.  Every kernel these
+   three runs launch, K1, K3 and K7 of the serving path included, is recorded
+   in the counted run with the launches each of its shapes made there (K9:
+   28 on windows and 4 on the global grid; K3 without ``add`` on 9800 and on
+   8192 rows);
 5. holds each kernel against its plain PyTorch version on the card, on the
-   inputs each of its paths gives it (the flat rows and windows, and the
+   inputs each of its paths gives it (the flat rows and windows; the
    compact stream's: K1-K4 on 8416 rows, K5 on 32 windows and K6, both
-   writing into an ``out=`` view of a larger buffer as the path has them do)
+   writing into an ``out=`` view of a larger buffer as the path has them do;
+   and every call shape of the v1, v2 and v3 runs)
    and on stressed inputs of the same shapes (with planted faults that the
    check must be able to see), the whole
    kernel-path encoder against the plain-path encoder (bf16 and int8, flat
@@ -89,8 +107,19 @@ ORIGINAL_HW = (1600, 1119)   # the X-ray before resizing (1600 * 0.64 = 1024)
 # at the flat paths' inputs and again at the compact paths' (K1-K4 on 8416
 # rows, K5 on 32 windows and K6 writing into an out= view): readings there
 # K1 0.48 %, K2 0.24 %, K3 and K4 0.38 %, K5 0.53 %, K7 and K7-int8 0.63 %.
+# K9-K11 are K5's and K7's loop with the rel terms read, not made: the same
+# tolerance.  K12 adds two projections with fp32 accumulation and one bf16
+# rounding each, and a sum over heads whose fp32 order changes from run to run:
+# the same tolerance against its plain version, which rounds q and k to bf16 as
+# the kernel does; against the plain version that keeps q and k in fp32 up to
+# the logits (the TPU kernel's arithmetic) it is held to K12_FP32_QK_TOL.
+# Readings on the H100 (first build-and-compare call, synthetic inputs of the
+# paths' shapes, x max |plain|): K9 0.44 % (windows) and 0.63 % (global), K10
+# 0.42 %, K11 0.42 %, K12 0.48 %, and 0.77 % against fp32 q and k.
 KERNEL_TOL = {"K1": 1.6e-2, "K3": 1.6e-2, "K5": 1.6e-2, "K6": 1.6e-2, "K7": 1.6e-2,
-              "K2": 0.8e-2, "K4": 0.8e-2, "K7-int8": 1.6e-2}
+              "K2": 0.8e-2, "K4": 0.8e-2, "K7-int8": 1.6e-2,
+              "K9": 1.6e-2, "K10": 1.6e-2, "K11": 1.6e-2, "K12": 1.6e-2}
+K12_FP32_QK_TOL = 3.2e-2
 # The random weights leave parts of each function nearly invisible at those
 # inputs (near-uniform softmax, rel tables of std 0.02, qkv bias <= 0.03), so
 # each kernel is held again at the same shapes on stressed inputs where every
@@ -119,8 +148,15 @@ KERNEL_TOL = {"K1": 1.6e-2, "K3": 1.6e-2, "K5": 1.6e-2, "K6": 1.6e-2, "K7": 1.6e
 # 8x14 rectangle has the window's width), rh and rw swapped, b_v's contribution
 # dropped.  Readings: 0.65 % and 0.68 % of max |plain|; the smallest fault (b_v's
 # contribution dropped) misses by 2.4x and 2.8x the 4x-tolerance line.
+# K9-K11's stressed inputs are K5's and K7's with rel terms of std 2 (they enter
+# the logit unscaled); their planted faults: rel_w dropped, rel_h spread over the
+# keys by k % kw and rel_w by k // kw, the scale applied to the rel terms twice.
+# K12's: tokens of std 1 with masked (zero) rows, weights that give q and k a
+# std of 2, a qkv bias of mean 0.5, tables of std 0.3; its planted faults: Rw
+# dropped, Rh and Rw swapped, the tables scaled twice, one head left out of the
+# sum, b_v dropped, the projection taken from the next head.
 STRESS_TOL = {"K1": 1e-2, "K2": 1e-2, "K3": 1e-2, "K4": 1e-2, "K5": 2e-2, "K6": 2e-2,
-              "K7": 2e-2, "K7-int8": 3e-2}
+              "K7": 2e-2, "K7-int8": 3e-2, "K9": 2e-2, "K10": 2e-2, "K11": 2e-2, "K12": 2e-2}
 FAULT_MARGIN = 4.0
 # the whole 32-layer encoder, kernel path vs plain path, both bf16: the
 # per-layer differences above compound through 32 residual blocks; the
@@ -130,6 +166,29 @@ FAULT_MARGIN = 4.0
 # tol.  Readings on the H100: max 0.058 / 0.063, mean 0.0080 / 0.0093; the
 # dropped rel bias misses by max 2.47, mean 0.248.
 ENCODER_TOL_MAX, ENCODER_TOL_MEAN = 0.1, 0.015
+# v3's run of windowed blocks 0-6 against the flat path's state after the same
+# blocks, both bf16 through the kernels: the residual stream is not normalised,
+# so the bound is relative to its largest value; seven blocks compound what one
+# kernel differs by.  Readings on the H100: max 0.0625 of 5.594 (1.1 %), mean
+# 0.002896 (0.052 %); the tolerances are three times that.
+V3_TOL_MAX, V3_TOL_MEAN = 3e-2, 1.5e-3
+# The v1 and v2 embeddings vs the flat one, all bf16 through the kernels: two
+# formulations of the same function that round at other points (the attention
+# residual is added in bf16 before K3 where the flat path hands it to K3 in
+# fp32; plain LayerNorm and, for v1, cuBLAS's qkv and rel terms rounded twice),
+# so they lie further apart than a kernel path from its plain path.  v1 is the
+# same in every call and holds the encoder tolerance: over three input seeds,
+# rel tables as they are and scaled, it read max 0.0759-0.0892, mean <= 0.01279
+# on the H100.  So does v2's mean (0.01166-0.01248).  But K12's fp32 sum over
+# heads arrives in an order that changes from run to run, so v2's max over the
+# two million values differs between calls on the same inputs: over 144 calls
+# (the same three seeds and two table scales, 12 calls each, twice) it read
+# 0.0729-0.0994.  v2's max alone has a tolerance of its own, 1.5 x the largest
+# reading; a dropped rel bias (max 2.456) still misses it by more than
+# FAULT_MARGIN.  The v2 phase repeats its call V2_REPEATS times at each table
+# scale and logs the least and the largest max it read.
+V2_TOL_MAX = 0.15
+V2_REPEATS = 6
 # the same for the int8 path (K2, K4, K5, K7-int8 vs their plain versions).
 # On identical inputs K2 and K4 agree with their plain versions almost bit for
 # bit, but once two paths' inputs differ by a bf16 ulp the int8 rounding lands
@@ -191,7 +250,22 @@ KERNELS = {  # name: (path, source, replaced TPU kernel)
                 "samcarriestheburden_tpu/kernels/attention.py:639"),
     "K8": ("enhance", "samcarriestheburden_torch/csrc/ccl.cu",
            "samcarriestheburden_tpu/ops/ccl.py:211"),
+    "K9": ("embed-v1", "samcarriestheburden_torch/csrc/attention.cu",
+           "samcarriestheburden_tpu/kernels/attention.py:156"),
+    "K10": ("block-v3", "samcarriestheburden_torch/csrc/attention.cu",
+            "samcarriestheburden_tpu/kernels/attention.py:282"),
+    "K11": ("block-v3", "samcarriestheburden_torch/csrc/attention.cu",
+            "samcarriestheburden_tpu/kernels/attention.py:357"),
+    "K12": ("embed-v2", "samcarriestheburden_torch/csrc/block_attention.cu",
+            "samcarriestheburden_tpu/kernels/attention.py:1001"),
 }
+
+
+# the kernel behind each field of the floating-point ``EncoderOps``
+OPS_KERNELS = {"ln_masked_linear": "K1", "ln_mlp_residual": "K3", "rel_attention_window": "K5",
+               "rel_attention_global": "K7", "rel_attention_window_rect": "K6",
+               "rel_attention_headmajor": "K10", "rel_attention_headmajor_global": "K11",
+               "window_block_attention": "K12", "rel_attention_pre": "K9"}
 
 
 class SmokeError(RuntimeError):
@@ -251,6 +325,23 @@ def kernel_work(name: str, args, kw) -> tuple:
         if name == "K4":
             return 0.0, 4.0 * t * e * m, nbytes + 4 * (m + e)
         return 4.0 * t * e * m, 0.0, nbytes
+    if name == "K9":     # K5's and K7's attention without the table product; rel read once
+        g, n, hd = args[0].shape
+        return 4.0 * g * n * n * hd, 0.0, 2 * sum(a.numel() for a in args) + 2 * g * n * hd
+    if name in ("K10", "K11"):
+        s, n, _ = args[0].shape
+        heads, hd = kw["heads"], kw["hd"]
+        return 4.0 * s * heads * n * n * hd, 0.0, \
+            2 * (sum(a.numel() for a in args) + s * n * heads * hd)
+    if name == "K12":    # both projections, then K5's attention work per head
+        xn, qkv_w, qkv_b, proj_w, tables = args
+        wb, n, e = xn.shape
+        heads, hd = kw["heads"], e // kw["heads"]
+        flops = 2.0 * wb * n * e * (3 * e + e) + 4.0 * wb * heads * n * n * hd \
+            + 2.0 * wb * heads * n * tables.shape[0] * hd
+        nbytes = 2 * (2 * xn.numel() + qkv_w.numel() + proj_w.numel() + tables.numel()) \
+            + 4 * qkv_b.numel()
+        return flops, 0.0, nbytes
     qkv, tables = args[:2]
     s, n, _ = qkv.shape
     heads, hd = kw["heads"], kw["hd"]
@@ -290,6 +381,64 @@ def sdpa_inputs(torch, qkv, tables, heads, hd, kh, kw):
     rel_w = g.gather(3, idx_w.expand(s, heads, n, kw))
     bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(s, heads, n, nkeys)
     return q, k, v, (bias * scale).to(qkv.dtype)
+
+
+def split_heads(qkv, heads, hd):
+    """(S, n, heads*3*hd) grouped per head -> q, k, v (heads*S, n, hd), head-major
+    like K10's and K11's rel terms."""
+    s, n, _ = qkv.shape
+    x = qkv.view(s, n, heads, 3, hd).permute(3, 2, 0, 1, 4).reshape(3, heads * s, n, hd)
+    return x[0].contiguous(), x[1].contiguous(), x[2].contiguous()
+
+
+def merge_heads(out, s, heads):
+    """(heads*S, n, hd) -> (S, n, heads*hd) token-major."""
+    _, n, hd = out.shape
+    return out.view(heads, s, n, hd).permute(1, 2, 0, 3).reshape(s, n, heads * hd)
+
+
+def pre_operands(name, args, kw):
+    """q, k, v (G, n, hd) and rel_h, rel_w (G, n, .) of a K9, K10 or K11 call."""
+    if name == "K9":
+        return args
+    qkv, rel_h, rel_w = args
+    n = qkv.shape[1]
+    return (*split_heads(qkv, kw["heads"], kw["hd"]), rel_h.reshape(-1, n, kw["kh"]),
+            rel_w.reshape(-1, n, kw["kw"]))
+
+
+def sdpa_inputs_pre(torch, q, k, v, rel_h, rel_w):
+    """q, k, v (1, G, n, hd) and the rel bias (1, G, n, n) in the logit's units
+    as ``scaled_dot_product_attention`` takes them: the library yardstick of
+    K9, K10 and K11 (the kernels' rounding of rel / scale included)."""
+    g, n, hd = q.shape
+    scale = hd ** -0.5
+    rh = (rel_h.float() / scale).to(q.dtype)
+    rw = (rel_w.float() / scale).to(q.dtype)
+    bias = torch.empty((g, n, n), dtype=q.dtype, device=q.device)
+    step = max(1, 2 ** 27 // (n * n))
+    for i in range(0, g, step):
+        b = rh[i:i + step, :, :, None].float() + rw[i:i + step, :, None, :].float()
+        bias[i:i + step] = (b.reshape(-1, n, n) * scale).to(q.dtype)
+    return q[None], k[None], v[None], bias[None]
+
+
+def pre_swapped(torch, q, k, v, rel_h, rel_w, kh, kw):
+    """Planted fault of K9-K11: rel_h spread over the keys by k % kw and rel_w
+    by k // kw (square grids only)."""
+    dt = q.dtype
+    scale = q.shape[-1] ** -0.5
+    out = torch.empty_like(q)
+    n = q.shape[1]
+    step = max(1, 2 ** 27 // (n * n))
+    for i in range(0, q.shape[0], step):
+        sl = slice(i, i + step)
+        rh = (rel_h[sl].float() / scale).to(dt).float()
+        rw = (rel_w[sl].float() / scale).to(dt).float()
+        bias = rh.repeat(1, 1, kw) + rw.repeat_interleave(kh, dim=-1)
+        logits = (q[sl].float() @ k[sl].float().transpose(1, 2) + bias) * scale
+        out[sl] = (torch.softmax(logits, dim=-1).to(dt).float() @ v[sl].float()).to(dt)
+    return out
 
 
 def exact_product(xq, wq):
@@ -419,6 +568,7 @@ def stressed(torch, name, args, kw, gen):
     plain version, or {what: function} where the fault is a wrong step of
     the arithmetic and not a wrong input."""
     from samcarriestheburden_torch.kernels import attention as attn_k
+    from samcarriestheburden_torch.kernels import mlp as mlp_k
     from samcarriestheburden_torch.kernels import quant as quant_k
 
     dev, bf = args[0].device, torch.bfloat16
@@ -487,11 +637,57 @@ def stressed(torch, name, args, kw, gen):
         a = (randn(t, e, dtype=bf), randn(e, std=0.5, mean=1.0), randn(e, std=0.5),
              randn(m, e, std=e ** -0.5, dtype=bf), randn(m, std=0.5),
              randn(e, m, std=m ** -0.5, dtype=bf), randn(e, mean=1.0))
-        k = dict(kw, add=randn(t, e, dtype=bf))
-        faults = {"add dropped": (a, dict(k, add=None)),
-                  "lin1 bias dropped": (sub(a, 4, torch.zeros_like(a[4])), k),
-                  "lin2 bias dropped": (sub(a, 6, torch.zeros_like(a[6])), k)}
+        faults = {}
+        if kw.get("add") is not None:
+            k = dict(kw, add=randn(t, e, dtype=bf))
+            faults["add dropped"] = (a, dict(k, add=None))
+        else:       # the branch without ``add`` (v1, v2), on the same stressed operands
+            k = kw
+            faults["residual dropped"] = lambda: (
+                mlp_k.ln_mlp_residual_plain(*a, **k).float() - a[0].float()).to(bf)
+        faults.update({"lin1 bias dropped": (sub(a, 4, torch.zeros_like(a[4])), k),
+                       "lin2 bias dropped": (sub(a, 6, torch.zeros_like(a[6])), k)})
         return a, k, faults
+    if name in ("K9", "K10", "K11"):
+        scale = (args[0].shape[-1] if name == "K9" else kw["hd"]) ** -0.5
+        n_qkv = 3 if name == "K9" else 1
+        a = tuple(randn(*t.shape, std=2.0, dtype=bf) for t in args)
+        rel_h, rel_w = a[n_qkv:]
+        faults = {"rel_w dropped": (a[:n_qkv] + (rel_h, torch.zeros_like(rel_w)), kw),
+                  "scale applied to the rel terms twice":
+                      (a[:n_qkv] + ((rel_h.float() * scale).to(bf),
+                                    (rel_w.float() * scale).to(bf)), kw)}
+        if kw["kh"] == kw["kw"]:
+            def swapped():
+                out = pre_swapped(torch, *pre_operands(name, a, kw), kw["kh"], kw["kw"])
+                return out if name == "K9" else merge_heads(out, a[0].shape[0], kw["heads"])
+            faults["rel_h indexed by k % kw"] = swapped
+        return a, kw, faults
+    if name == "K12":
+        xn, qkv_w, qkv_b, proj_w, tables = args
+        e, heads = xn.shape[-1], kw["heads"]
+        hd = e // heads
+        xs = randn(*xn.shape, dtype=bf)
+        xs[-1, -5:] = 0                                    # pad tokens: k and v are the bias
+        xs[0, ::7] = 0
+        a = (xs, randn(*qkv_w.shape, std=2.0 * e ** -0.5, dtype=bf),
+             randn(*qkv_b.shape, std=0.5, mean=0.5), randn(*proj_w.shape, std=e ** -0.5, dtype=bf),
+             randn(*tables.shape, std=0.3, dtype=bf))
+        rh, rw = a[4][:tables.shape[0] // 2], a[4][tables.shape[0] // 2:]
+        no_bv = a[2].clone().view(heads, 3, hd)
+        no_bv[:, 2] = 0
+        one_less = a[3].clone().view(e, heads, hd)
+        one_less[:, 0] = 0
+        faults = {"Rw dropped": (sub(a, 4, torch.cat([rh, torch.zeros_like(rw)])), kw),
+                  "Rh and Rw swapped": (sub(a, 4, torch.cat([rw, rh])), kw),
+                  "scale applied to the tables twice":
+                      (sub(a, 4, (a[4].float() * hd ** -0.5).to(bf)), kw),
+                  "one head left out of the sum": (sub(a, 3, one_less.view(e, e)), kw),
+                  "b_v dropped": (sub(a, 2, no_bv.view(-1)), kw),
+                  "projection taken from the next head":
+                      (sub(a, 3, a[3].view(e, heads, hd).roll(1, dims=1).reshape(e, e)
+                           .contiguous()), kw)}
+        return a, kw, faults
     qkv, tables = args[:2]
     kh = kw["ws"] if name in ("K5", "K6") else kw["kh"]
     if name == "K7-int8":
@@ -555,6 +751,39 @@ def call_as_recorded(torch, what: str, fn, args, kw):
           f"{what} wrote outside the out= view it was given")
     check(not bool(torch.isnan(view).any()), f"{what} left part of its out= view unwritten")
     return view
+
+
+def call_key(name: str, path: str, args, kw) -> str:
+    """"<kernel> <path> <shape of the first operand>[ +add]": one call shape of
+    a kernel on one of the v1, v2 and v3 paths."""
+    return f"{name} {path} " + "x".join(str(d) for d in args[0].shape) \
+        + (" +add" if kw.get("add") is not None else "")
+
+
+def recording_ops(ops, names: dict, launches, key, recorded: dict, split: dict):
+    """``ops`` with the wrapper in each field of ``names`` ({field: kernel})
+    recording the first call of each of its call shapes into ``recorded`` under
+    ``key(kernel, args, kw)``, and adding to ``split`` under the same key what
+    the call added to the kernel's count in ``launches``: the launches each
+    shape made, as counted in that run."""
+    def wrap(name, fn):
+        def call(*args, **kw):
+            k = key(name, args, kw)
+            recorded.setdefault(k, (args, kw))
+            before = launches[name]
+            out = fn(*args, **kw)
+            split[k] = split.get(k, 0) + launches[name] - before
+            return out
+        return call
+    return ops._replace(**{field: wrap(name, getattr(ops, field))
+                           for field, name in names.items()})
+
+
+def variant_ops(ops, launches, path: str, recorded: dict, split: dict):
+    """:func:`recording_ops` over every kernel of the floating-point ``ops``,
+    keyed by :func:`call_key` on ``path``."""
+    return recording_ops(ops, OPS_KERNELS, launches,
+                         lambda name, args, kw: call_key(name, path, args, kw), recorded, split)
 
 
 def phase_stress(torch, key, kern, plain, args, kw, gen) -> float:
@@ -623,6 +852,12 @@ def phase_profile(torch, fn, what: str, top: int = 12) -> None:
         log(f"  {e.device_time_total / 1e3:8.3f} ms  {e.count:4d} x  {e.key[:90]}")
 
 
+def scaled_tables(packed, scale):
+    """The packed weights with every block's rel tables times ``scale``."""
+    return [dict(pk, tables=(pk["tables"].float() * scale).to(pk["tables"].dtype))
+            for pk in packed]
+
+
 def phase_encoder_vs_plain(torch, make_encode_batch, model, encode, packed, plain_ops, emb,
                            inputs, what: str, tol_max: float, tol_mean: float,
                            compact_windows: bool) -> None:
@@ -646,8 +881,7 @@ def phase_encoder_vs_plain(torch, make_encode_batch, model, encode, packed, plai
     del emb_plain
 
     def with_tables(scale):
-        return [dict(pk, tables=(pk["tables"].float() * scale).to(pk["tables"].dtype))
-                for pk in packed]
+        return scaled_tables(packed, scale)
 
     hot = with_tables(REL_STRESS)
     plain_hot = plain(hot, *inputs)
@@ -666,7 +900,7 @@ def phase_encoder_vs_plain(torch, make_encode_batch, model, encode, packed, plai
 
 
 def phase_golden(torch, np, cfg_t, ImageEncoderViT, KERNEL_OPS, KERNEL_OPS_INT8,
-                 PLAIN_OPS_INT8, LAUNCHES) -> float:
+                 PLAIN_OPS_INT8, LAUNCHES, attention_apply_kernel) -> float:
     """vit_t encoder in bf16 through the kernels on the card vs the golden;
     then its int8 mode, kernels vs plain versions (ragged tiles: 128 tokens,
     E = 32, head dim 16)."""
@@ -692,6 +926,18 @@ def phase_golden(torch, np, cfg_t, ImageEncoderViT, KERNEL_OPS, KERNEL_OPS_INT8,
         f"err {err_c:.4g} (tol {GOLDEN_TOL})")
     check(LAUNCHES["K6"] - before == 2 and err_c <= GOLDEN_TOL,
           f"golden vit_t compact encoder off by {err_c}")
+    # the other block formulations at the tiny config: K9 on 25- and 64-token
+    # sequences, K12 on 5x5 windows of E = 32, head dim 16
+    for what, kw, counted in (("v1", dict(attention_impl=attention_apply_kernel,
+                                          fused_qkv=False), {"K9": 2}),
+                              ("v2", dict(fused_window_blocks=True), {"K12": 1})):
+        before = dict(LAUNCHES)
+        out_v = enc(x, dtype=torch.bfloat16, ops=KERNEL_OPS, **kw)
+        torch.cuda.synchronize()
+        err_v = max_err(out_v.cpu(), torch.from_numpy(data["out"]))
+        log(f"golden vit_t, {what}: max abs err {err_v:.4g} (tol {GOLDEN_TOL})")
+        check(all(LAUNCHES[k] - before[k] == n for k, n in counted.items())
+              and err_v <= GOLDEN_TOL, f"golden vit_t {what} encoder off by {err_v}")
     packed = enc.pack(torch.bfloat16, quantize="int8")
     out_k = enc(x, dtype=torch.bfloat16, packed=packed, ops=KERNEL_OPS_INT8)
     out_p = enc(x, dtype=torch.bfloat16, packed=packed, ops=PLAIN_OPS_INT8)
@@ -1130,6 +1376,268 @@ def phase_embed_compact(torch, kernels, cfg, model, make_serving_encoder, two_ro
     return launches, encode, packed, emb
 
 
+def totals(split: dict) -> dict:
+    """{kernel: launches} of a {call key: launches} count."""
+    out = {}
+    for key, n in split.items():
+        out[key.split()[0]] = out.get(key.split()[0], 0) + n
+    return out
+
+
+def phase_embed_variant(torch, kernels, cfg, model, entry_points, ops, inputs, what: str,
+                        path: str, variant: dict, want: dict, tol_max: float, repeats: int,
+                        flat, recorded: dict) -> dict:
+    """One of the encoder's other block formulations at full width and depth
+    through ``make_serving_encoder(..., **variant)``, counted, every kernel's
+    call shapes recorded into ``recorded`` on the way; its embedding against
+    the flat bf16 path's (``flat``: encode function, weights, embedding,
+    images/s), with the rel tables as they are and scaled up, ``repeats``
+    times each; its throughput.  ``want`` is {call key: launches} of the
+    counted run, and what is returned once it has been met."""
+    make_serving_encoder, make_encode_batch = entry_points
+    imgs, sizes = inputs
+    encode_flat, packed_flat, emb_flat, flat_ips = flat
+    rec, split = {}, {}
+    counted, packed = make_serving_encoder(
+        model, torch.bfloat16, compact_windows=False,
+        ops=variant_ops(ops, kernels.LAUNCHES, path, rec, split), **variant)
+    counted(packed, imgs, sizes)                          # warm-up
+    torch.cuda.synchronize()
+    rec.clear()
+    split.clear()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    emb = counted(packed, imgs, sizes)
+    torch.cuda.synchronize()
+    t_embed = time.perf_counter() - t0
+    launches, split = dict(kernels.LAUNCHES), dict(split)
+    recorded.update(rec)
+    log(f"{what} embed path launches: {launches} ({t_embed * 1e3:.1f} ms for {B} images); by "
+        f"call shape: {split}")
+    expected = dict.fromkeys(launches, 0)
+    expected.update(totals(want))
+    check(launches == expected, f"{what} embed path launches {launches}, expected {expected}")
+    check(split == want, f"{what} embed path launches by call shape {split}, expected {want}")
+
+    g = cfg.prompt_encoder.image_embedding_size
+    check(tuple(emb.shape) == (B, 256, *g) and emb.dtype == torch.float32,
+          f"{what} embedding shape {tuple(emb.shape)} {emb.dtype}")
+    check(bool(torch.isfinite(emb).all()), f"non-finite {what} embedding")
+    # the same path without the recorder, for the repeated calls and the times
+    encode = make_encode_batch(model, torch.bfloat16, compact_windows=False, ops=ops, **variant)
+    hot, hot_flat = scaled_tables(packed, REL_STRESS), scaled_tables(packed_flat, REL_STRESS)
+    emb_hot_flat = encode_flat(hot_flat, imgs, sizes)
+    diffs = [(emb - emb_flat).abs()] + [(encode(packed, imgs, sizes) - emb_flat).abs()
+                                        for _ in range(repeats - 1)]
+    hots = [(encode(hot, imgs, sizes) - emb_hot_flat).abs() for _ in range(repeats)]
+    d_max, d_mean = (max(f(d).item() for d in diffs) for f in (torch.max, torch.mean))
+    h_max, h_mean = (max(f(d).item() for d in hots) for f in (torch.max, torch.mean))
+    fault = (encode_flat(scaled_tables(packed_flat, 0.0), imgs, sizes) - emb_hot_flat).abs()
+    log(f"{what} vs flat embedding over {repeats} call(s): max abs err "
+        f"{min(d.max().item() for d in diffs):.4g}..{d_max:.4g} (tol {tol_max}), mean <= "
+        f"{d_mean:.4g} (tol {ENCODER_TOL_MEAN}); rel tables x{REL_STRESS}: max "
+        f"{min(d.max().item() for d in hots):.4g}..{h_max:.4g}, mean <= {h_mean:.4g}, where a "
+        f"dropped rel bias misses by max {fault.max().item():.4g}, mean "
+        f"{fault.mean().item():.4g}")
+    check(d_max <= tol_max and d_mean <= ENCODER_TOL_MEAN,
+          f"the {what} embedding disagrees with the flat one")
+    check(h_max <= tol_max and h_mean <= ENCODER_TOL_MEAN,
+          f"the {what} embedding disagrees with the flat one at scaled rel tables")
+    check(fault.max().item() >= FAULT_MARGIN * tol_max
+          and fault.mean().item() >= FAULT_MARGIN * ENCODER_TOL_MEAN,
+          f"the {what} check cannot see a dropped rel bias")
+
+    t_ms = card_ms(torch, lambda: encode(packed, imgs, sizes), iters=5, warmup=1)
+    log(f"embed {what}: {B / (t_ms / 1e3):.3f} images/s ({t_ms:.2f} ms per batch of {B}; flat "
+        f"bf16 {flat_ips:.3f} images/s)")
+    phase_profile(torch, lambda: encode(packed, imgs, sizes), f"{what} encoder")
+    return split
+
+
+def phase_block_v3(torch, kernels, tie, cfg, model, packed, inputs, path: str, want: dict,
+                   recorded: dict) -> dict:
+    """The head-major formulation (v3): the seven windowed blocks 0-6 through
+    ``block_apply_windowed(fused_qkv=True)`` on the patch-embedded grid, counted,
+    against the flat path's state after the same blocks; then
+    ``global_attention_rel_outside`` on global block 7's input, counted, against
+    K7's path on the same input.  Every kernel's call shapes are recorded into
+    ``recorded``; ``want`` is {call key: launches} of both runs together, and
+    what is returned once it has been met."""
+    imgs, sizes = inputs
+    enc, ecfg = model.image_encoder, cfg.image_encoder
+    ws, first_global = ecfg.window_size, min(ecfg.global_attn_indexes)
+    run = list(range(first_global))
+    size = model.img_size
+    ih = torch.arange(size, device=imgs.device)
+    valid = ((ih[None, :, None] < sizes[:, 0, None, None])
+             & (ih[None, None, :] < sizes[:, 1, None, None]))
+    x = (imgs.float() - model.pixel_mean) / model.pixel_std * valid[:, None]
+    tokens = enc.embed_patches(x, torch.bfloat16)
+    b, h, w, _ = tokens.shape
+    split = {}
+    ops = variant_ops(tie.KERNEL_OPS, kernels.LAUNCHES, path, recorded, split)
+
+    pad_valid = tie.pad_valid_mask(b, h, w, ws, torch.bfloat16, tokens.device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    xw, pad_hw = tie.window_partition(tokens, ws)
+    for j in run:
+        xw = tie.block_apply_windowed(packed[j], xw, pad_valid, ecfg, fused_mlp=True,
+                                      fused_qkv=True, ops=ops)
+    state = tie.window_unpartition(xw, ws, pad_hw, (h, w))
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    log(f"v3 run of windowed blocks {run[0]}-{run[-1]} launches: {launches} "
+        f"({t_run * 1e3:.1f} ms for {B} images)")
+    expected = dict.fromkeys(launches, 0)
+    expected.update({"K1": len(run), "K10": len(run), "K3": len(run)})
+    check(launches == expected, f"v3 run launches {launches}, expected {expected}")
+
+    x3, pad_hw3 = tie.window_partition_flat(tokens, ws)
+    pad3 = tie.pad_valid_flat(b, h, w, ws, torch.bfloat16, tokens.device)
+    for j in run:
+        x3 = tie.block_windowed(packed[j], x3, pad3, ecfg, tie.KERNEL_OPS)
+    state_flat = tie.window_unpartition_flat(x3, ws, pad_hw3, (h, w))
+    torch.cuda.synchronize()
+    ref = state_flat.float().abs().max().item()
+    diff = (state.float() - state_flat.float()).abs()
+    d_max, d_mean = diff.max().item(), diff.mean().item()
+    log(f"v3 state after {len(run)} blocks vs the flat path's: max abs err {d_max:.4g} (tol "
+        f"{V3_TOL_MAX} x max |flat| {ref:.4g}), mean {d_mean:.4g} (tol {V3_TOL_MEAN} x)")
+    check(tuple(state.shape) == (b, h, w, ecfg.embed_dim) and bool(torch.isfinite(state).all()),
+          "v3 state: wrong shape or non-finite")
+    check(d_max <= V3_TOL_MAX * ref and d_mean <= V3_TOL_MEAN * ref,
+          "the v3 run disagrees with the flat path")
+    xw0 = tie.window_partition(tokens, ws)[0]
+    x30 = tie.window_partition_flat(tokens, ws)[0]
+    v3_ms = card_ms(torch, lambda: tie.block_apply_windowed(
+        packed[0], xw0, pad_valid, ecfg, fused_mlp=True, fused_qkv=True, ops=tie.KERNEL_OPS))
+    flat_ms = card_ms(torch, lambda: tie.block_windowed(packed[0], x30, pad3, ecfg,
+                                                        tie.KERNEL_OPS))
+    log(f"one windowed block on {B} images: v3 {v3_ms:.4f} ms, flat {flat_ms:.4f} ms")
+
+    pk = packed[first_global]
+    kernels.reset_launches()
+    a11 = tie.global_attention_rel_outside(pk, state, ecfg, ops)
+    torch.cuda.synchronize()
+    launches_g = dict(kernels.LAUNCHES)
+    expected = dict.fromkeys(launches_g, 0)
+    expected.update({"K1": 1, "K11": 1})
+    check(launches_g == expected, f"v3 global attention launches {launches_g}, expected "
+          f"{expected}")
+    check(split == want, f"v3 launches by call shape {split}, expected {want}")
+    a7 = tie.global_attention(pk, state, ecfg, tie.KERNEL_OPS)
+    torch.cuda.synchronize()
+    ref = a7.float().abs().max().item()
+    err = max_err(a11, a7)
+    log(f"v3 global attention (K1, rel terms, K11, projection) on block {first_global}'s input "
+        f"launches: {launches_g}; both v3 runs by call shape: {split}; vs K7's path max abs err "
+        f"{err:.4g} (tol {KERNEL_TOL['K11']} x max |K7 path| {ref:.4g})")
+    check(err <= KERNEL_TOL["K11"] * ref, "K11's path disagrees with K7's")
+    return split
+
+
+def recorded_call(recorded: dict, name: str):
+    """The one call shape ``recorded`` holds of kernel ``name``."""
+    keys = [k for k in recorded if k.split()[0] == name]
+    check(len(keys) == 1, f"expected one recorded call shape of {name}, got {keys}")
+    return recorded[keys[0]]
+
+
+def phase_cross_checks(torch, attn_k, recorded, packed, cfg) -> None:
+    """The windowed attentions are one function, and so are the global ones:
+    K10 on its recorded windows, and K9 on the same q, k, v and rel terms,
+    against K5 on those windows padded to its slots with block 0's tables; K11
+    and K9 likewise against K7 with global block 7's tables."""
+    ecfg = cfg.image_encoder
+    heads, hd, ws = ecfg.num_heads, ecfg.head_dim, ecfg.window_size
+    first_global = min(ecfg.global_attn_indexes)
+    for name, tables, ref_name in (("K10", packed[0]["tables"], "K5"),
+                                   ("K11", packed[first_global]["tables"], "K7")):
+        (qkv, rel_h, rel_w), kw = recorded_call(recorded, name)
+        s, n, _ = qkv.shape
+        if ref_name == "K5":
+            slots = -(-n // 8) * 8
+            padded = torch.nn.functional.pad(qkv, (0, 0, 0, slots - n))
+            ref = attn_k.rel_attention_window(padded, tables, ws=ws, heads=heads, hd=hd)[:, :n]
+            out = attn_k.rel_attention_headmajor(qkv, rel_h, rel_w, **kw)
+        else:
+            ref = attn_k.rel_attention_global(qkv, tables, kh=kw["kh"], kw=kw["kw"], heads=heads,
+                                              hd=hd)
+            out = attn_k.rel_attention_headmajor_global(qkv, rel_h, rel_w, **kw)
+        via_k9 = merge_heads(attn_k.rel_attention_pre(
+            *pre_operands(name, (qkv, rel_h, rel_w), kw), kh=kw["kh"], kw=kw["kw"]), s, heads)
+        torch.cuda.synchronize()
+        scale = ref.float().abs().max().item()
+        e_out, e_k9 = max_err(out, ref), max_err(via_k9, ref)
+        log(f"{name} and K9 vs {ref_name} on the same q, k, v ({tuple(qkv.shape)}): max abs err "
+            f"{e_out:.4g} and {e_k9:.4g} (tol {KERNEL_TOL[name]} x max |{ref_name}| {scale:.4g})")
+        check(e_out <= KERNEL_TOL[name] * scale, f"{name} disagrees with {ref_name}")
+        check(e_k9 <= KERNEL_TOL["K9"] * scale, f"K9 disagrees with {ref_name}")
+
+
+def phase_kernel(torch, attn_k, key: str, kern, plain, args, kw, gen) -> dict:
+    """One kernel against its plain version on a recorded call (``key``: the
+    kernel's name, then whose call it is) and on stressed inputs of its
+    shapes, with its time, its bound and its library time: the measured part
+    of its row in the kernels line."""
+    name = key.split()[0]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out_k = call_as_recorded(torch, key, kern, args, kw)
+    out_p = call_as_recorded(torch, f"{key}'s plain version", plain, args, kw)
+    torch.cuda.synchronize()
+    err, ref = max_err(out_k, out_p), out_p.float().abs().max().item()
+    ms = card_ms(torch, lambda: kern(*args, **kw))
+    plain_ms = card_ms(torch, lambda: plain(*args, **kw), iters=3, warmup=1)
+    into_view = "out" in kw
+    kw = {k: v for k, v in kw.items() if k != "out"}
+    library_ms = None
+    if name in ("K5", "K6", "K7", "K7-int8"):
+        kh, kwid = (kw["ws"], kw["ws"]) if name in ("K5", "K6") else (kw["kh"], kw["kw"])
+        sdpa_qkv = args[0]
+        if name == "K6":    # the library sees the padded windows, materialised; so does K5
+            sdpa_qkv = materialised_windows(torch, args[0], args[2], kw["ws"], kw["rh"],
+                                            kw["rw"])
+            via_k5 = attn_k.rel_attention_window(sdpa_qkv, args[1], ws=kw["ws"],
+                                                 heads=kw["heads"], hd=kw["hd"])
+            err_k5 = max_err(live_cells(via_k5, kw["ws"], kw["rh"], kw["rw"]),
+                             out_k[:, :kw["rh"] * kw["rw"]])
+            log(f"{key}: max abs err {err_k5:.4g} vs K5 on the materialised padded windows "
+                f"(tol {KERNEL_TOL[name]} x max |plain|)")
+            check(err_k5 <= KERNEL_TOL[name] * max(ref, 1e-6),
+                  f"{key} disagrees with K5 on the materialised padded windows")
+        q, k, v, bias = sdpa_inputs(torch, sdpa_qkv, args[1], kw["heads"], kw["hd"], kh, kwid)
+        library_ms = card_ms(torch, lambda: sdpa(q, k, v, attn_mask=bias))
+        del q, k, v, bias
+    elif name in ("K9", "K10", "K11"):
+        q, k, v, bias = sdpa_inputs_pre(torch, *pre_operands(name, args, kw))
+        library_ms = card_ms(torch, lambda: sdpa(q, k, v, attn_mask=bias))
+        del q, k, v, bias
+    flops, int8_ops, nbytes = kernel_work(name, args, kw)
+    bound_ms, bound_by = bound(flops, nbytes, int8_ops)
+    shape = tuple(args[0].shape)
+    log(f"{key} on {shape}{' into an out= view' if into_view else ''}: "
+        f"max abs err {err:.4g} vs max |plain| {ref:.4g} "
+        f"(tol {KERNEL_TOL[name]} x max |plain|), {ms:.4f} ms (plain {plain_ms:.4f}, library "
+        f"{library_ms}, bound {bound_ms:.4f} by {bound_by}); "
+        f"{(flops + int8_ops) / (ms * 1e-3) / 1e12:.1f} Tops/s")
+    check(err <= KERNEL_TOL[name] * max(ref, 1e-6), f"{key} disagrees with its plain version")
+    if name == "K4":    # its other GELU, which the main path does not run
+        err_erf = max_err(kern(*args, **kw, gelu="erf"), plain(*args, **kw, gelu="erf"))
+        log(f"{key} with gelu='erf': max abs err {err_erf:.4g}")
+        check(err_erf <= KERNEL_TOL[name] * max(ref, 1e-6),
+              f"{key} with gelu='erf' disagrees with its plain version")
+    if name == "K12":   # the TPU kernel's arithmetic: q and k in fp32 up to the logits
+        err32 = max_err(out_k, plain(*args, **kw, round_qk=False))
+        log(f"{key} vs its plain version with q and k kept in fp32: max abs err {err32:.4g} "
+            f"(tol {K12_FP32_QK_TOL} x max |plain|)")
+        check(err32 <= K12_FP32_QK_TOL * ref, f"{key} disagrees with the fp32-q,k plain version")
+    phase_stress(torch, key, kern, plain, args, kw, gen)
+    return {"shape": list(shape), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
 def phase_medsam(torch, cfg, model, make_serving_encoder, KERNEL_OPS, imgs) -> None:
     """The MedSAM encode entry point once on the card: finite, of the right
     shape, and bit for bit the encoder fed the same normalised input."""
@@ -1149,6 +1657,16 @@ def phase_medsam(torch, cfg, model, make_serving_encoder, KERNEL_OPS, imgs) -> N
     check(torch.equal(emb, same), "the MedSAM encode differs from the encoder on its input")
 
 
+def smoke_images(torch, seed: int, dev):
+    """B seeded uint8 images of INPUT_HW inside the padded square, and their sizes."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    imgs = torch.randint(0, 256, (B, 3, 1024, 1024), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    imgs[:, :, INPUT_HW[0]:] = 0
+    imgs[:, :, :, INPUT_HW[1]:] = 0
+    return gen, imgs, torch.tensor([INPUT_HW] * B, dtype=torch.int32, device=dev)
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -1166,6 +1684,7 @@ def main() -> int:
         from samcarriestheburden_torch.kernels import build
         from samcarriestheburden_torch.kernels import mlp as mlp_k
         from samcarriestheburden_torch.kernels import quant as quant_k
+        from samcarriestheburden_torch.models import image_encoder as tie
         from samcarriestheburden_torch.models.image_encoder import (KERNEL_OPS, KERNEL_OPS_INT8,
                                                                     PLAIN_OPS, PLAIN_OPS_INT8,
                                                                     EncoderOps,
@@ -1194,13 +1713,7 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"ViT-H SAM with random weights (seed 0) on the card in "
         f"{time.perf_counter() - t0:.1f} s")
-    gen = torch.Generator(device=dev).manual_seed(1)
-    size = model.img_size
-    imgs = torch.randint(0, 256, (B, 3, size, size), generator=gen, device=dev,
-                         dtype=torch.uint8)
-    imgs[:, :, INPUT_HW[0]:] = 0
-    imgs[:, :, :, INPUT_HW[1]:] = 0
-    sizes = torch.tensor([INPUT_HW] * B, dtype=torch.int32, device=dev)
+    gen, imgs, sizes = smoke_images(torch, 1, dev)
     n_points = 1 + (N_CLASSES - 1) + 1                    # pos + negs + pad
     coords = torch.rand((N_CLASSES, n_points, 2), generator=gen, device=dev) \
         * torch.tensor([INPUT_HW[1], INPUT_HW[0]], device=dev)
@@ -1302,21 +1815,57 @@ def main() -> int:
     del encode_c, packed_c, emb_c, encode_c8, packed_c8, emb_c8
     phase_medsam(torch, cfg, model, make_serving_encoder, KERNEL_OPS, imgs)
 
+    # 5d. the encoder's other block formulations: v1 (K9) and v2 (K12) at full
+    # depth, v3 (K10, K11) as a run of blocks; every kernel they launch, K1, K3
+    # and K7 too, recorded in the counted run with the launches of each of its
+    # call shapes
+    recorded_v = {}
+    flat = (encode, packed, emb, bf16_ips)
+    entry_points = (make_serving_encoder, make_encode_batch)
+    n_windowed = enc_cfg.depth - n_global
+    ws, e = enc_cfg.window_size, enc_cfg.embed_dim
+    grid = enc_cfg.grid_size
+    wb = B * (-(-grid // ws)) ** 2                        # windows of a batch, pad cells carried
+    win = f"{wb * ws * ws}x{e}"                           # their tokens as rows
+    glob = f"{B * grid * grid}x{e}"
+    qkv_glob = f"{B}x{grid * grid}x{3 * e}"
+    hd = enc_cfg.head_dim
+    split_v1 = phase_embed_variant(
+        torch, kernels, cfg, model, entry_points, KERNEL_OPS, (imgs, sizes), "v1 (unfused, K9)",
+        "embed-v1", dict(attention_impl=tie.attention_apply_kernel, fused_qkv=False),
+        {f"K9 embed-v1 {wb * enc_cfg.num_heads}x{ws * ws}x{hd}": n_windowed,
+         f"K9 embed-v1 {B * enc_cfg.num_heads}x{grid * grid}x{hd}": n_global,
+         f"K3 embed-v1 {win}": n_windowed, f"K3 embed-v1 {glob}": n_global},
+        ENCODER_TOL_MAX, 1, flat, recorded_v)
+    split_v2 = phase_embed_variant(
+        torch, kernels, cfg, model, entry_points, KERNEL_OPS, (imgs, sizes),
+        "v2 (fused window block, K12)", "embed-v2", dict(fused_window_blocks=True),
+        {f"K12 embed-v2 {wb}x{ws * ws}x{e}": n_windowed, f"K3 embed-v2 {win}": n_windowed,
+         f"K1 embed-v2 {glob}": n_global, f"K7 embed-v2 {qkv_glob}": n_global,
+         f"K3 embed-v2 {glob} +add": n_global},
+        V2_TOL_MAX, V2_REPEATS, flat, recorded_v)
+    first_global = min(enc_cfg.global_attn_indexes)
+    split_v3 = phase_block_v3(
+        torch, kernels, tie, cfg, model, packed, (imgs, sizes), "block-v3",
+        {f"K1 block-v3 {win}": first_global, f"K10 block-v3 {wb}x{ws * ws}x{3 * e}": first_global,
+         f"K3 block-v3 {win} +add": first_global, f"K1 block-v3 {glob}": 1,
+         f"K11 block-v3 {qkv_glob}": 1}, recorded_v)
+    split_v = {**split_v1, **split_v2, **split_v3}
+    check(sorted(recorded_v) == sorted(split_v),
+          f"the variant paths recorded {sorted(recorded_v)}, counted {sorted(split_v)}")
+    phase_cross_checks(torch, attn_k, recorded_v, packed, cfg)
+
     # 6. every kernel vs its plain version at its paths' shapes: the flat
     # paths' and the compact paths' (the serving default), each recorded with
-    # the out= view it was handed
+    # the out= view it was handed; then every call shape of the v1, v2 and v3 runs
     recorded = {}
 
-    def recorder(name, fn, suffix=""):
-        def call(*args, **kw):
-            key = f"{name} {kw['rh']}x{kw['rw']}" if name == "K6" else name + suffix
-            recorded.setdefault(key, (args, kw))
-            return fn(*args, **kw)
-        return call
-
     def record(names, ops, weights, compact):
-        rec = EncoderOps(*(recorder(n, f, " compact" if compact else "")
-                           for n, f in zip(names, ops)), int8=ops.int8)
+        def key(name, args, kw):
+            return f"{name} {kw['rh']}x{kw['rw']}" if name == "K6" \
+                else name + (" compact" if compact else "")
+        rec = recording_ops(ops, dict(zip(EncoderOps._fields, names)), kernels.LAUNCHES, key,
+                            recorded, {})
         make_encode_batch(model, torch.bfloat16, ops=rec, compact_windows=compact)(
             weights, imgs, sizes)
 
@@ -1334,8 +1883,13 @@ def main() -> int:
              "K6": (attn_k.rel_attention_window_rect, attn_k.rel_attention_window_rect_plain),
              "K7": (attn_k.rel_attention_global, attn_k.rel_attention_global_plain),
              "K7-int8": (KERNEL_OPS_INT8.rel_attention_global,
-                         PLAIN_OPS_INT8.rel_attention_global)}
-    flat_keys = [k for k in pairs if k != "K6"]
+                         PLAIN_OPS_INT8.rel_attention_global),
+             "K9": (attn_k.rel_attention_pre, attn_k.rel_attention_pre_plain),
+             "K10": (attn_k.rel_attention_headmajor, attn_k.rel_attention_headmajor_plain),
+             "K11": (attn_k.rel_attention_headmajor_global,
+                     attn_k.rel_attention_headmajor_plain),
+             "K12": (attn_k.window_block_attention, attn_k.window_block_attention_plain)}
+    flat_keys = ["K1", "K2", "K3", "K4", "K5", "K7", "K7-int8"]
     compact_keys = [k + " compact" for k in flat_keys]
     check(all(k in recorded for k in flat_keys + compact_keys),
           f"a path did not reach every kernel: recorded {sorted(recorded)}")
@@ -1346,61 +1900,19 @@ def main() -> int:
     rows = []
     k6_rows = []
     stress_gen = torch.Generator(device=dev).manual_seed(2)
+
+    def row_of(key, path, n_launches, args, kw):
+        name = key.split()[0]
+        return {"name": name, "path": path, "route": "cuda", "source": KERNELS[name][1],
+                "replaces": KERNELS[name][2], "launches": n_launches,
+                **phase_kernel(torch, attn_k, key, *pairs[name], args, kw, stress_gen)}
+
     for key in flat_keys + compact_keys + k6_keys:
         name = key.split()[0]
-        kern, plain = pairs[name]
-        args, kw = recorded[key]
         path = ("embed-compact" if key in compact_keys or name == "K6" else "embed") \
             + ("-int8" if KERNELS[name][0] == "embed-int8" else "")
-        out_k = call_as_recorded(torch, key, kern, args, kw)
-        out_p = call_as_recorded(torch, f"{key}'s plain version", plain, args, kw)
-        torch.cuda.synchronize()
-        err = (out_k.float() - out_p.float()).abs().max().item()
-        ref = out_p.float().abs().max().item()
-        ms = card_ms(torch, lambda: kern(*args, **kw))
-        plain_ms = card_ms(torch, lambda: plain(*args, **kw), iters=3, warmup=1)
-        kw = {k: v for k, v in kw.items() if k != "out"}
-        library_ms = None
-        if name in ("K5", "K6", "K7", "K7-int8"):
-            kh, kwid = (kw["ws"], kw["ws"]) if name in ("K5", "K6") else (kw["kh"], kw["kw"])
-            sdpa_qkv = args[0]
-            if name == "K6":    # the library sees the padded windows, materialised; so does K5
-                sdpa_qkv = materialised_windows(torch, args[0], args[2], kw["ws"], kw["rh"],
-                                                kw["rw"])
-                via_k5 = attn_k.rel_attention_window(sdpa_qkv, args[1], ws=kw["ws"],
-                                                     heads=kw["heads"], hd=kw["hd"])
-                err_k5 = max_err(live_cells(via_k5, kw["ws"], kw["rh"], kw["rw"]),
-                                 out_k[:, :kw["rh"] * kw["rw"]])
-                log(f"{key}: max abs err {err_k5:.4g} vs K5 on the materialised padded windows "
-                    f"(tol {KERNEL_TOL[name]} x max |plain|)")
-                check(err_k5 <= KERNEL_TOL[name] * max(ref, 1e-6),
-                      f"{key} disagrees with K5 on the materialised padded windows")
-            q, k, v, bias = sdpa_inputs(torch, sdpa_qkv, args[1], kw["heads"], kw["hd"],
-                                        kh, kwid)
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            library_ms = card_ms(torch, lambda: sdpa(q, k, v, attn_mask=bias))
-            del q, k, v, bias
-        flops, int8_ops, nbytes = kernel_work(name, args, kw)
-        bound_ms, bound_by = bound(flops, nbytes, int8_ops)
-        shape = tuple(args[0].shape)
-        log(f"{key} on {shape}{' into an out= view' if 'out' in recorded[key][1] else ''}: "
-            f"max abs err {err:.4g} vs max |plain| {ref:.4g} "
-            f"(tol {KERNEL_TOL[name]} x max |plain|), {ms:.4f} ms (plain {plain_ms:.4f}, library "
-            f"{library_ms}, bound {bound_ms:.4f} by {bound_by}); "
-            f"{(flops + int8_ops) / (ms * 1e-3) / 1e12:.1f} Tops/s")
-        check(err <= KERNEL_TOL[name] * max(ref, 1e-6), f"{key} disagrees with its plain version")
-        if name == "K4":    # its other GELU, which the main path does not run
-            err_erf = max_err(kern(*args, **kw, gelu="erf"), plain(*args, **kw, gelu="erf"))
-            log(f"{key} with gelu='erf': max abs err {err_erf:.4g}")
-            check(err_erf <= KERNEL_TOL[name] * max(ref, 1e-6),
-                  f"{key} with gelu='erf' disagrees with its plain version")
-        phase_stress(torch, key, kern, plain, args, kw, stress_gen)
-        row = {"name": name, "path": path, "shape": list(shape), "route": "cuda",
-               "source": KERNELS[name][1], "replaces": KERNELS[name][2],
-               "launches": counts[path][name],
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
-        (k6_rows if name == "K6" else rows).append(row)
+        (k6_rows if name == "K6" else rows).append(
+            row_of(key, path, counts[path][name], *recorded[key]))
     # K6's row: one windowed block's K6 work, its two launches (one per edge
     # group) taken together; the larger error of the two
     rows.append({**k6_rows[0], "shape": [r["shape"] for r in k6_rows],
@@ -1412,7 +1924,31 @@ def main() -> int:
     log(f"K6: {rows[-1]['ms']:.4f} ms for a block's two launches against a bound of "
         f"{rows[-1]['bound_ms']:.4f} ms by bytes: each launch fills the card at most once, so "
         f"launch latency, not the bound, sets its time")
-    del recorded
+    # the v1, v2 and v3 runs: one row per kernel and call shape, with the launches
+    # that shape made in its counted run
+    for key in sorted(recorded_v):
+        rows.append({**row_of(key, key.split()[1], split_v[key], *recorded_v[key]),
+                     "add": key.endswith(" +add")})
+    # the three-kernel formulation K12 replaces, on the same windows: K1 + K5 + projection
+    (xn12, *_), _ = recorded_call(recorded_v, "K12")
+    slots = -(-xn12.shape[1] // 8) * 8
+    x12 = torch.nn.functional.pad(xn12, (0, 0, 0, slots - xn12.shape[1])).reshape(
+        -1, xn12.shape[-1])
+    pk0 = packed[0]
+
+    def replaced():
+        qkv = mlp_k.ln_masked_linear(x12, None, pk0["norm1_w"], pk0["norm1_b"], pk0["qkv_w"],
+                                     pk0["qkv_b"], enc_cfg.layer_norm_eps)
+        out = attn_k.rel_attention_window(qkv.view(-1, slots, qkv.shape[-1]), pk0["tables"],
+                                          ws=enc_cfg.window_size, heads=enc_cfg.num_heads,
+                                          hd=enc_cfg.head_dim)
+        return torch.nn.functional.linear(out.view(x12.shape), pk0["proj_w"])
+
+    k12_row = next(r for r in rows if r["name"] == "K12")
+    k12_row["replaced_formulation_ms"] = card_ms(torch, replaced)
+    log(f"K12 {k12_row['ms']:.4f} ms; K1 + K5 + projection on the same windows: "
+        f"{k12_row['replaced_formulation_ms']:.4f} ms")
+    del recorded, recorded_v
     k8 = phase_k8(torch, np, port.kccl, k8_input, np.random.default_rng(5))
     rows.append({"name": "K8", "path": "enhance", "shape": list(k8_input[0].shape),
                  "route": "cuda", "source": KERNELS["K8"][1],
@@ -1420,7 +1956,7 @@ def main() -> int:
 
     # 7. the tiny config through the kernels vs the reference golden --------
     phase_golden(torch, np, sam_vit_t_config(), ImageEncoderViT, KERNEL_OPS, KERNEL_OPS_INT8,
-                 PLAIN_OPS_INT8, kernels.LAUNCHES)
+                 PLAIN_OPS_INT8, kernels.LAUNCHES, tie.attention_apply_kernel)
 
     log(json.dumps({"kernels": rows}))
     log(identity)

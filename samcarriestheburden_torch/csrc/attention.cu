@@ -1,5 +1,5 @@
-// K5, K6, K7 and K7-int8: attention with the decomposed relative-position bias
-// of SAM's ViT encoder, on sm_90a.
+// K5, K6, K7, K7-int8, K9, K10 and K11: attention with the decomposed
+// relative-position bias of SAM's ViT encoder, on sm_90a.
 //
 // K5 replaces samcarriestheburden_tpu/kernels/attention.py:fused_rel_attention_window3d
 //    (one 14x14 window per sequence, 200 slots of which 196 are live keys),
@@ -61,6 +61,27 @@
 // 32-wide int8 k-step (80 -> 96), written once per (sequence, head) and then
 // streamed by every query block in place of the bf16 keys.  The accumulant
 // stays below 127^2 * 96 < 2^24, so its fp32 conversion is exact.
+//
+// K9 replaces samcarriestheburden_tpu/kernels/attention.py:fused_rel_attention
+//    (q, k, v split per head, (G, N, HD) each; rel_h (G, N, KH), rel_w (G, N, KW)),
+// K10 replaces samcarriestheburden_tpu/kernels/attention.py:fused_rel_attention_headmajor
+//    (the head-grouped qkv of K5, N = KH*KW rows and no dead slot; rel_h
+//    (heads, nseq, N, KH), rel_w (heads, nseq, N, KW)),
+// K11 replaces samcarriestheburden_tpu/kernels/attention.py:fused_rel_attention_headmajor_global
+//    (K10 on a grid too large for one block).
+// They are the same kernel with PRE set: the per-query rel terms arrive from
+// device memory and are not made from q and the tables.  Step 1 fills the
+// per-row table sRel with bf16(rel / scale), the rounding of the TPU kernels'
+// default body, by plain 2-byte loads (a 14-entry row is 28 bytes, which
+// cp.async's 16-byte alignment does not take), step 2 is skipped, and the
+// flash loop is K5's and K7's.  q, k and v come through a base pointer each
+// and a common row stride, so one kernel reads three (G, N, HD) tensors (K9:
+// stride HD, one "head" per sequence) or one head-grouped tensor (K10, K11:
+// stride heads * 3 * HD).  Bounds: K9 on windows and K10 move ~100 operations
+// per byte (q, k, v, the rel terms, the output) and are bound by bytes; K9 on
+// the global grid and K11 are K7's work without its table product and are
+// bound by the tensor cores.  13 warps hold a sequence of up to 208 rows (K10;
+// K9 on windows), 8 warps run 128 queries of a longer one (K11; K9 global).
 #include <math.h>
 
 #include "common.cuh"
@@ -147,9 +168,15 @@ k_quant_kernel(const bf16* __restrict__ qkv, const float* __restrict__ kmax,
 // QH x QW is the grid the carried slots are laid out on, as queries and as
 // keys: the key grid KH x KW itself except for K6 (RECT), whose pad keys take
 // their k and v from qkv_bias (heads * 3 * HD, fp32).
-template <int HD, int NW, bool INT8, bool RECT>
+// q, k, v point at row 0 of (sequence 0, head 0); a row is `stride` elements
+// from the next, a head `head_stride`, a sequence `seq_stride`.  PRE: the rel
+// terms come from rel_h (heads, nseq, nrows, KH) and rel_w (.., KW), not from tab.
+template <int HD, int NW, bool INT8, bool RECT, bool PRE>
 __global__ void __launch_bounds__(NW * 32)
-rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
+rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
+                     const bf16* __restrict__ vp, int stride, size_t seq_stride,
+                     int head_stride, const bf16* __restrict__ tab,
+                     const bf16* __restrict__ rel_h, const bf16* __restrict__ rel_w,
                      const int8_t* __restrict__ kq, const float* __restrict__ kmax,
                      const float* __restrict__ qkv_bias, bf16* __restrict__ out, int nrows,
                      int nkeys, int heads, int KH, int KW, int QH, int QW, float scale,
@@ -170,8 +197,10 @@ rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, s = blockIdx.z;
-  const int stride = heads * 3 * HD;
-  const bf16* base = qkv + (size_t)s * nrows * stride + h * 3 * HD;
+  const size_t seq_off = (size_t)s * seq_stride + (size_t)h * head_stride;
+  const bf16* qb = qp + seq_off;
+  const bf16* kb = kp + seq_off;
+  const bf16* vb = vp + seq_off;
   const int RH = 2 * KH - 1, NT = RH + 2 * KW - 1, NTP = (NT + 15) / 16 * 16;
   const int KR = KH + KW;
 
@@ -179,14 +208,26 @@ rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
   for (int c = tid; c < BQ * CH; c += NTHREADS) {
     const int r = c / CH, cc = (c % CH) * 8;
     const bool ok = q0 + r < nrows;
-    cp_async16(sQ + r * LD + cc, ok ? base + (size_t)(q0 + r) * stride + cc : base, ok ? 16 : 0);
+    cp_async16(sQ + r * LD + cc, ok ? qb + (size_t)(q0 + r) * stride + cc : qb, ok ? 16 : 0);
   }
-  for (int c = tid; c < NTP * CH; c += NTHREADS) {
-    const int r = c / CH, cc = (c % CH) * 8;
-    const bool ok = r < NT;
-    cp_async16(sKV + r * LD + cc, ok ? tab + (size_t)r * HD + cc : tab, ok ? 16 : 0);
-  }
+  if (!PRE)
+    for (int c = tid; c < NTP * CH; c += NTHREADS) {
+      const int r = c / CH, cc = (c % CH) * 8;
+      const bool ok = r < NT;
+      cp_async16(sKV + r * LD + cc, ok ? tab + (size_t)r * HD + cc : tab, ok ? 16 : 0);
+    }
   cp_async_commit();
+  if (PRE) {  // the caller's rel terms, rounded at 1/scale as the TPU kernel's body rounds them
+    const size_t row0 = ((size_t)h * gridDim.z + s) * nrows + q0;
+    for (int c = tid; c < BQ * KR; c += NTHREADS) {
+      const int r = c / KR, slot = c - r * KR;
+      float v = 0.f;
+      if (q0 + r < nrows)
+        v = __bfloat162float(slot < KH ? rel_h[(row0 + r) * KH + slot]
+                                       : rel_w[(row0 + r) * KW + slot - KH]);
+      sRel[r * KR + slot] = __float2bfloat16(v * inv_scale);
+    }
+  }
   if (INT8)
     for (int c = tid; c < HD; c += NTHREADS)
       sSk[c] = kmax[(size_t)(s * heads + h) * HD + c] / 127.f + 1e-12f;
@@ -238,7 +279,7 @@ rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
 
   // 2. rel terms: g = q . table_row, scattered to the (row, kh) and
   //    (row, KH + kw) entries each table row serves for this query
-  for (int np = 0; np < NTP / 16; ++np) {
+  for (int np = 0; !PRE && np < NTP / 16; ++np) {
     float g[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
@@ -282,9 +323,9 @@ rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
       const int r = c / CH, cc = (c % CH) * 8;
       const int j = kt * BKV + r;
       const bool ok = j < nkeys;
-      const bf16* src = base + (size_t)j * stride + cc;
-      if (!INT8) cp_async16(sK + r * LD + cc, ok ? src + HD : base, ok ? 16 : 0);
-      cp_async16(sV + r * LD + cc, ok ? src + 2 * HD : base, ok ? 16 : 0);
+      const size_t off = (size_t)j * stride + cc;
+      if (!INT8) cp_async16(sK + r * LD + cc, ok ? kb + off : kb, ok ? 16 : 0);
+      cp_async16(sV + r * LD + cc, ok ? vb + off : vb, ok ? 16 : 0);
     }
     if (INT8)
       for (int c = tid; c < BKV * CHK; c += NTHREADS) {
@@ -506,70 +547,104 @@ rel_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ tab,
   }
 }
 
-// kq and kmax are the int8 path's scratch (null for bf16): kq (nseq, heads,
-// nrows, padded hd) int8, kmax (nseq, heads, hd) fp32.
-// bias is K6's qkv bias (null otherwise); qh x qw the carried grid (kh x kw unless RECT).
-template <int HD, int NW, bool INT8, bool RECT>
-cudaError_t launch(const bf16* qkv, const bf16* tab, int8_t* kq, float* kmax, const float* bias,
-                   bf16* out, int nseq, int nrows, int nkeys, int heads, int kh, int kw, int qh,
-                   int qw, float scale, float inv_scale, cudaStream_t stream) {
+// What a launch reads: q, k, v with their strides (in elements), the rel-pos
+// tables (tab) or the caller's rel terms (rel_h, rel_w: PRE), the int8 path's
+// scratch (kq (nseq, heads, nrows, padded hd) int8 and kmax (nseq, heads, hd)
+// fp32; null for bf16) and K6's qkv bias (null otherwise).
+struct Operands {
+  const bf16 *q, *k, *v;
+  int stride;
+  size_t seq_stride;
+  int head_stride;
+  const bf16 *tab, *rel_h, *rel_w;
+  int8_t* kq;
+  float* kmax;
+  const float* bias;
+};
+
+// The head-grouped layout of K5-K7, K10 and K11: (nseq, nrows, heads * 3 * hd).
+Operands grouped(const void* qkv, int nrows, int heads, int hd) {
+  const bf16* q = static_cast<const bf16*>(qkv);
+  Operands op = {};
+  op.q = q;
+  op.k = q + hd;
+  op.v = q + 2 * hd;
+  op.stride = heads * 3 * hd;
+  op.seq_stride = (size_t)nrows * op.stride;
+  op.head_stride = 3 * hd;
+  return op;
+}
+
+// qh x qw is the carried grid (kh x kw unless RECT).
+template <int HD, int NW, bool INT8, bool RECT, bool PRE>
+cudaError_t launch(const Operands& op, bf16* out, int nseq, int nrows, int nkeys, int heads,
+                   int kh, int kw, int qh, int qw, float scale, float inv_scale,
+                   cudaStream_t stream) {
   const int nt = 2 * kh - 1 + 2 * kw - 1;
   if ((nt + 15) / 16 * 16 > 4 * BKV || nkeys < 1 || nkeys > nrows) return cudaErrorInvalidValue;
-  if (RECT ? (qh < 1 || qw < 1 || qh > kh || qw > kw || nkeys != qh * qw || bias == nullptr)
+  if (RECT ? (qh < 1 || qw < 1 || qh > kh || qw > kw || nkeys != qh * qw || op.bias == nullptr)
            : (qh != kh || qw != kw))
+    return cudaErrorInvalidValue;
+  if (PRE && (op.rel_h == nullptr || op.rel_w == nullptr || nkeys != kh * kw))
     return cudaErrorInvalidValue;
   cudaError_t err;
   if (INT8) {
     if (nkeys != nrows) return cudaErrorInvalidValue;
-    err = cudaMemsetAsync(kmax, 0, (size_t)nseq * heads * HD * sizeof(float), stream);
+    err = cudaMemsetAsync(op.kmax, 0, (size_t)nseq * heads * HD * sizeof(float), stream);
     if (err != cudaSuccess) return err;
     const int rows_per_block = 256;
     k_absmax_kernel<HD><<<dim3((nrows + rows_per_block - 1) / rows_per_block, heads, nseq),
-                          HD * 4, 0, stream>>>(qkv, kmax, nrows, heads, rows_per_block);
+                          HD * 4, 0, stream>>>(op.q, op.kmax, nrows, heads, rows_per_block);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const int chunks = nrows * (padded_hd(HD) / 8);
     k_quant_kernel<HD><<<dim3((chunks + 255) / 256, heads, nseq), 256, 0, stream>>>(
-        qkv, kmax, kq, nrows, heads);
+        op.q, op.kmax, op.kq, nrows, heads);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   const size_t smem = INT8 ? attn_smem_bytes_int8<HD, NW>(kh, kw) : attn_smem_bytes<HD, NW>(kh, kw);
-  err = cudaFuncSetAttribute(rel_attention_kernel<HD, NW, INT8, RECT>,
+  err = cudaFuncSetAttribute(rel_attention_kernel<HD, NW, INT8, RECT, PRE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((nrows + NW * 16 - 1) / (NW * 16), heads, nseq);
-  rel_attention_kernel<HD, NW, INT8, RECT><<<grid, NW * 32, smem, stream>>>(
-      qkv, tab, kq, kmax, bias, out, nrows, nkeys, heads, kh, kw, qh, qw, scale, inv_scale);
+  rel_attention_kernel<HD, NW, INT8, RECT, PRE><<<grid, NW * 32, smem, stream>>>(
+      op.q, op.k, op.v, op.stride, op.seq_stride, op.head_stride, op.tab, op.rel_h, op.rel_w,
+      op.kq, op.kmax, op.bias, out, nrows, nkeys, heads, kh, kw, qh, qw, scale, inv_scale);
   return cudaGetLastError();
 }
 
-template <int NW, bool INT8, bool RECT>
-int dispatch(int hd, const void* qkv, const void* tab, void* kq, void* kmax, const void* bias,
-             void* out, int nseq, int nrows, int nkeys, int heads, int kh, int kw, int qh, int qw,
-             float scale, float inv_scale, void* stream) {
-  const bf16* q = static_cast<const bf16*>(qkv);
-  const bf16* t = static_cast<const bf16*>(tab);
-  int8_t* k8 = static_cast<int8_t*>(kq);
-  float* km = static_cast<float*>(kmax);
-  const float* b = static_cast<const float*>(bias);
+template <int NW, bool INT8, bool RECT, bool PRE>
+int dispatch(int hd, const Operands& op, void* out, int nseq, int nrows, int nkeys, int heads,
+             int kh, int kw, int qh, int qw, float scale, float inv_scale, void* stream) {
   bf16* o = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16:
-      return launch<16, NW, INT8, RECT>(q, t, k8, km, b, o, nseq, nrows, nkeys, heads, kh, kw, qh,
-                                        qw, scale, inv_scale, s);
+      return launch<16, NW, INT8, RECT, PRE>(op, o, nseq, nrows, nkeys, heads, kh, kw, qh, qw,
+                                             scale, inv_scale, s);
     case 32:
-      return launch<32, NW, INT8, RECT>(q, t, k8, km, b, o, nseq, nrows, nkeys, heads, kh, kw, qh,
-                                        qw, scale, inv_scale, s);
+      return launch<32, NW, INT8, RECT, PRE>(op, o, nseq, nrows, nkeys, heads, kh, kw, qh, qw,
+                                             scale, inv_scale, s);
     case 64:
-      return launch<64, NW, INT8, RECT>(q, t, k8, km, b, o, nseq, nrows, nkeys, heads, kh, kw, qh,
-                                        qw, scale, inv_scale, s);
+      return launch<64, NW, INT8, RECT, PRE>(op, o, nseq, nrows, nkeys, heads, kh, kw, qh, qw,
+                                             scale, inv_scale, s);
     case 80:
-      return launch<80, NW, INT8, RECT>(q, t, k8, km, b, o, nseq, nrows, nkeys, heads, kh, kw, qh,
-                                        qw, scale, inv_scale, s);
+      return launch<80, NW, INT8, RECT, PRE>(op, o, nseq, nrows, nkeys, heads, kh, kw, qh, qw,
+                                             scale, inv_scale, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// K9-K11: a sequence of up to 208 rows in one block of 13 warps, a longer one
+// 128 queries per block of 8 warps.
+int dispatch_pre(int hd, const Operands& op, void* out, int nseq, int nrows, int heads, int kh,
+                 int kw, float scale, float inv_scale, void* stream, bool one_block) {
+  if (one_block)
+    return dispatch<13, false, false, true>(hd, op, out, nseq, nrows, nrows, heads, kh, kw, kh,
+                                            kw, scale, inv_scale, stream);
+  return dispatch<8, false, false, true>(hd, op, out, nseq, nrows, nrows, heads, kh, kw, kh, kw,
+                                         scale, inv_scale, stream);
 }
 
 }  // namespace
@@ -579,8 +654,10 @@ int dispatch(int hd, const void* qkv, const void* tab, void* kq, void* kmax, con
 extern "C" int k5_rel_attention_window(const void* qkv, const void* tab, void* out, int nseq,
                                        int nrows, int nkeys, int heads, int hd, int ws,
                                        float scale, float inv_scale, void* stream) {
-  return dispatch<13, false, false>(hd, qkv, tab, nullptr, nullptr, nullptr, out, nseq, nrows,
-                                    nkeys, heads, ws, ws, ws, ws, scale, inv_scale, stream);
+  Operands op = grouped(qkv, nrows, heads, hd);
+  op.tab = static_cast<const bf16*>(tab);
+  return dispatch<13, false, false, false>(hd, op, out, nseq, nrows, nkeys, heads, ws, ws, ws, ws,
+                                           scale, inv_scale, stream);
 }
 
 // K6: qkv (nseq, nrows, heads*3*hd) bf16 windows of rh*rw carried slots (nrows
@@ -590,15 +667,20 @@ extern "C" int k6_rel_attention_window_rect(const void* qkv, const void* tab, co
                                             void* out, int nseq, int nrows, int heads, int hd,
                                             int ws, int rh, int rw, float scale, float inv_scale,
                                             void* stream) {
-  return dispatch<7, false, true>(hd, qkv, tab, nullptr, nullptr, bias, out, nseq, nrows, rh * rw,
-                                  heads, ws, ws, rh, rw, scale, inv_scale, stream);
+  Operands op = grouped(qkv, nrows, heads, hd);
+  op.tab = static_cast<const bf16*>(tab);
+  op.bias = static_cast<const float*>(bias);
+  return dispatch<7, false, true, false>(hd, op, out, nseq, nrows, rh * rw, heads, ws, ws, rh, rw,
+                                         scale, inv_scale, stream);
 }
 
 extern "C" int k7_rel_attention_global(const void* qkv, const void* tab, void* out, int nseq,
                                        int nrows, int heads, int hd, int kh, int kw, float scale,
                                        float inv_scale, void* stream) {
-  return dispatch<8, false, false>(hd, qkv, tab, nullptr, nullptr, nullptr, out, nseq, nrows,
-                                   nrows, heads, kh, kw, kh, kw, scale, inv_scale, stream);
+  Operands op = grouped(qkv, nrows, heads, hd);
+  op.tab = static_cast<const bf16*>(tab);
+  return dispatch<8, false, false, false>(hd, op, out, nseq, nrows, nrows, heads, kh, kw, kh, kw,
+                                          scale, inv_scale, stream);
 }
 
 // As K7, with the q . k product in int8.  Scratch: kq (nseq, nrows-major per
@@ -608,6 +690,53 @@ extern "C" int k7_rel_attention_global_int8(const void* qkv, const void* tab, vo
                                             void* kmax, void* out, int nseq, int nrows,
                                             int heads, int hd, int kh, int kw, float scale,
                                             float inv_scale, void* stream) {
-  return dispatch<8, true, false>(hd, qkv, tab, kq, kmax, nullptr, out, nseq, nrows, nrows, heads,
-                                  kh, kw, kh, kw, scale, inv_scale, stream);
+  Operands op = grouped(qkv, nrows, heads, hd);
+  op.tab = static_cast<const bf16*>(tab);
+  op.kq = static_cast<int8_t*>(kq);
+  op.kmax = static_cast<float*>(kmax);
+  return dispatch<8, true, false, false>(hd, op, out, nseq, nrows, nrows, heads, kh, kw, kh, kw,
+                                         scale, inv_scale, stream);
+}
+
+// K9: q, k, v, out (nseq, nrows, hd) bf16, one head per sequence; rel_h (nseq,
+// nrows, kh) and rel_w (nseq, nrows, kw) bf16; nrows = kh * kw, every row a key.
+extern "C" int k9_rel_attention_pre(const void* q, const void* k, const void* v,
+                                    const void* rel_h, const void* rel_w, void* out, int nseq,
+                                    int nrows, int hd, int kh, int kw, float scale,
+                                    float inv_scale, void* stream) {
+  Operands op = {};
+  op.q = static_cast<const bf16*>(q);
+  op.k = static_cast<const bf16*>(k);
+  op.v = static_cast<const bf16*>(v);
+  op.stride = hd;
+  op.seq_stride = (size_t)nrows * hd;
+  op.rel_h = static_cast<const bf16*>(rel_h);
+  op.rel_w = static_cast<const bf16*>(rel_w);
+  return dispatch_pre(hd, op, out, nseq, nrows, 1, kh, kw, scale, inv_scale, stream,
+                      nrows <= 13 * 16);
+}
+
+// K10: qkv (nseq, nrows, heads*3*hd) bf16 grouped per head, nrows = kh * kw <=
+// 208; rel_h (heads, nseq, nrows, kh), rel_w (heads, nseq, nrows, kw) bf16;
+// out (nseq, nrows, heads, hd) bf16.
+extern "C" int k10_rel_attention_headmajor(const void* qkv, const void* rel_h, const void* rel_w,
+                                           void* out, int nseq, int nrows, int heads, int hd,
+                                           int kh, int kw, float scale, float inv_scale,
+                                           void* stream) {
+  if (nrows > 13 * 16) return cudaErrorInvalidValue;
+  Operands op = grouped(qkv, nrows, heads, hd);
+  op.rel_h = static_cast<const bf16*>(rel_h);
+  op.rel_w = static_cast<const bf16*>(rel_w);
+  return dispatch_pre(hd, op, out, nseq, nrows, heads, kh, kw, scale, inv_scale, stream, true);
+}
+
+// K11: as K10 for any nrows = kh * kw, 128 queries per block.
+extern "C" int k11_rel_attention_headmajor_global(const void* qkv, const void* rel_h,
+                                                  const void* rel_w, void* out, int nseq,
+                                                  int nrows, int heads, int hd, int kh, int kw,
+                                                  float scale, float inv_scale, void* stream) {
+  Operands op = grouped(qkv, nrows, heads, hd);
+  op.rel_h = static_cast<const bf16*>(rel_h);
+  op.rel_w = static_cast<const bf16*>(rel_w);
+  return dispatch_pre(hd, op, out, nseq, nrows, heads, kh, kw, scale, inv_scale, stream, false);
 }

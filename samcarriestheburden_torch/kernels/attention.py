@@ -1,4 +1,4 @@
-"""K5, K6, K7 and K7-int8: attention with SAM's decomposed relative-position bias.
+"""K5, K6, K7, K7-int8 and K9-K12: attention with SAM's decomposed relative-position bias.
 
 K5 ``rel_attention_window`` runs one window per sequence (JAX
 ``kernels/attention.py:fused_rel_attention_window3d``); K6
@@ -51,6 +51,40 @@ the JAX body leaves them.  Slots of a window that lie beyond the image (the
 bottom strip's last window) are carried slots like any other: their rows are
 zero-masked before the projection, so their k and v are the bias too.  With
 rh = rw = ws there is no pad key and K6 equals K5.
+
+K9, K10 and K11 are the same attention with the rel terms made by the caller
+(the encoder's other block formulations: ``models/image_encoder.py``).  K9
+``rel_attention_pre`` takes q, k, v split per head, (G, N, hd), and
+rel_h (G, N, kh), rel_w (G, N, kw) (JAX ``fused_rel_attention``); K10
+``rel_attention_headmajor`` the per-head-grouped qkv of K5 with no dead slot
+and rel_h (heads, S, N, kh), rel_w (heads, S, N, kw) (JAX
+``fused_rel_attention_headmajor``); K11 ``rel_attention_headmajor_global``
+is K10 for a grid too large for one block (JAX
+``fused_rel_attention_headmajor_global``).  Their function, the arithmetic
+of the JAX kernels' default ("phased") body:
+
+    logit[i, j] = scale * (q_i . k_j + round_dt(rel_h[i, kh] / scale)
+                                     + round_dt(rel_w[i, kw] / scale))
+    out_i       = round_dt(softmax_j(logit)) . v       (fp32 accumulate)
+
+The caller has rounded rel_h and rel_w to the compute type already, so a rel
+term is rounded twice where K5 and K7 round it once; in fp32 neither bites.
+K10 and K11 return the output token-major like K5 and K7 (the JAX kernels'
+head-major output was a TPU layout choice; its only reader is the projection).
+
+K12 ``window_block_attention`` is a whole windowed attention on LayerNormed,
+pad-masked window tokens xn (Wb, ws^2, E) (JAX
+``fused_window_block_attention``): per head
+
+    q, k, v = round_dt(xn . W_h^T + b_h)      the per-head-grouped qkv weights
+    o_h     = K5's attention of q, k, v       rel terms from q and the tables
+    out     = round_dt(sum_h round_dt(o_h) . Wp_h^T)
+
+with every product accumulated in fp32 and the sum over heads kept in fp32
+and rounded once (the JAX body keeps q and k in fp32 up to the logits and
+rounds its output after every head; both differ from this only in bf16:
+``round_qk=False`` in the plain version keeps q and k unrounded).  The
+projection's bias and the residual stay with the caller.
 """
 
 from __future__ import annotations
@@ -77,6 +111,20 @@ def _lib():
         lib.k7_rel_attention_global.restype = _I
         lib.k7_rel_attention_global_int8.argtypes = [_VP] * 5 + [_I] * 6 + [_F, _F, _VP]
         lib.k7_rel_attention_global_int8.restype = _I
+        lib.k9_rel_attention_pre.argtypes = [_VP] * 6 + [_I] * 5 + [_F, _F, _VP]
+        lib.k9_rel_attention_pre.restype = _I
+        for fn in (lib.k10_rel_attention_headmajor, lib.k11_rel_attention_headmajor_global):
+            fn.argtypes = [_VP] * 4 + [_I] * 6 + [_F, _F, _VP]
+            fn.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _block_lib():
+    lib = build.load("block_attention")
+    if not getattr(lib, "_typed", False):
+        lib.k12_window_block_attention.argtypes = [_VP] * 7 + [_I] * 5 + [_F, _F, _VP]
+        lib.k12_window_block_attention.restype = _I
         lib._typed = True
     return lib
 
@@ -219,12 +267,16 @@ def rel_attention_global_plain(qkv, tables, *, kh: int, kw: int, heads: int,
 # ---------------------------------------------------------------------------
 
 
+def _check_hd(hd: int) -> None:
+    if hd not in (16, 32, 64, 80):
+        raise ValueError(f"head dim {hd} has no kernel instance (16, 32, 64, 80)")
+
+
 def _check(qkv, tables, heads, hd, kh, kw):
     s, n, c = qkv.shape
     check_cuda("qkv", qkv, (s, n, heads * 3 * hd), torch.bfloat16)
     check_cuda("tables", tables, (2 * kh - 1 + 2 * kw - 1, hd), torch.bfloat16)
-    if hd not in (16, 32, 64, 80):
-        raise ValueError(f"head dim {hd} has no kernel instance (16, 32, 64, 80)")
+    _check_hd(hd)
     return s, n
 
 
@@ -308,4 +360,183 @@ def rel_attention_global(qkv, tables, *, kh: int, kw: int, heads: int,
         1.0 / scale, stream())
     raise_on_error("K7 rel_attention_global", code)
     LAUNCHES["K7"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K9, K10, K11: the rel terms come from the caller
+# ---------------------------------------------------------------------------
+
+
+def rel_attention_pre_plain(q, k, v, rel_h, rel_w, *, kh: int, kw: int) -> torch.Tensor:
+    """Plain version of K9.  q, k, v (G, N, hd), N = kh*kw; rel_h (G, N, kh);
+    rel_w (G, N, kw) -> (G, N, hd)."""
+    dt = q.dtype
+    g, n, _ = q.shape
+    scale = q.shape[-1] ** -0.5
+    inv = 1.0 / scale
+    out = torch.empty_like(q)
+    step = max(1, 2 ** 27 // (n * n))          # bounds the (step, n, n) fp32 temporaries
+    for i in range(0, g, step):
+        sl = slice(i, i + step)
+        rh = (rel_h[sl].float() * inv).to(dt).float()
+        rw = (rel_w[sl].float() * inv).to(dt).float()
+        bias = rh.repeat_interleave(kw, dim=-1) + rw.repeat(1, 1, kh)
+        logits = (q[sl].float() @ k[sl].float().transpose(1, 2) + bias) * scale
+        p = torch.softmax(logits, dim=-1).to(dt).float()
+        out[sl] = (p @ v[sl].float()).to(dt)
+    return out
+
+
+def rel_attention_headmajor_plain(qkv, rel_h, rel_w, *, kh: int, kw: int, heads: int,
+                                  hd: int) -> torch.Tensor:
+    """Plain version of K10 and K11.  qkv (S, N, heads*3*hd) grouped per head;
+    rel_h (heads, S, N, kh); rel_w (heads, S, N, kw) -> (S, N, heads*hd)."""
+    s, n, _ = qkv.shape
+    x = qkv.reshape(s, n, heads, 3, hd).permute(3, 2, 0, 1, 4).reshape(3, heads * s, n, hd)
+    out = rel_attention_pre_plain(x[0], x[1], x[2], rel_h.reshape(heads * s, n, kh),
+                                  rel_w.reshape(heads * s, n, kw), kh=kh, kw=kw)
+    return out.reshape(heads, s, n, hd).permute(1, 2, 0, 3).reshape(s, n, heads * hd)
+
+
+def rel_attention_pre(q, k, v, rel_h, rel_w, *, kh: int, kw: int) -> torch.Tensor:
+    """K9 over G = batch * heads sequences of N = kh*kw tokens, every token a
+    key: one block holds a sequence of up to 208 tokens (a window), longer
+    ones (the global grid) run 128 queries per block over all keys."""
+    if q.device.type == "cpu":
+        return rel_attention_pre_plain(q, k, v, rel_h, rel_w, kh=kh, kw=kw)
+    g, n, hd = q.shape
+    bf = torch.bfloat16
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        check_cuda(name, t, (g, n, hd), bf)
+    check_cuda("rel_h", rel_h, (g, n, kh), bf)
+    check_cuda("rel_w", rel_w, (g, n, kw), bf)
+    _check_hd(hd)
+    if n != kh * kw:
+        raise ValueError(f"K9 expects {kh}x{kw} tokens, got {n}")
+    out = torch.empty_like(q)
+    scale = hd ** -0.5
+    code = _lib().k9_rel_attention_pre(
+        ptr(q), ptr(k), ptr(v), ptr(rel_h), ptr(rel_w), ptr(out), g, n, hd, kh, kw,
+        scale, 1.0 / scale, stream())
+    raise_on_error("K9 rel_attention_pre", code)
+    LAUNCHES["K9"] += 1
+    return out
+
+
+def _check_headmajor(qkv, rel_h, rel_w, kh, kw, heads, hd):
+    s, n, _ = qkv.shape
+    bf = torch.bfloat16
+    check_cuda("qkv", qkv, (s, n, heads * 3 * hd), bf)
+    check_cuda("rel_h", rel_h, (heads, s, n, kh), bf)
+    check_cuda("rel_w", rel_w, (heads, s, n, kw), bf)
+    _check_hd(hd)
+    if n != kh * kw:
+        raise ValueError(f"expected {kh}x{kw} tokens, got {n}")
+    return s, n
+
+
+def rel_attention_headmajor(qkv, rel_h, rel_w, *, kh: int, kw: int, heads: int,
+                            hd: int) -> torch.Tensor:
+    """K10 over (Wb, kh*kw, heads*3*hd) windows of at most 208 tokens, one
+    block per (window, head)."""
+    if qkv.device.type == "cpu":
+        return rel_attention_headmajor_plain(qkv, rel_h, rel_w, kh=kh, kw=kw, heads=heads,
+                                             hd=hd)
+    s, n = _check_headmajor(qkv, rel_h, rel_w, kh, kw, heads, hd)
+    if n > 208:
+        raise ValueError(f"K10 holds one window of <= 208 tokens per block, got {n}")
+    out = torch.empty((s, n, heads * hd), dtype=qkv.dtype, device=qkv.device)
+    scale = hd ** -0.5
+    code = _lib().k10_rel_attention_headmajor(
+        ptr(qkv), ptr(rel_h), ptr(rel_w), ptr(out), s, n, heads, hd, kh, kw,
+        scale, 1.0 / scale, stream())
+    raise_on_error("K10 rel_attention_headmajor", code)
+    LAUNCHES["K10"] += 1
+    return out
+
+
+def rel_attention_headmajor_global(qkv, rel_h, rel_w, *, kh: int, kw: int, heads: int,
+                                   hd: int) -> torch.Tensor:
+    """K11 over (B, kh*kw, heads*3*hd) token grids, 128 queries per block."""
+    if qkv.device.type == "cpu":
+        return rel_attention_headmajor_plain(qkv, rel_h, rel_w, kh=kh, kw=kw, heads=heads,
+                                             hd=hd)
+    s, n = _check_headmajor(qkv, rel_h, rel_w, kh, kw, heads, hd)
+    out = torch.empty((s, n, heads * hd), dtype=qkv.dtype, device=qkv.device)
+    scale = hd ** -0.5
+    code = _lib().k11_rel_attention_headmajor_global(
+        ptr(qkv), ptr(rel_h), ptr(rel_w), ptr(out), s, n, heads, hd, kh, kw,
+        scale, 1.0 / scale, stream())
+    raise_on_error("K11 rel_attention_headmajor_global", code)
+    LAUNCHES["K11"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K12: a whole windowed attention, projections included
+# ---------------------------------------------------------------------------
+
+
+def window_block_attention_plain(xn, qkv_w, qkv_b, proj_w, tables, *, ws: int, heads: int,
+                                 round_qk: bool = True) -> torch.Tensor:
+    """Plain version of K12.  xn (Wb, ws*ws, E); qkv_w (heads*3*hd, E) and
+    qkv_b (heads*3*hd) grouped per head; proj_w (E, E) as ``nn.Linear`` holds
+    it; tables as K5's -> (Wb, ws*ws, E), before the projection's bias.
+    ``round_qk=False`` keeps q and k in fp32 up to the logits, as the JAX body
+    does (the tensor cores take them in the compute type)."""
+    wb, n, e = xn.shape
+    dt = xn.dtype
+    hd = e // heads
+    scale = hd ** -0.5
+    tab = tables.float()
+    tok = torch.arange(n, device=xn.device)
+    idx_h = ((tok // ws)[:, None] - (tok // ws)[None] + ws - 1).expand(wb, n, n)
+    idx_w = ((tok % ws)[:, None] - (tok % ws)[None] + ws - 1 + 2 * ws - 1).expand(wb, n, n)
+    w = qkv_w.float().reshape(heads, 3, hd, e)
+    b = qkv_b.float().reshape(heads, 3, hd)
+    wp = proj_w.float().reshape(e, heads, hd)
+    acc = torch.zeros((wb, n, e), dtype=torch.float32, device=xn.device)
+    x = xn.float()
+    for h in range(heads):
+        q, k, v = (x @ w[h, i].T + b[h, i] for i in range(3))
+        if round_qk:
+            q, k = q.to(dt).float(), k.to(dt).float()
+        v = v.to(dt).float()
+        g = (q @ tab.T * (1.0 / scale)).to(dt).float()
+        logits = (q @ k.transpose(1, 2) + g.gather(2, idx_h) + g.gather(2, idx_w)) * scale
+        p = torch.softmax(logits, dim=-1).to(dt).float()
+        acc += (p @ v).to(dt).float() @ wp[:, h].T
+    return acc.to(dt)
+
+
+def window_block_attention(xn, qkv_w, qkv_b, proj_w, tables, *, ws: int,
+                           heads: int) -> torch.Tensor:
+    """K12 over (Wb, ws*ws, E) LayerNormed, pad-masked windows of at most 208
+    tokens: one block per (window, head) projects that head's q, k, v, runs
+    its attention and adds its share of the output projection into an fp32
+    scratch buffer, which a second pass rounds to the compute type."""
+    if xn.device.type == "cpu":
+        return window_block_attention_plain(xn, qkv_w, qkv_b, proj_w, tables, ws=ws,
+                                            heads=heads)
+    wb, n, e = xn.shape
+    hd = e // heads
+    bf = torch.bfloat16
+    check_cuda("xn", xn, (wb, n, e), bf)
+    check_cuda("qkv_w", qkv_w, (3 * e, e), bf)
+    check_cuda("qkv_b", qkv_b, (3 * e,), torch.float32)
+    check_cuda("proj_w", proj_w, (e, e), bf)
+    check_cuda("tables", tables, (2 * (2 * ws - 1), hd), bf)
+    _check_hd(hd)
+    if n != ws * ws or n > 208 or e != heads * hd or e % 8:
+        raise ValueError(f"K12 expects windows of {ws}x{ws} <= 208 tokens and E = heads * hd "
+                         f"divisible by 8, got {n} tokens, E {e}, {heads} heads")
+    acc = torch.empty((wb, n, e), dtype=torch.float32, device=xn.device)
+    out = torch.empty_like(xn)
+    scale = hd ** -0.5
+    code = _block_lib().k12_window_block_attention(
+        ptr(xn), ptr(qkv_w), ptr(qkv_b), ptr(proj_w), ptr(tables), ptr(acc), ptr(out),
+        wb, n, e, heads, ws, scale, 1.0 / scale, stream())
+    raise_on_error("K12 window_block_attention", code)
+    LAUNCHES["K12"] += 1
     return out

@@ -120,17 +120,24 @@ def test_cuda_sources_are_registered_and_stand_alone():
         assert symbol in quant
     attention = (build.CSRC / "attention.cu").read_text()
     assert "k7_rel_attention_global_int8" in attention and "mma_s8" in attention
+    block = (build.CSRC / "block_attention.cu").read_text()
+    assert "k12_window_block_attention" in block and "atomicAdd" in block and "mma_bf16" in block
     assert "m16n8k32.row.col.s32.s8.s8.s32" in (build.CSRC / "common.cuh").read_text()
 
 
-#: the C entry point of every counted kernel, and the registered source that holds it
+#: the C entry point of every counted kernel and the registered source that holds it
+#: (and the Python module that binds it, where that is not the source's namesake)
 ENTRY_POINTS = {"K1": ("mlp", "k1_"), "K2": ("quant", "k2_ln_masked_linear_int8"),
                 "K3": ("mlp", "k3_"), "K4": ("quant", "k4_ln_mlp_residual_int8"),
                 "K5": ("attention", "k5_rel_attention_window"),
                 "K6": ("attention", "k6_rel_attention_window_rect"),
                 "K7": ("attention", "k7_rel_attention_global"),
                 "K7-int8": ("attention", "k7_rel_attention_global_int8"),
-                "K8": ("ccl", "k8_")}
+                "K8": ("ccl", "k8_"),
+                "K9": ("attention", "k9_rel_attention_pre"),
+                "K10": ("attention", "k10_rel_attention_headmajor"),
+                "K11": ("attention", "k11_rel_attention_headmajor_global"),
+                "K12": ("block_attention", "k12_window_block_attention", "attention")}
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -138,17 +145,19 @@ def test_every_counted_kernel_has_a_c_entry_point_in_a_registered_source(name):
     """``kernels.LAUNCHES`` counts exactly these kernels, and each one's
     ``extern "C"`` launch function stands in a source that ``build.SOURCES``
     builds and that its Python module binds (K6, the compact layout's edge
-    windows, in ``attention.cu`` beside K5)."""
+    windows, in ``attention.cu`` beside K5; K9-K11 there too, K12 in
+    ``block_attention.cu``, bound by ``kernels/attention.py``)."""
     from samcarriestheburden_torch import kernels
 
     assert set(kernels.LAUNCHES) == set(ENTRY_POINTS)
-    source, symbol = ENTRY_POINTS[name]
+    source, symbol, *module = ENTRY_POINTS[name]
     assert source in build.SOURCES
     text = (build.CSRC / f"{source}.cu").read_text()
     entries = re.findall(r'extern "C" int (\w+)\(', text)
     bound = [e for e in entries if e.startswith(symbol)]
     assert bound, (name, entries)
-    binding = (PORT / "kernels" / f"{source}.py").read_text()
+    binding = (PORT / "kernels" / f"{(module or [source])[0]}.py").read_text()
+    assert f'build.load("{source}")' in binding
     assert all(f"lib.{e}" in binding or f".{e}(" in binding for e in bound), (name, bound)
     assert f'LAUNCHES["{name}"] += 1' in binding
 
