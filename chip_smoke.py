@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-1. builds the port's CUDA kernels (K1, K2, K3, K4, K5, K6, K7, K7-int8, K8,
-   K9, K10, K11, K12) from ``samcarriestheburden_torch/csrc``, one ``nvcc``
-   per source, all at once;
+1. builds the port's CUDA kernels (K1, K2, K3, K4, K5, K6, K7, K7-int8,
+   K7-pv, K7-int8pv, K8, K9, K10, K11, K12, K13) from
+   ``samcarriestheburden_torch/csrc``, one ``nvcc`` per source, all at once;
 2. drives the flat embed path once at full ViT-H width and depth with seeded
    random weights: ``make_serving_encoder(model, torch.bfloat16,
    compact_windows=False)`` on two padded 1024x1024 uint8 images (input size
@@ -48,6 +48,18 @@
    in the counted run with the launches each of its shapes made there (K9:
    28 on windows and 4 on the global grid; K3 without ``add`` on 9800 and on
    8192 rows);
+4d. drives the enhance path a second time with the bf16 decoder head
+   (``SamMaskDecoderHead(compute_dtype=torch.bfloat16)``, ``bench.py``'s
+   setting) over the same 16 images, counted (K8 once); for the fp32 and the
+   bf16 head, the batched refinement (one decode per round over 16 x 17
+   prompt sets) against the per-image loop it replaced, timed in turns and
+   profiled (images/s and idle share side by side), with the peak device
+   memory of one batch; the bf16 refined masks against the fp32 ones;
+4e. drives the port's bench in-process at a reduced size
+   (``samcarriestheburden_torch.bench.main(BENCH_ARGS)``), counted: its one
+   JSON line parses, with a finite value and ``flops_convention.ok``, and K13
+   launched; then the int8 p.v A/B tool (``tools/bench_int8pv.run``),
+   counted: K7, K7-int8, K7-pv and K7-int8pv launched;
 5. holds each kernel against its plain PyTorch version on the card, on the
    inputs each of its paths gives it (the flat rows and windows; the
    compact stream's: K1-K4 on 8416 rows, K5 on 32 windows and K6, both
@@ -56,7 +68,10 @@
    and on stressed inputs of the same shapes (with planted faults that the
    check must be able to see), the whole
    kernel-path encoder against the plain-path encoder (bf16 and int8, flat
-   and compact), with the random rel tables as they are and scaled up, K6
+   and compact), with the random rel tables as they are and scaled up; K7-pv
+   and K7-int8pv on global block 7's qkv and stressed (per output channel,
+   with four planted quantization faults); K13 bit for bit against x * 2.0,
+   with ``FlopCounterMode`` counting its declared cost for the launch; K6
    also against K5 on the materialised padded windows, and enhance on the
    card against enhance on the CPU and against itself image by image;
 6. checks the outputs: finite and of the expected shape, the decode against
@@ -77,6 +92,7 @@ import json
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -116,9 +132,19 @@ ORIGINAL_HW = (1600, 1119)   # the X-ray before resizing (1600 * 0.64 = 1024)
 # Readings on the H100 (first build-and-compare call, synthetic inputs of the
 # paths' shapes, x max |plain|): K9 0.44 % (windows) and 0.63 % (global), K10
 # 0.42 %, K11 0.42 %, K12 0.48 %, and 0.77 % against fp32 q and k.
+# K7-pv and K7-int8pv share K7's logits; their probabilities and v are integers
+# on both sides, so they differ only where an fp32 probability lands on the
+# other side of a .5 step of the 127 scale (the kernel sums q.k in another
+# order).  One such flip moves an output by |vi| * sv / 127 <= max |v| / 127,
+# which on a flat softmax is more than 1.6 % of max |plain| (the outputs are
+# averages, smaller than max |v|): on the A/B tool's global inputs one flip read
+# 0.03174 against max |plain| 1.68 (1.9 %) and max |v| ~ 4.5.  So their
+# tolerance is K7's 1.6 % of max |plain| or PV_STEPS int8 steps of v
+# (PV_STEPS * max |v| / 127), whichever is larger.
 KERNEL_TOL = {"K1": 1.6e-2, "K3": 1.6e-2, "K5": 1.6e-2, "K6": 1.6e-2, "K7": 1.6e-2,
               "K2": 0.8e-2, "K4": 0.8e-2, "K7-int8": 1.6e-2,
-              "K9": 1.6e-2, "K10": 1.6e-2, "K11": 1.6e-2, "K12": 1.6e-2}
+              "K9": 1.6e-2, "K10": 1.6e-2, "K11": 1.6e-2, "K12": 1.6e-2,
+              "K7-pv": 1.6e-2, "K7-int8pv": 1.6e-2}
 K12_FP32_QK_TOL = 3.2e-2
 # The random weights leave parts of each function nearly invisible at those
 # inputs (near-uniform softmax, rel tables of std 0.02, qkv bias <= 0.03), so
@@ -155,8 +181,23 @@ K12_FP32_QK_TOL = 3.2e-2
 # std of 2, a qkv bias of mean 0.5, tables of std 0.3; its planted faults: Rw
 # dropped, Rh and Rw swapped, the tables scaled twice, one head left out of the
 # sum, b_v dropped, the projection taken from the next head.
+# K7-pv's and K7-int8pv's stressed inputs: qkv ~ 2 N(0, 1) with query rows
+# scaled by 0.05-1.5 (flat and peaked softmax rows side by side) and v channels
+# of scale 0.02-2 around a mean of one scale (a flat row's output is the
+# channel's mean, which the fixed probability scale flushes part of).  v is
+# quantized per channel, so their errors are taken per output channel, relative
+# to that channel's max |plain| (the largest over the channels); a flipped
+# probability step moves a channel by at most 1/127 of its max.  Planted faults:
+# a per-row probability scale in place of 127, one v scale per (image, head),
+# the unnormalised probabilities quantized (the flash loop's), v's channel
+# scale dropped at dequantize.  Readings on the H100 at the global shape: the
+# kernels 1.35 % and 1.31 % per channel; the faults miss by 0.30, 0.48, 0.30
+# and ~1300.
 STRESS_TOL = {"K1": 1e-2, "K2": 1e-2, "K3": 1e-2, "K4": 1e-2, "K5": 2e-2, "K6": 2e-2,
-              "K7": 2e-2, "K7-int8": 3e-2, "K9": 2e-2, "K10": 2e-2, "K11": 2e-2, "K12": 2e-2}
+              "K7": 2e-2, "K7-int8": 3e-2, "K9": 2e-2, "K10": 2e-2, "K11": 2e-2, "K12": 2e-2,
+              "K7-pv": 3e-2, "K7-int8pv": 3e-2}
+PV_KERNELS = ("K7-pv", "K7-int8pv")
+PV_STEPS = 2
 FAULT_MARGIN = 4.0
 # the whole 32-layer encoder, kernel path vs plain path, both bf16: the
 # per-layer differences above compound through 32 residual blocks; the
@@ -218,6 +259,20 @@ GOLDEN_INT8_TOL = 0.01
 DECODE_RTOL = 1e-3
 # estimated Dice, card vs CPU and batch vs image by image
 DICE_TOL = 1e-4
+# the enhance path with the bf16 decoder (bench.py's setting): the batched
+# refinement against the per-image loop shares every bf16 rounding but the
+# GEMMs' tiling, so nearly every mask pixel must agree; against the fp32
+# decoder the bf16 rounding moves pixels where the logit is small.  Readings on
+# the H100: 0.999813 and 0.998617 of the refined pixels agree; each gate lets
+# twice the disagreement read
+BF16_BATCH_AGREE = 0.9996
+BF16_VS_FP32_AGREE = 0.997
+# the bench in-process at a reduced size: its JSON line must parse, with a
+# finite value, flops_convention.ok and K13 launched (its full size runs on
+# its own: ``python -m samcarriestheburden_torch.bench``)
+BENCH_ARGS = ["--batch", "2", "--iters", "1", "--enhance_batch", "4"]
+# K13's declared cost (bench.py:104) and the probe's shape there
+K13_DECLARED, K13_SHAPE = 1234567, (128, 128)
 
 # the enhance path (bench.py:223, 340-411): 16 images per enhance_batch, the
 # U-Net grid, and the sizes bench.py gives its seeded embeddings
@@ -258,6 +313,11 @@ KERNELS = {  # name: (path, source, replaced TPU kernel)
             "samcarriestheburden_tpu/kernels/attention.py:357"),
     "K12": ("embed-v2", "samcarriestheburden_torch/csrc/block_attention.cu",
             "samcarriestheburden_tpu/kernels/attention.py:1001"),
+    "K7-pv": ("int8pv-tool", "samcarriestheburden_torch/csrc/attention.cu",
+              "samcarriestheburden_tpu/kernels/attention.py:615"),
+    "K7-int8pv": ("int8pv-tool", "samcarriestheburden_torch/csrc/attention.cu",
+                  "samcarriestheburden_tpu/kernels/attention.py:615"),
+    "K13": ("bench", "samcarriestheburden_torch/csrc/cost_probe.cu", "bench.py:104"),
 }
 
 
@@ -360,6 +420,10 @@ def kernel_work(name: str, args, kw) -> tuple:
         return 2 * qk * nreal / nkeys + rel + pad, 0.0, nbytes + 4 * args[2].numel()
     if name == "K7-int8":
         return qk + rel, qk, nbytes
+    if name == "K7-pv":         # q.k in bf16, p.v in int8; its second q.k pass is overhead
+        return qk + rel, qk, nbytes
+    if name == "K7-int8pv":     # both products in int8
+        return rel, 2 * qk, nbytes
     return 2 * qk + rel, 0.0, nbytes
 
 
@@ -497,6 +561,60 @@ def k7_int8_variant(torch, qkv, tables, *, kh, kw, heads, hd, fault):
         p = torch.softmax(logits, dim=-1).to(dt).float()
         out[:, :, h] = (p @ v).to(dt)
     return out.reshape(s, n, heads * hd)
+
+
+def k7_pv_variant(torch, qkv, tables, *, kh, kw, heads, hd, int8_qk, fault):
+    """Planted faults of K7-pv and K7-int8pv: their plain arithmetic with one
+    step wrong.  ``row_p``: the probabilities quantized by their row's max in
+    place of the fixed 127; ``tensor_v``: one v scale per (image, head) in
+    place of one per channel; ``unnormalised``: exp(l - max) quantized and the
+    sum divided out after the product (the flash loop's order); ``no_sv``: v's
+    channel scale dropped at dequantize."""
+    from samcarriestheburden_torch.kernels import attention as attn_k
+
+    s, n, _ = qkv.shape
+    dt, dev = qkv.dtype, qkv.device
+    scale = hd ** -0.5
+    x = qkv.reshape(s, n, heads, 3 * hd).float()
+    tab = tables.float()
+    tok = torch.arange(n, device=dev)
+    idx_h = ((tok // kw)[:, None] - (tok // kw)[None] + kh - 1).expand(s, n, n)
+    idx_w = ((tok % kw)[:, None] - (tok % kw)[None] + kw - 1 + 2 * kh - 1).expand(s, n, n)
+    out = torch.empty((s, n, heads, hd), dtype=dt, device=dev)
+    for h in range(heads):
+        q, k, v = x[:, :, h, :hd], x[:, :, h, hd:2 * hd], x[:, :, h, 2 * hd:]
+        g = (q @ tab.T * (1.0 / scale)).to(dt).float()
+        qk = attn_k.int8_qk_plain(q, k) if int8_qk else q @ k.transpose(1, 2)
+        logits = (qk + g.gather(2, idx_h) + g.gather(2, idx_w)) * scale
+        e = torch.exp(logits - logits.amax(-1, keepdim=True))
+        p = e / e.sum(-1, keepdim=True)
+        sv = (v.abs().amax(dim=(1, 2), keepdim=True) if fault == "tensor_v"
+              else v.abs().amax(dim=1, keepdim=True)) / 127.0 + 1e-12
+        vi = torch.round(v / sv)
+        if fault == "row_p":
+            rs = p.amax(-1, keepdim=True)
+            o = (torch.round(p / rs * 127.0) @ vi) * (sv / 127.0) * rs
+        elif fault == "unnormalised":
+            o = (torch.round(e * 127.0) @ vi) * (sv / 127.0) / e.sum(-1, keepdim=True)
+        elif fault == "no_sv":
+            o = (torch.round(p * 127.0) @ vi) / 127.0
+        else:
+            o = (torch.round(p * 127.0) @ vi) * (sv / 127.0)
+        out[:, :, h] = o.to(dt)
+    return out.reshape(s, n, heads * hd)
+
+
+def pv_tol(name, qkv, scale, heads, hd) -> float:
+    """K7-pv's and K7-int8pv's tolerance on these inputs (KERNEL_TOL's note)."""
+    s, n, _ = qkv.shape
+    v_max = qkv.view(s, n, heads, 3, hd)[:, :, :, 2].float().abs().max().item()
+    return max(KERNEL_TOL[name] * scale, PV_STEPS * v_max / 127.0)
+
+
+def channel_err(a, b) -> float:
+    """max over output channels of max |a - b| / max |b| in that channel."""
+    a, b = a.float().reshape(-1, a.shape[-1]), b.float().reshape(-1, b.shape[-1])
+    return ((a - b).abs().amax(0) / b.abs().amax(0).clamp(min=1e-30)).max().item()
 
 
 def materialised_windows(torch, qkv, qkv_bias, ws, rh, rw):
@@ -690,7 +808,15 @@ def stressed(torch, name, args, kw, gen):
         return a, kw, faults
     qkv, tables = args[:2]
     kh = kw["ws"] if name in ("K5", "K6") else kw["kh"]
-    if name == "K7-int8":
+    if name in PV_KERNELS:
+        s, n, _ = qkv.shape
+        heads, hd = kw["heads"], kw["hd"]
+        x = randn(s, n, heads, 3, hd, std=2.0)
+        x[:, :, :, 0] *= 0.05 + 1.45 * torch.rand((s, n, heads, 1), generator=gen, device=dev)
+        chan = 0.02 + 1.98 * torch.rand((1, 1, heads, hd), generator=gen, device=dev)
+        x[:, :, :, 2] = (x[:, :, :, 2] / 2.0 + 1.0) * chan
+        a = (x.reshape(qkv.shape).to(bf), randn(*tables.shape, std=0.3, dtype=bf))
+    elif name == "K7-int8":
         # key channels and query rows of very different scale on top of the
         # peaked softmax, and a few query rows with an outlier channel, so the
         # folded key scales and the per-row query scales both carry the result
@@ -720,6 +846,15 @@ def stressed(torch, name, args, kw, gen):
             if fault == "query_ws" and kw["rw"] == kw["ws"]:
                 continue    # a full-width rectangle: ws is its width (the 14x8 shape sees it)
             faults[what] = lambda fault=fault: k6_variant(torch, attn_k, *a, **kw, fault=fault)
+    if name in PV_KERNELS:
+        int8_qk = name == "K7-int8pv"
+        for what, fault in (("a per-row p scale in place of 127", "row_p"),
+                            ("one v scale per tensor", "tensor_v"),
+                            ("unnormalised probabilities quantized", "unnormalised"),
+                            ("v's channel scale dropped", "no_sv")):
+            faults[what] = lambda fault=fault: k7_pv_variant(
+                torch, *a, kh=kw["kh"], kw=kw["kw"], heads=kw["heads"], hd=kw["hd"],
+                int8_qk=int8_qk, fault=fault)
     if name == "K7-int8":
         for what, fault in (("key scales not folded into q", "unfolded"),
                             ("one q scale per tensor", "tensor_q"),
@@ -793,9 +928,16 @@ def phase_stress(torch, key, kern, plain, args, kw, gen) -> float:
     name = key.split()[0]
     a, k, faults = stressed(torch, name, args, kw, gen)
     out_p = plain(*a, **k)
-    err = max_err(kern(*a, **k), out_p)
-    tol = STRESS_TOL[name] * out_p.float().abs().max().item()
-    misses = {what: max_err(f() if callable(f) else plain(*f[0], **f[1]), out_p)
+    if name in PV_KERNELS:      # v is quantized per channel: errors per channel
+        def miss(out):
+            return channel_err(out, out_p)
+        tol = STRESS_TOL[name]
+    else:
+        def miss(out):
+            return max_err(out, out_p)
+        tol = STRESS_TOL[name] * out_p.float().abs().max().item()
+    err = miss(kern(*a, **k))
+    misses = {what: miss(f() if callable(f) else plain(*f[0], **f[1]))
               for what, f in faults.items()}
     log(f"{key} stressed: max abs err {err:.4g} (tol {tol:.4g}); planted faults miss by "
         + ", ".join(f"{what} {m:.4g}" for what, m in misses.items())
@@ -828,9 +970,10 @@ def phase_build(build) -> None:
                 log(f"  ptxas {name}: {line.strip()}")
 
 
-def phase_profile(torch, fn, what: str, top: int = 12) -> None:
+def phase_profile(torch, fn, what: str, top: int = 12):
     """Where one call's device time goes, by kernel (torch.profiler), and
-    the card's idle share over the call's wall time."""
+    the card's idle share over the call's wall time, which it returns (None
+    where no device time was recorded)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -845,11 +988,13 @@ def phase_profile(torch, fn, what: str, top: int = 12) -> None:
     busy_ms = sum(e.device_time_total for e in events) / 1e3
     if busy_ms == 0:
         log(f"{what} profile: no device time recorded; not measured")
-        return
+        return None
+    idle = max(0.0, 1 - busy_ms / wall_ms)
     log(f"{what} profile: device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
-        f"(idle share {max(0.0, 1 - busy_ms / wall_ms):.3f})")
+        f"(idle share {idle:.3f})")
     for e in sorted(events, key=lambda e: -e.device_time_total)[:top]:
         log(f"  {e.device_time_total / 1e3:8.3f} ms  {e.count:4d} x  {e.key[:90]}")
+    return idle
 
 
 def scaled_tables(packed, scale):
@@ -947,23 +1092,6 @@ def phase_golden(torch, np, cfg_t, ImageEncoderViT, KERNEL_OPS, KERNEL_OPS_INT8,
         f"{GOLDEN_INT8_TOL}); {off:.4g} off the fp32 reference")
     check(err8 <= GOLDEN_INT8_TOL, f"vit_t int8 kernels off their plain versions by {err8}")
     return err
-
-
-class MemoryEmbeddings:
-    """Embeddings held on the card, read the way ``EmbeddingReader`` reads
-    an h5 file (this machine need not have ``h5py``)."""
-
-    checkpoint = "random-weights"
-
-    def __init__(self, img_size: int, features: dict, sizes: dict):
-        self.img_encoder_img_size = img_size
-        self._features, self._sizes = features, sizes
-
-    def features(self, stem):
-        return self._features[stem]
-
-    def sizes(self, stem):
-        return self._sizes[stem]
 
 
 def enhance_probs(np, rng, n: int, classes: int, hw) -> "np.ndarray":
@@ -1105,6 +1233,7 @@ def enhance_modules():
 
     from samcarriestheburden_torch import kernels
     from samcarriestheburden_torch.config import N_CLASSES, UNET_INPUT_HW
+    from samcarriestheburden_torch.data.h5io import MemoryEmbeddings
     from samcarriestheburden_torch.engine import refinement
     from samcarriestheburden_torch.engine.decoder_head import SamMaskDecoderHead
     from samcarriestheburden_torch.engine.prompts import extract_prompt_arrays
@@ -1113,6 +1242,7 @@ def enhance_modules():
 
     return SimpleNamespace(
         kernels=kernels, N_CLASSES=N_CLASSES, UNET_INPUT_HW=UNET_INPUT_HW,
+        MemoryEmbeddings=MemoryEmbeddings,
         refinement=refinement, SegEnhance=refinement.SegEnhance,
         SamSegRefiner=refinement.SamSegRefiner, SamMaskDecoderHead=SamMaskDecoderHead,
         extract_prompt_arrays=extract_prompt_arrays, kccl=kccl,
@@ -1122,7 +1252,8 @@ def enhance_modules():
 def phase_enhance(torch, np, port, model, emb, embed_ips: float):
     """The enhance path at full width, counted; then its checks (card vs
     CPU, batch vs image by image, outputs), its throughput and profile.
-    Returns the launches of the counted run and K8's recorded input."""
+    Returns the launches of the counted run, K8's recorded input, the
+    images/s, and the inputs and outputs (for the bf16 decoder's phase)."""
     dev = emb.device
     n_classes = port.N_CLASSES
     h, w = port.UNET_INPUT_HW
@@ -1141,7 +1272,8 @@ def phase_enhance(torch, np, port, model, emb, embed_ips: float):
         return port.SegEnhance(port.SamSegRefiner(head, prompts2use=TWO_ROUNDS),
                                "highest_probability", "dilation", "square", 8)
 
-    head = port.SamMaskDecoderHead(None, "vit_h", MemoryEmbeddings(model.img_size, feats, sizes),
+    head = port.SamMaskDecoderHead(None, "vit_h",
+                                   port.MemoryEmbeddings(model.img_size, feats, sizes),
                                    device=dev, params=model, cfg=model.cfg)
     enh = make_enhance(head)
     probs = torch.from_numpy(enhance_probs(np, np.random.default_rng(4), ENHANCE_N,
@@ -1201,7 +1333,7 @@ def phase_enhance(torch, np, port, model, emb, embed_ips: float):
     cpu_sd = {k: v.cpu() for k, v in model.state_dict().items()
               if k.startswith(("prompt_encoder.", "mask_decoder."))}
     cpu_head = port.SamMaskDecoderHead(
-        None, "vit_h", MemoryEmbeddings(model.img_size, {stems[0]: emb[:1].cpu()},
+        None, "vit_h", port.MemoryEmbeddings(model.img_size, {stems[0]: emb[:1].cpu()},
                                         {stems[0]: sizes[stems[0]]}),
         device="cpu", params=cpu_sd, cfg=model.cfg)
     enh_c = make_enhance(cpu_head)
@@ -1219,7 +1351,7 @@ def phase_enhance(torch, np, port, model, emb, embed_ips: float):
     check(torch.equal(ccl_g.cpu(), ccl_c), "the CCL output differs between the card and the CPU")
     check(torch.equal(morph_g.cpu(), enh_c.last_preprocessed_seg),
           "the morphology differs between the card and the CPU")
-    logit_g, logit_c = logits(calls[0]).cpu(), logits(calls[1])
+    logit_g, logit_c = logits(calls[0])[0].cpu(), logits(calls[1])[0]
     scale = max(1.0, logit_c.abs().max().item())
     tol = DECODE_RTOL * scale
 
@@ -1238,7 +1370,7 @@ def phase_enhance(torch, np, port, model, emb, embed_ips: float):
     check(lerr <= tol, "enhance logits differ between the card and the CPU")
     compare("enhance card vs CPU, image 0", out_g, out_c, logit_c[:, 0].abs() > tol)
     for i, one in enumerate(per_image):
-        sure = logits(calls[2 + i])[:, 0].abs().cpu() > tol
+        sure = logits(calls[2 + i])[0, :, 0].abs().cpu() > tol
         compare(f"enhance_batch vs enhance, image {i}", (refined[i], est[i]), one, sure)
 
     # throughput and profile
@@ -1248,7 +1380,227 @@ def phase_enhance(torch, np, port, model, emb, embed_ips: float):
         f"fp32 decode)")
     log(f"embed + enhance: {1.0 / (1.0 / embed_ips + 1.0 / enhance_ips):.3f} images/s")
     phase_profile(torch, lambda: enh.enhance_batch(probs, stems), "enhance")
-    return launches, recorded[0], enhance_ips
+    return launches, recorded[0], enhance_ips, (feats, sizes, probs, stems, refined, est)
+
+
+def grid_logits(port, fn):
+    """``fn()`` with every ``postprocess_to_grid`` call of the refinement
+    recorded; returns (its result, [the grid logits of each call])."""
+    calls = []
+    post = port.refinement.postprocess_to_grid
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return post(*args, **kw)
+
+    port.refinement.postprocess_to_grid = record
+    try:
+        out = fn()
+    finally:
+        port.refinement.postprocess_to_grid = post
+    return out, [post(*a, **dict(k, threshold_only=False)) for a, k in calls]
+
+
+def phase_enhance_bf16(torch, np, port, model, inputs):
+    """(a) The enhance path a second time with the bf16 decoder head over the
+    same 16 images, counted; for the fp32 and the bf16 head, the batched
+    refinement (``enhance_batch``: one decode per round over 16 x 17 prompt
+    sets) against the per-image loop it replaced (one CCL over the stack, then
+    ``refine`` image after image), both timed in turns and profiled; the bf16
+    enhance against the fp32 one.  Returns the bf16 path's launches and
+    images/s."""
+    feats, sizes, probs, stems, _, est32 = inputs
+    dev = probs.device
+    h, w = port.UNET_INPUT_HW
+    # the fp32 decode is compared in fp32: no TF32 in its convolutions or products
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    store = port.MemoryEmbeddings(model.img_size, feats, sizes)
+    out = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        head = port.SamMaskDecoderHead(None, "vit_h", store, device=dev, params=model,
+                                       cfg=model.cfg, compute_dtype=dtype)
+        refiner = port.SamSegRefiner(head, prompts2use=TWO_ROUNDS)
+        enh = port.SegEnhance(refiner, "highest_probability", "dilation", "square", 8)
+
+        def batched(enh=enh):
+            return enh.enhance_batch(probs, stems)
+
+        def looped(enh=enh, refiner=refiner):
+            segs = port.remove_all_but_one_connected_component(probs, "highest_probability",
+                                                               max(h, w))
+            enh.last_preprocessed_seg = enh._morph(segs)
+            one = [refiner.refine(segs[i], stems[i]) for i in range(len(stems))]
+            return torch.stack([r for r, _ in one]), torch.stack([d for _, d in one])
+
+        if name == "bf16":          # the path, counted
+            port.kernels.reset_launches()
+            t0 = time.perf_counter()
+            got = batched()
+            torch.cuda.synchronize()
+            launches = dict(port.kernels.LAUNCHES)
+            log(f"enhance path, bf16 decoder, launches: {launches} "
+                f"({(time.perf_counter() - t0) * 1e3:.1f} ms, first call)")
+            check(launches["K8"] == 1, "the bf16 enhance path must label its stack in one K8 call")
+        (ref, ref_est), logits = grid_logits(port, batched)
+        one, one_est = looped()
+        torch.cuda.synchronize()
+        check(tuple(ref.shape) == (ENHANCE_N, port.N_CLASSES, h, w) and ref.dtype == torch.bool
+              and tuple(ref_est.shape) == (ENHANCE_N, port.N_CLASSES),
+              f"{name} enhance_batch: refined {tuple(ref.shape)}, est {tuple(ref_est.shape)}")
+        check(len(logits) == 1, f"{name}: enhance_batch must land its batch in one postprocess")
+        differ = ref != one
+        margin = DECODE_RTOL * max(1.0, logits[0].abs().max().item())
+        low_margin = logits[0][:, :, 0].abs() <= margin
+        nan_same = torch.equal(torch.isnan(ref_est), torch.isnan(one_est))
+        derr = (ref_est - one_est).nan_to_num().abs().max().item()
+        agree = 1.0 - differ.float().mean().item()
+        log(f"enhance {name}, batched vs per-image loop: {int(differ.sum())} of {differ.numel()} "
+            f"refined pixels differ ({int((differ & ~low_margin).sum())} where |logit| > "
+            f"{margin:.4g}), agreement {agree:.6f}; est_dice max abs err {derr:.4g}, NaN in the "
+            f"same places: {nan_same}")
+        if name == "fp32":
+            check(not bool((differ & ~low_margin).any()) and nan_same and derr <= DICE_TOL,
+                  "fp32: the batched refinement differs from the per-image loop")
+        else:
+            check(agree >= BF16_BATCH_AGREE and nan_same,
+                  f"bf16: the batched refinement agrees with the per-image loop on {agree:.6f} of "
+                  f"the pixels (must be >= {BF16_BATCH_AGREE})")
+        times = {"per-image": [], "batched": []}
+        for which in ("per-image", "batched", "batched", "per-image"):
+            fn = looped if which == "per-image" else batched
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[which].append(time.perf_counter() - t0)
+        ips = {k: ENHANCE_N * len(v) / sum(v) for k, v in times.items()}
+        idle = {k: phase_profile(torch, looped if k == "per-image" else batched,
+                                 f"enhance {name} {k}", top=6) for k in times}
+        log(f"enhance {name}: per-image loop {ips['per-image']:.3f} images/s (idle share "
+            f"{idle['per-image']}), batched {ips['batched']:.3f} images/s (idle share "
+            f"{idle['batched']}); timed in turns per-image, batched, batched, per-image: "
+            + ", ".join(f"{k} {[round(t * 1e3, 1) for t in v]} ms" for k, v in times.items()))
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        batched()
+        torch.cuda.synchronize()
+        log(f"enhance {name}, one batch of {ENHANCE_N}: peak device memory "
+            f"{(torch.cuda.max_memory_allocated(dev) - base) / 1e9:.3f} GB above the "
+            f"{base / 1e9:.3f} GB held before")
+        out[name] = (ref, ref_est, ips["batched"])
+    (r16, e16, ips16), (r32, e32, _) = out["bf16"], out["fp32"]
+    agree = (r16 == r32).float().mean().item()
+    both = ~torch.isnan(e16) & ~torch.isnan(e32)
+    drift = (e16 - e32)[both].abs()
+    log(f"enhance bf16 vs fp32 decoder: {agree:.6f} of the refined pixels agree (must be >= "
+        f"{BF16_VS_FP32_AGREE}); est_dice drift max {drift.max().item():.4g}, mean "
+        f"{drift.mean().item():.4g}")
+    check(agree >= BF16_VS_FP32_AGREE, "the bf16 enhance strays from the fp32 one")
+    check(torch.equal(torch.isnan(e16), torch.isnan(est32)), "bf16: est_dice NaN elsewhere")
+    return launches, ips16
+
+
+def phase_bench(torch, kernels):
+    """(b) The port's bench in-process at a reduced size, counted: its one
+    JSON line parses, with a finite value, flops_convention.ok and K13
+    launched.  Returns the run's launches and its parsed line."""
+    import contextlib
+    import io
+    import math
+
+    from samcarriestheburden_torch import bench
+
+    buf = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        bench.main(BENCH_ARGS)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    lines = buf.getvalue().strip().splitlines()
+    check(len(lines) == 1, f"the bench printed {len(lines)} lines, not one")
+    line = json.loads(lines[0])
+    log(f"bench {' '.join(BENCH_ARGS)} in {time.perf_counter() - t0:.1f} s, launches "
+        f"{launches}: {lines[0]}")
+    check(isinstance(line["value"], float) and math.isfinite(line["value"]),
+          "the bench's value is not finite")
+    check(line["detail"]["flops_convention"]["ok"] is True, "the bench's flops_convention failed")
+    check(line["metric"].endswith("_per_chip"), f"bench metric {line['metric']}")
+    for name in ("K2", "K4", "K5", "K6", "K7-int8", "K8", "K13"):
+        check(launches[name] >= 1, f"{name} was not launched on the bench's path")
+    return launches, line
+
+
+def phase_int8pv_tool(torch, kernels, attn_k):
+    """(c) The int8 p.v A/B tool at its two shapes, counted: every mode's
+    kernel must have launched; then K7-pv and K7-int8pv against their plain
+    versions on the tool's own inputs at both shapes (a softmax that the fixed
+    probability scale does not flush wholly, unlike the random encoder's
+    global block).  Returns the run's launches."""
+    from samcarriestheburden_torch.tools import bench_int8pv
+
+    kernels.reset_launches()
+    res = bench_int8pv.run(iters=20)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"int8pv tool launches: {launches}; numbers: {json.dumps(res)}")
+    for name in ("K7", "K7-int8") + PV_KERNELS:
+        check(launches[name] >= 1, f"{name} was not launched by the int8pv tool")
+    for label, heads, hd, side, b in bench_int8pv.SHAPES:
+        qkv, tables = bench_int8pv.inputs(heads, hd, side, b, torch.device("cuda"))
+        for name, qk in zip(PV_KERNELS, (False, True)):
+            kw = dict(kh=side, kw=side, heads=heads, hd=hd, int8_qk=qk, int8_pv=True)
+            out = attn_k.rel_attention_global(qkv, tables, **kw)
+            ref = attn_k.rel_attention_global_plain(qkv, tables, **kw)
+            torch.cuda.synchronize()
+            scale = ref.float().abs().max().item()
+            err = max_err(out, ref)
+            tol = pv_tol(name, qkv, scale, heads, hd)
+            log(f"{name} on the tool's {label} inputs {tuple(qkv.shape)}: max abs err {err:.4g} "
+                f"vs max |plain| {scale:.4g} (tol {tol:.4g}: {KERNEL_TOL[name]} x max |plain| or "
+                f"{PV_STEPS} steps of v); per channel {channel_err(out, ref):.4g}")
+            check(scale > 0 and err <= tol,
+                  f"{name} disagrees with its plain version on the tool's {label} inputs")
+    return launches
+
+
+
+def phase_k13(torch, dev, launches: int) -> dict:
+    """(d) K13 against ``x * 2.0`` (bit for bit, at the bench's shape, on a
+    ragged size and on special values) and ``FlopCounterMode`` counting the
+    declared cost for the launch; its row of the kernels line."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from samcarriestheburden_torch import kernels
+    from samcarriestheburden_torch.kernels import cost_probe as k13
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = (torch.randn(K13_SHAPE, generator=gen, device=dev) * 100).bfloat16()
+    before = kernels.LAUNCHES["K13"]
+    with FlopCounterMode(display=False) as fc:
+        out = k13.cost_probe(x, K13_DECLARED)
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES["K13"] == before + 1, "the counted K13 call did not launch K13")
+    check(fc.get_total_flops() == K13_DECLARED,
+          f"FlopCounterMode counted {fc.get_total_flops()}, not the declared {K13_DECLARED}")
+    ragged = torch.randn((1001, 7), generator=gen, device=dev).bfloat16()
+    ragged[0, :3] = torch.tensor([float("inf"), float("nan"), 3.0e38], device=dev)
+    same = [torch.equal(k13.cost_probe(t, 0).view(torch.int16), (t * 2.0).view(torch.int16))
+            for t in (x, ragged)]
+    log(f"K13 on {K13_SHAPE} and on a ragged (1001, 7) with inf, NaN and overflow: bit-identical "
+        f"to x * 2.0: {same}; FlopCounterMode counted {fc.get_total_flops()} for the launch "
+        f"(declared {K13_DECLARED})")
+    check(all(same), "K13 differs from x * 2.0")
+    ms = card_ms(torch, lambda: k13.cost_probe(x, K13_DECLARED))
+    plain_ms = card_ms(torch, lambda: k13.cost_probe_plain(x))
+    library_ms = card_ms(torch, lambda: x * 2.0)
+    bound_ms, bound_by = bound(float(x.numel()), 4.0 * x.numel())
+    log(f"K13 on {K13_SHAPE}: {ms:.4f} ms (plain {plain_ms:.4f}, library x * 2.0 {library_ms:.4f}, "
+        f"bound {bound_ms:.6f} by {bound_by}): a launch, not the bound, sets its time")
+    return {"name": "K13", "path": "bench", "shape": list(K13_SHAPE), "route": "cuda",
+            "source": KERNELS["K13"][1], "replaces": KERNELS["K13"][2], "launches": launches,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def phase_embed_int8(torch, kernels, cfg, model, make_serving_encoder, two_round_decode,
@@ -1593,7 +1945,7 @@ def phase_kernel(torch, attn_k, key: str, kern, plain, args, kw, gen) -> dict:
     into_view = "out" in kw
     kw = {k: v for k, v in kw.items() if k != "out"}
     library_ms = None
-    if name in ("K5", "K6", "K7", "K7-int8"):
+    if name in ("K5", "K6", "K7", "K7-int8") + PV_KERNELS:
         kh, kwid = (kw["ws"], kw["ws"]) if name in ("K5", "K6") else (kw["kh"], kw["kw"])
         sdpa_qkv = args[0]
         if name == "K6":    # the library sees the padded windows, materialised; so does K5
@@ -1622,7 +1974,10 @@ def phase_kernel(torch, attn_k, key: str, kern, plain, args, kw, gen) -> dict:
         f"(tol {KERNEL_TOL[name]} x max |plain|), {ms:.4f} ms (plain {plain_ms:.4f}, library "
         f"{library_ms}, bound {bound_ms:.4f} by {bound_by}); "
         f"{(flops + int8_ops) / (ms * 1e-3) / 1e12:.1f} Tops/s")
-    check(err <= KERNEL_TOL[name] * max(ref, 1e-6), f"{key} disagrees with its plain version")
+    tol = KERNEL_TOL[name] * max(ref, 1e-6)
+    if name in PV_KERNELS:
+        tol = max(tol, pv_tol(name, args[0], ref, kw["heads"], kw["hd"]))
+    check(err <= tol, f"{key} disagrees with its plain version")
     if name == "K4":    # its other GELU, which the main path does not run
         err_erf = max_err(kern(*args, **kw, gelu="erf"), plain(*args, **kw, gelu="erf"))
         log(f"{key} with gelu='erf': max abs err {err_erf:.4g}")
@@ -1786,7 +2141,14 @@ def main() -> int:
 
     # 5. the enhance path, counted, and its checks ----------------------------
     bf16_ips = B / (t_enc_ms / 1e3)
-    launches_enh, k8_input, enhance_ips = phase_enhance(torch, np, port, model, emb, bf16_ips)
+    launches_enh, k8_input, enhance_ips, enh_inputs = phase_enhance(torch, np, port, model, emb,
+                                                                    bf16_ips)
+
+    # 5a. the enhance path with the bf16 decoder, counted; batched vs per-image
+    launches_enh16, enhance16_ips = phase_enhance_bf16(torch, np, port, model, enh_inputs)
+    log(f"embed + enhance (bf16 decoder): {1.0 / (1.0 / bf16_ips + 1.0 / enhance16_ips):.3f} "
+        f"images/s")
+    del enh_inputs
 
     # 5b. the int8 embed path, counted, and the whole int8 encoder vs its plain path
     launches_int8, encode8, packed8, emb8, int8_ips = phase_embed_int8(
@@ -1948,11 +2310,26 @@ def main() -> int:
     k12_row["replaced_formulation_ms"] = card_ms(torch, replaced)
     log(f"K12 {k12_row['ms']:.4f} ms; K1 + K5 + projection on the same windows: "
         f"{k12_row['replaced_formulation_ms']:.4f} ms")
+    recorded_k7 = recorded["K7"]
     del recorded, recorded_v
     k8 = phase_k8(torch, np, port.kccl, k8_input, np.random.default_rng(5))
     rows.append({"name": "K8", "path": "enhance", "shape": list(k8_input[0].shape),
                  "route": "cuda", "source": KERNELS["K8"][1],
                  "replaces": KERNELS["K8"][2], "launches": launches_enh["K8"], **k8})
+
+    # 6b. the bench's path at a reduced size, counted (K13 launches there); the
+    # int8 p.v A/B tool, counted; K7-pv and K7-int8pv against their plain
+    # versions on global block 7's qkv and stressed; K13 against x * 2.0
+    launches_bench, _ = phase_bench(torch, kernels)
+    launches_tool = phase_int8pv_tool(torch, kernels, attn_k)
+    (qkv7, tables7), kw7 = recorded_k7
+    for name, flags in (("K7-pv", dict(int8_pv=True)),
+                        ("K7-int8pv", dict(int8_qk=True, int8_pv=True))):
+        pairs[name] = (partial(attn_k.rel_attention_global, **flags),
+                       partial(attn_k.rel_attention_global_plain, **flags))
+        rows.append(row_of(name, "int8pv-tool", launches_tool[name], (qkv7, tables7), kw7))
+    del recorded_k7, qkv7
+    rows.append(phase_k13(torch, dev, launches_bench["K13"]))
 
     # 7. the tiny config through the kernels vs the reference golden --------
     phase_golden(torch, np, sam_vit_t_config(), ImageEncoderViT, KERNEL_OPS, KERNEL_OPS_INT8,

@@ -91,3 +91,26 @@ class EmbeddingReader:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class MemoryEmbeddings:
+    """Embeddings held in memory (on any device), read as
+    :class:`EmbeddingReader` reads an h5 file: ``features(stem)`` (1, C, G, G)
+    and ``sizes(stem)`` (original, input).  For runs that make their
+    embeddings themselves (the bench, ``chip_smoke.py``) and machines without
+    ``h5py``."""
+
+    def __init__(self, img_encoder_img_size: int, features: dict, sizes: dict,
+                 checkpoint: str = "random-weights"):
+        self.img_encoder_img_size = img_encoder_img_size
+        self.checkpoint = checkpoint
+        self._features, self._sizes = features, sizes
+
+    def stems(self) -> List[str]:
+        return list(self._features)
+
+    def features(self, stem: str):
+        return self._features[stem]
+
+    def sizes(self, stem: str):
+        return self._sizes[stem]

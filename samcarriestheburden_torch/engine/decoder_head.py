@@ -1,8 +1,9 @@
 """Decoder-only SAM over precomputed image embeddings (JAX
 ``engine/decoder_head.py``, reference segment_anything/sam_mask_decoder_head.py).
 
-The prompt encoder and mask decoder, in float32, read an embeddings store
-(an h5 path or any reader with ``EmbeddingReader``'s interface):
+The prompt encoder (float32) and the mask decoder (float32, or bf16 with
+``compute_dtype=torch.bfloat16``) read an embeddings store (an h5 path or
+any reader with ``EmbeddingReader``'s interface):
 
 * :meth:`SamMaskDecoderHead.predict_mask` — the reference API, one prompt at
   a time, masks at the original resolution;
@@ -43,14 +44,17 @@ def _sub_state_dict(sd: Mapping[str, torch.Tensor], prefix: str):
 class SamMaskDecoderHead:
     def __init__(self, sam_checkpoint, model_type: str, img_embedding_h5, device=None, *,
                  params: Union[SamModel, Mapping[str, torch.Tensor], None] = None,
-                 cfg: Optional[SamConfig] = None):
+                 cfg: Optional[SamConfig] = None, compute_dtype: Optional[torch.dtype] = None):
         """``sam_checkpoint``: full SAM weights, a reference ``.pth`` or a
         JAX-package ``.npz`` (its image encoder is not kept); its file name
         must be the one the embeddings store records.  ``params`` in its
         place: a :class:`SamModel` or a SAM state dict.  ``img_embedding_h5``:
         a path, or an open reader with ``features``, ``sizes``,
         ``checkpoint`` and ``img_encoder_img_size``.  ``device=None`` is the
-        card."""
+        card.  ``compute_dtype``: the mask decoder's compute type, ``None``
+        for float32 (JAX ``compute_dtype``); ``torch.bfloat16`` is the serving
+        setting ``bench.py`` measures.  The prompt encoder stays in float32 and
+        the logits and IoU come back in float32 either way."""
         self.device = resolve_device(device)
         self.cfg: SamConfig = cfg if cfg is not None else CONFIGS[model_type]()
         self.reader = (img_embedding_h5 if hasattr(img_embedding_h5, "features")
@@ -76,6 +80,7 @@ class SamMaskDecoderHead:
         self.prompt_encoder.to(self.device).eval()
         self.mask_decoder.to(self.device).eval()
         self.mask_threshold = self.cfg.mask_threshold
+        self.compute_dtype = torch.float32 if compute_dtype is None else compute_dtype
         self._features_cache = (None, None)
 
     # ------------------------------------------------------------------
@@ -84,13 +89,14 @@ class SamMaskDecoderHead:
 
     @torch.no_grad()
     def _decode(self, features, coords, labels, mask_input, use_mask, image_shared=False):
-        """features (1, C, G, G); coords (B, N, 2) input-frame xy; labels
+        """features (n_img, C, G, G); coords (B, N, 2) input-frame xy; labels
         (B, N) in {-1, 0, 1, 2, 3}; mask_input (B, 1, 4G, 4G); use_mask (B,)
-        bool.  Returns (low_res (B, 1, 4G, 4G), iou (B, 1)).
+        bool; the B items image-major, B // n_img per image.  Returns (low_res
+        (B, 1, 4G, 4G), iou (B, 1)) in float32.
 
         ``image_shared``: the caller promises no item uses a mask input (round
         1 of the refinement), so every item sees the no-mask dense embedding
-        and the decoder projects the shared image side once."""
+        and the decoder projects each image's side once."""
         pe = self.prompt_encoder
         sparse = pe.embed_unified_points(coords, labels)
         if image_shared:
@@ -98,11 +104,13 @@ class SamMaskDecoderHead:
         else:
             dense = pe.embed_masks_or_default(mask_input, use_mask)
         return self.mask_decoder(features, pe.get_dense_pe(), sparse, dense,
-                                 multimask_output=False, image_shared=image_shared)
+                                 multimask_output=False, image_shared=image_shared,
+                                 dtype=self.compute_dtype)
 
     def decode_batched(self, features, coords, labels, mask_input=None, use_mask=None):
-        """Decode B prompt sets of one image with fixed shapes; without
-        ``mask_input`` no item uses a mask."""
+        """Decode B prompt sets of n_img images (features (n_img, C, G, G),
+        image-major items) with fixed shapes; without ``mask_input`` no item
+        uses a mask."""
         dev = self.device
         coords = torch.as_tensor(coords, dtype=torch.float32, device=dev)
         labels = torch.as_tensor(labels, device=dev)

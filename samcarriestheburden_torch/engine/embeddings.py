@@ -18,6 +18,11 @@ keywords, handed on to ``ImageEncoderViT.forward``: ``fused_qkv=False`` with
 the JAX package the fused flags are on where there is an accelerator, so
 ``attention_impl`` alone changes nothing on the serving default: the flat and
 compact paths never call it.
+
+``unroll_blocks`` (JAX: inline the windowed layers instead of ``lax.scan``)
+is accepted and unused by every entry point: eager PyTorch runs the layers
+one after the other either way, and the JAX package's outputs are the same
+both ways.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ def make_encode_batch(model: SamModel, dtype=torch.bfloat16, *,
                       ops: Optional[EncoderOps] = None,
                       fused_qkv: bool = True, fused_mlp: bool = True,
                       fused_window_blocks: bool = False,
-                      persistent_windows: bool = True) -> Callable:
+                      persistent_windows: bool = True,
+                      unroll_blocks: Optional[bool] = None) -> Callable:
     """``encode(packed, imgs, input_sizes)``: (B, 3, S, S) uint8 + (B, 2)
     int sizes -> (B, 256, G, G) fp32 embeddings, on the model's device.
     ``packed`` is ``model.image_encoder.pack(dtype, quantize)``;
@@ -85,7 +91,8 @@ def make_encode_batch(model: SamModel, dtype=torch.bfloat16, *,
 
 def make_encode_batch_medsam(model: SamModel, dtype=torch.bfloat16, *,
                              quantize: Optional[str] = None,
-                             compact_windows: Optional[bool] = None) -> Callable:
+                             compact_windows: Optional[bool] = None,
+                             unroll_blocks: Optional[bool] = None) -> Callable:
     """The MedSAM variant of :func:`make_encode_batch` (JAX
     ``make_encode_batch_medsam``): the (B, 3, S, S) images arrive resized to
     the square encoder size and each is normalised to [0, 1] by its own
@@ -111,6 +118,7 @@ def make_serving_encoder(model: SamModel, dtype=torch.bfloat16,
                          quantize: Optional[str] = None, *, medsam: bool = False,
                          compact_windows: Optional[bool] = None,
                          attention_impl: Optional[Callable] = None,
+                         unroll_blocks: Optional[bool] = None,
                          **variant) -> Tuple[Callable, Packed]:
     """(encode_fn, ready-to-serve weights) for the batched encoder: the
     weights are packed once into the kernels' layout and types, outside the

@@ -7,7 +7,9 @@ nearest-exact to the U-Net grid (sam.py:133-162, seg_refinement.py:111).
 :func:`postprocess_to_grid` evaluates that chain (nearest-exact o bilinear o
 crop o bilinear) for each pixel of the output grid directly: the chain is
 separable, so it is one (out, 256) resampling matrix per axis and one
-product, and the per-image sizes are tensors, never shapes.
+product, and the per-image sizes are tensors, never shapes.  A batch of N
+images takes (N, 2) sizes: one pair of matrices per image, one batched
+product (what the JAX package gets by vmapping it).
 """
 
 from __future__ import annotations
@@ -46,26 +48,26 @@ def _low_res_taps(idx: torch.Tensor, s: float, lr: int):
 
 
 def _axis_matrix(t0, t1, f_outer, s: float, lr: int) -> torch.Tensor:
-    """(n_out, lr) outer-bilinear o inner-bilinear resampling matrix."""
-    lanes = torch.arange(lr, device=t0.device)[None, :]
+    """(..., n_out, lr) outer-bilinear o inner-bilinear resampling matrix."""
+    lanes = torch.arange(lr, device=t0.device)
 
     def inner(ti):
         a, b, f = _low_res_taps(ti, s, lr)
-        return ((1 - f)[:, None] * (lanes == a[:, None])
-                + f[:, None] * (lanes == b[:, None]))
+        return ((1 - f)[..., None] * (lanes == a[..., None])
+                + f[..., None] * (lanes == b[..., None]))
 
-    return ((1 - f_outer)[:, None] * inner(t0) + f_outer[:, None] * inner(t1)).float()
+    return ((1 - f_outer)[..., None] * inner(t0) + f_outer[..., None] * inner(t1)).float()
 
 
 def _grid_matrices(input_size: torch.Tensor, original_size: torch.Tensor,
                    out_hw: Tuple[int, int], lr: int, img_enc_size: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The (out_h, lr) row and (out_w, lr) column resampling matrices of one
-    image, with its (2,) input and original sizes as (H, W) tensors."""
+    """The (..., out_h, lr) row and (..., out_w, lr) column resampling
+    matrices of one image per (..., 2) input and original size (H, W)."""
     out_h, out_w = out_hw
     dev = input_size.device
-    hi, wi = input_size[0].float(), input_size[1].float()
-    ho, wo = original_size[0].float(), original_size[1].float()
+    hi, wi = input_size[..., 0, None].float(), input_size[..., 1, None].float()
+    ho, wo = original_size[..., 0, None].float(), original_size[..., 1, None].float()
 
     # stage 3 (nearest-exact onto the output grid): original-frame indices
     oy = torch.minimum(((torch.arange(out_h, device=dev) + 0.5) * ho / out_h).floor(), ho - 1)
@@ -76,7 +78,7 @@ def _grid_matrices(input_size: torch.Tensor, original_size: torch.Tensor,
     sy = _src_coord(oy, hi / ho)
     sx = _src_coord(ox, wi / wo)
     y0, x0 = sy.floor(), sx.floor()
-    hi_max, wi_max = input_size[0] - 1, input_size[1] - 1
+    hi_max, wi_max = input_size[..., 0, None] - 1, input_size[..., 1, None] - 1
     y0i = torch.minimum(y0.int(), hi_max).clamp(min=0)
     y1i = torch.minimum(y0i + 1, hi_max).clamp(min=0)
     x0i = torch.minimum(x0.int(), wi_max).clamp(min=0)
@@ -95,17 +97,21 @@ def postprocess_to_grid(low_res: torch.Tensor, input_size, original_size,
                         mask_threshold: float = 0.0) -> torch.Tensor:
     """The reference postprocess chain evaluated on a fixed (out_h, out_w) grid.
 
-    low_res: (..., lr, lr) logits; input_size, original_size: (2,) (H, W)
-    sizes of this image.  Returns (..., out_h, out_w) bool, or the float32
-    logits with ``threshold_only=False``.  The product runs in full float32:
-    the thresholded masks must not move with TF32 rounding."""
+    low_res: (..., lr, lr) logits of one image with (2,) (H, W) sizes, or
+    (N, ..., lr, lr) of N images with (N, 2) sizes, one row per image.
+    Returns (..., out_h, out_w) bool, or the float32 logits with
+    ``threshold_only=False``.  The product runs in full float32: the
+    thresholded masks must not move with TF32 rounding."""
     dev = low_res.device
     lr = low_res.shape[-1]
     input_size = torch.as_tensor(input_size, device=dev)
     original_size = torch.as_tensor(original_size, device=dev)
     ry, cx = _grid_matrices(input_size, original_size, tuple(out_hw), lr, img_enc_size)
+    if input_size.ndim == 2:        # one matrix pair per image, broadcast over its maps
+        lead = (low_res.shape[0],) + (1,) * (low_res.ndim - 3)
+        ry, cx = ry.reshape(*lead, *ry.shape[-2:]), cx.reshape(*lead, *cx.shape[-2:])
     with _full_fp32_matmul():
-        out = ry @ low_res.float() @ cx.T
+        out = ry @ low_res.float() @ cx.transpose(-1, -2)
     if threshold_only:
         return out > mask_threshold
     return out

@@ -33,42 +33,44 @@ class Prompt:
 
 
 def extract_prompt_arrays(pred_mask: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """All-class prompts of a (C, H, W) boolean mask:
+    """All-class prompts of a (..., C, H, W) boolean mask, one set per
+    (C, H, W) image of the leading dimensions:
 
-    pos_seeds (C, 2) float32 xy — rounded centroid over the area no other
-    class covers; pos_valid (C,) bool — the reference skips seedless classes
-    (:125); boxes (C, 4) float32 xyxy — tight box of the whole class mask;
-    box_valid (C,) bool.
+    pos_seeds (..., C, 2) float32 xy — rounded centroid over the area no
+    other class of the same image covers; pos_valid (..., C) bool — the
+    reference skips seedless classes (:125); boxes (..., C, 4) float32 xyxy —
+    tight box of the whole class mask; box_valid (..., C) bool.
 
     The coordinate sums are integers (exact in int64) and the division is
     float32, as the JAX package divides its float32 sums."""
     mask = pred_mask.bool()
-    c, h, w = mask.shape
+    h, w = mask.shape[-2:]
     dev = mask.device
-    seed_mask = mask & (mask.sum(dim=0) < 2)[None]          # reference :65-67
+    seed_mask = mask & (mask.sum(dim=-3, keepdim=True) < 2)     # reference :65-67
     ys = torch.arange(h, device=dev)
     xs = torch.arange(w, device=dev)
-    n = seed_mask.sum(dim=(1, 2)).float()
+    n = seed_mask.sum(dim=(-2, -1)).float()
     denom = n.clamp(min=1)
-    cy = (seed_mask * ys[None, :, None]).sum(dim=(1, 2)).float() / denom
-    cx = (seed_mask * xs[None, None, :]).sum(dim=(1, 2)).float() / denom
+    cy = (seed_mask * ys[:, None]).sum(dim=(-2, -1)).float() / denom
+    cx = (seed_mask * xs).sum(dim=(-2, -1)).float() / denom
     return {
         "pos_seeds": torch.stack([cx.round(), cy.round()], dim=-1),
         "pos_valid": n > 0,
         "boxes": batched_mask_to_box(mask).float(),
-        "box_valid": mask.any(dim=2).any(dim=1),
+        "box_valid": mask.any(dim=-1).any(dim=-1),
     }
 
 
 def neg_seed_table(pos_seeds: torch.Tensor, pos_valid: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Negative seeds of class i = every other class's positive seed in
-    ascending class order (reference :132-133), as a (C, C-1, 2) table and
-    (C, C-1) validity; a seedless class becomes a not-a-point pad."""
-    c = pos_seeds.shape[0]
+    """Negative seeds of class i = every other class's positive seed of the
+    same image, in ascending class order (reference :132-133), as a
+    (..., C, C-1, 2) table and (..., C, C-1) validity from (..., C, 2) seeds
+    and (..., C) validity; a seedless class becomes a not-a-point pad."""
+    c = pos_seeds.shape[-2]
     idx = torch.tensor([[j for j in range(c) if j != i] for i in range(c)],
                        dtype=torch.long, device=pos_seeds.device).reshape(c, c - 1)
-    return pos_seeds[idx], pos_valid[idx]
+    return pos_seeds[..., idx, :], pos_valid[..., idx]
 
 
 def compute_logits_from_mask(class_mask: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:

@@ -3,10 +3,12 @@ utils/seg_refinement.py).
 
 :class:`SegEnhance` keeps one connected component per class of a U-Net
 probability mask (K8, ``ops/ccl.py``), morphs it, and hands it to a refiner.
-:class:`SamSegRefiner` refines every class of an image with SAM in one or two
-rounds: round 1 decodes all classes at once from their boxes (or points),
-round 2 from points with round 1's logits as the mask prompt, and the logits
-land on the U-Net grid through :func:`postprocess_to_grid`.
+:class:`SamSegRefiner` refines every class of a batch of images with SAM in
+one or two rounds: round 1 decodes all N x C prompt sets at once from their
+boxes (or points), each image's side projected once, round 2 from points
+with round 1's logits as the mask prompt, and the logits land on the U-Net
+grid through one :func:`postprocess_to_grid` call (the JAX package's vmapped
+``refine_batch``, with the batch written out).
 
 Reference quirks kept: the morphology's result only fills
 ``last_preprocessed_seg`` and the refiner gets the CCL output
@@ -23,6 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from samcarriestheburden_torch.device import resolve_device
 from samcarriestheburden_torch.engine.decoder_head import SamMaskDecoderHead
 from samcarriestheburden_torch.engine.postprocess import postprocess_to_grid
 from samcarriestheburden_torch.engine.prompts import extract_prompt_arrays, neg_seed_table
@@ -45,10 +48,12 @@ class SegRefiner(ABC):
 class SegEnhance:
     def __init__(self, refiner: SegRefiner, ccl_selection: Optional[str], morph_op: str,
                  struct_element: str, radius: int, device=None):
-        """``device`` is kept for the reference's signature: the work runs
-        where the refiner's decoder head lives."""
+        """``device``: where the masks go; ``None`` takes the refiner's
+        ``device`` where it has one (:class:`SamSegRefiner`: its decoder
+        head's), else the card."""
         self.last_preprocessed_seg = None
         self.refiner = refiner
+        self.device = device
         self.ccl_selection = ccl_selection
         op = {"erosion": erosion, "dilation": dilation}[morph_op]
         kernel = get_struct_element(struct_element, radius)
@@ -57,8 +62,14 @@ class SegEnhance:
         else:
             self._morph = lambda m: op(m, kernel)
 
+    def _device(self) -> torch.device:
+        if self.device is not None:
+            return resolve_device(self.device)
+        dev = getattr(self.refiner, "device", None)
+        return dev if dev is not None else resolve_device(None)
+
     def _as_tensor(self, seg) -> torch.Tensor:
-        return torch.as_tensor(seg).to(self.refiner.device, torch.float32)
+        return torch.as_tensor(seg).to(self._device(), torch.float32)
 
     def enhance(self, seg, file_name: str = None):
         """(C, H, W) probabilities -> (refined (C, H, W) bool, est_dice (C,))."""
@@ -99,11 +110,13 @@ _CKPT_FOR_TYPE = {
 class SamSegRefiner(SegRefiner):
     def __init__(self, sam_type: Union[str, SamMaskDecoderHead], device=None,
                  prompts2use: Union[List[List[str]], List[str]] = ("box",),
-                 data_root: str = "data"):
+                 data_root: str = "data", max_points: Optional[int] = None):
         """``sam_type``: 'SAM' or 'MedSAM' (the reference's checkpoint and
         embeddings files under ``data_root``, seg_refinement.py:77-86), or a
         ready :class:`SamMaskDecoderHead`.  ``prompts2use``: one prompt list
-        (one round) or two (round 2 refines round 1 with its logits)."""
+        (one round) or two (round 2 refines round 1 with its logits).
+        ``max_points`` is accepted and unused, as in the JAX package: every
+        class takes the other classes' seeds as its negative points."""
         if isinstance(sam_type, SamMaskDecoderHead):
             self.sam_predictor = sam_type
         else:
@@ -132,34 +145,40 @@ class SamSegRefiner(SegRefiner):
     @staticmethod
     def _build_prompts(arrays: Dict[str, torch.Tensor], neg_table, neg_valid,
                        prompts: Sequence[str], seg_hw, input_size):
-        """(C, P, 2) coords and (C, P) int32 labels in the input frame.
-        Missing prompts are not-a-point pads (label -1, SAM's own padding,
-        prompt_encoder.py:81-85), so every image has the same shapes."""
-        c = arrays["pos_seeds"].shape[0]
+        """(N*C, P, 2) coords and (N*C, P) int32 labels in each image's input
+        frame, image-major, from (N, C, ...) prompt arrays and (N, 2) input
+        sizes.  Missing prompts are not-a-point pads (label -1, SAM's own
+        padding, prompt_encoder.py:81-85), so every image has the same shapes."""
+        n, c = arrays["pos_seeds"].shape[:2]
         dev = arrays["pos_seeds"].device
         factor = (input_size.float() / torch.tensor(seg_hw, dtype=torch.float32,
-                                                    device=dev)).flip(0)
+                                                    device=dev)).flip(-1)[:, None, None]
         coords, labels = [], []
         if "pos_points" in prompts:
-            coords.append(arrays["pos_seeds"][:, None, :] * factor)
-            labels.append(torch.where(arrays["pos_valid"][:, None], 1, -1))
+            coords.append(arrays["pos_seeds"][:, :, None] * factor)
+            labels.append(torch.where(arrays["pos_valid"][..., None], 1, -1))
         if "neg_points" in prompts:
             coords.append(neg_table * factor)
             labels.append(torch.where(neg_valid, 0, -1))
         if "box" in prompts:
-            coords.append(arrays["boxes"].reshape(c, 2, 2) * factor)
-            labels.append(torch.tensor([2, 3], device=dev).expand(c, 2))
+            coords.append(arrays["boxes"].reshape(n, c, 2, 2) * factor)
+            labels.append(torch.tensor([2, 3], device=dev).expand(n, c, 2))
         else:       # the reference pads points when there is no box
-            coords.append(torch.zeros((c, 1, 2), device=dev))
-            labels.append(torch.full((c, 1), -1, device=dev))
-        return torch.cat(coords, dim=1), torch.cat(labels, dim=1).int()
+            coords.append(torch.zeros((n, c, 1, 2), device=dev))
+            labels.append(torch.full((n, c, 1), -1, device=dev))
+        coords, labels = torch.cat(coords, dim=2), torch.cat(labels, dim=2).int()
+        return coords.reshape(n * c, -1, 2), labels.reshape(n * c, -1)
 
     @torch.no_grad()
     def _refine_batched(self, bool_mask: torch.Tensor, features: torch.Tensor,
                         input_size: torch.Tensor, original_size: torch.Tensor,
                         seg_hw: Tuple[int, int]):
-        """Every class of one image: (refined (C, H, W) bool, est_dice (C,))."""
+        """Every class of N images: (N, C, H, W) masks, (N, 256, G, G)
+        features, (N, 2) input and original sizes -> (refined (N, C, H, W)
+        bool, est_dice (N, C)).  One decode per round over all N*C prompt
+        sets, one grid postprocess."""
         head = self.sam_predictor
+        n, c = bool_mask.shape[:2]
         arrays = extract_prompt_arrays(bool_mask)
         neg_table, neg_valid = neg_seed_table(arrays["pos_seeds"], arrays["pos_valid"])
         valid = arrays["pos_valid"]             # the reference skips seedless classes (:125)
@@ -173,25 +192,34 @@ class SamSegRefiner(SegRefiner):
             use_mask = torch.ones((coords.shape[0],), dtype=torch.bool, device=coords.device)
             low_res, iou = head._decode(features, coords, labels, low_res, use_mask)
 
-        masks = postprocess_to_grid(low_res, input_size, original_size, seg_hw,
-                                    img_enc_size=head.img_enc_img_size,
+        masks = postprocess_to_grid(low_res.reshape(n, c, *low_res.shape[1:]), input_size,
+                                    original_size, seg_hw, img_enc_size=head.img_enc_img_size,
                                     mask_threshold=head.mask_threshold)
-        refined = torch.where(valid[:, None, None], masks[:, 0], bool_mask)
-        est_dice = torch.where(valid, jaccard_to_dice(iou[:, 0]), torch.nan)
+        refined = torch.where(valid[..., None, None], masks[:, :, 0], bool_mask)
+        est_dice = torch.where(valid, jaccard_to_dice(iou[:, 0]).reshape(n, c), torch.nan)
         return refined, est_dice
+
+    def _sizes(self, file_names: Sequence[str]):
+        """(N, 2) input and (N, 2) original sizes of the named images."""
+        sizes = [self.sam_predictor.sizes(f) for f in file_names]
+        return tuple(torch.as_tensor(np.stack([np.asarray(s[i]) for s in sizes]),
+                                     device=self.device) for i in (1, 0))
 
     def refine(self, seg, file_name: str):
         """(C, H, W) mask of one image -> (refined bool, est_dice (C,))."""
         seg = torch.as_tensor(seg).to(self.device)
-        original_size, input_size = self.sam_predictor.sizes(file_name)
-        return self._refine_batched(seg.bool(), self.sam_predictor.features(file_name),
-                                    torch.as_tensor(np.asarray(input_size), device=self.device),
-                                    torch.as_tensor(np.asarray(original_size), device=self.device),
-                                    tuple(seg.shape[-2:]))
+        refined, est = self._refine_batched(seg.bool()[None],
+                                            self.sam_predictor.features(file_name),
+                                            *self._sizes([file_name]), tuple(seg.shape[-2:]))
+        return refined[0], est[0]
 
     def refine_batch(self, segs, file_names: Sequence[str]):
-        """(N, C, H, W) masks -> (refined (N, C, H, W) bool, est_dice (N, C)),
-        one image after the other."""
+        """(N, C, H, W) masks -> (refined (N, C, H, W) bool, est_dice (N, C)):
+        the N feature maps and sizes read from the store, one batched
+        refinement (JAX ``refine_batch``)."""
         segs = torch.as_tensor(segs).to(self.device)
-        out = [self.refine(seg, name) for seg, name in zip(segs, file_names)]
-        return torch.stack([r for r, _ in out]), torch.stack([d for _, d in out])
+        reader = self.sam_predictor.reader
+        feats = torch.cat([torch.as_tensor(reader.features(f)).to(self.device, torch.float32)
+                           for f in file_names])
+        return self._refine_batched(segs.bool(), feats, *self._sizes(file_names),
+                                    tuple(segs.shape[-2:]))

@@ -1,4 +1,5 @@
-"""K5, K6, K7, K7-int8 and K9-K12: attention with SAM's decomposed relative-position bias.
+"""K5, K6, K7 (with K7-int8, K7-pv, K7-int8pv) and K9-K12: attention with SAM's
+decomposed relative-position bias.
 
 K5 ``rel_attention_window`` runs one window per sequence (JAX
 ``kernels/attention.py:fused_rel_attention_window3d``); K6
@@ -32,6 +33,15 @@ rel terms (from the unquantized q) are added in floating point:
 
 (rounding half to even; the accumulant stays below 2^24, so the plain
 version's fp32 product of the integer values is exact).
+
+``int8_pv=True`` (K7-pv, and K7-int8pv with ``int8_qk``; JAX
+``fused_rel_attention_global3d(int8_pv=True)``, an opt-in A/B mode that no
+encoder path sets) takes the softmax normalised first and runs p . v in int8:
+
+    sv[c] = max_j |v[j, c]| / 127 + 1e-12;  vi = round(v / sv)
+    pi = round(127 * softmax_j(logit));  out_i = (pi_i . vi) * (sv / 127)
+
+with one fixed probability scale, so probabilities below 1/254 round to zero.
 
 K6 is K5 on a ws x ws window of which only the top-left rh x rw cells are
 carried, np = rh*rw rounded up to 8 slots, laid out rw wide: slot t sits at
@@ -111,6 +121,8 @@ def _lib():
         lib.k7_rel_attention_global.restype = _I
         lib.k7_rel_attention_global_int8.argtypes = [_VP] * 5 + [_I] * 6 + [_F, _F, _VP]
         lib.k7_rel_attention_global_int8.restype = _I
+        lib.k7_rel_attention_global_pv.argtypes = [_VP] * 7 + [_I] * 7 + [_F, _F, _VP]
+        lib.k7_rel_attention_global_pv.restype = _I
         lib.k9_rel_attention_pre.argtypes = [_VP] * 6 + [_I] * 5 + [_F, _F, _VP]
         lib.k9_rel_attention_pre.restype = _I
         for fn in (lib.k10_rel_attention_headmajor, lib.k11_rel_attention_headmajor_global):
@@ -174,10 +186,21 @@ def int8_qk_plain(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return (qi @ ki.transpose(1, 2)) * sq
 
 
+def int8_pv_plain(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """K7-pv's stand-in for ``p @ v``: normalised fp32 probabilities p (S, n,
+    m) at the fixed int8 scale 127, v (S, m, hd) per channel, the product of
+    the integers exact in fp32, dequantized by ``sv / 127``."""
+    sv = v.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-12
+    vi = torch.round(v / sv)
+    pi = torch.round(p * 127.0)
+    return (pi @ vi) * (sv / 127.0)
+
+
 def rel_attention_plain(qkv, tables, *, heads: int, hd: int, kh: int, kw: int,
-                        nkeys: int, int8_qk: bool = False) -> torch.Tensor:
-    """Plain version of K5, K7 and (``int8_qk``) K7-int8.
-    qkv (S, n, heads*3*hd) -> (S, n, heads*hd)."""
+                        nkeys: int, int8_qk: bool = False,
+                        int8_pv: bool = False) -> torch.Tensor:
+    """Plain version of K5, K7, (``int8_qk``) K7-int8 and (``int8_pv``)
+    K7-pv and K7-int8pv.  qkv (S, n, heads*3*hd) -> (S, n, heads*hd)."""
     s, n, _ = qkv.shape
     dt, dev = qkv.dtype, qkv.device
     scale = hd ** -0.5
@@ -198,8 +221,8 @@ def rel_attention_plain(qkv, tables, *, heads: int, hd: int, kh: int, kw: int,
         bias = g.gather(2, idx_h) + g.gather(2, idx_w)
         qk = int8_qk_plain(q, k) if int8_qk else q @ k.transpose(1, 2)
         logits = (qk + bias) * scale
-        p = torch.softmax(logits, dim=-1).to(dt).float()
-        out[:, :, h] = (p @ v).to(dt)
+        p = torch.softmax(logits, dim=-1)
+        out[:, :, h] = (int8_pv_plain(p, v) if int8_pv else p.to(dt).float() @ v).to(dt)
     return out.reshape(s, n, heads * hd)
 
 
@@ -256,10 +279,11 @@ def rel_attention_window_rect_plain(qkv, tables, qkv_bias, *, ws: int, rh: int, 
 
 
 def rel_attention_global_plain(qkv, tables, *, kh: int, kw: int, heads: int,
-                               hd: int, int8_qk: bool = False):
-    """Plain version of K7 and, with ``int8_qk``, of K7-int8."""
+                               hd: int, int8_qk: bool = False, int8_pv: bool = False):
+    """Plain version of K7 and of K7-int8 (``int8_qk``), K7-pv (``int8_pv``)
+    and K7-int8pv (both)."""
     return rel_attention_plain(qkv, tables, heads=heads, hd=hd, kh=kh, kw=kw,
-                               nkeys=kh * kw, int8_qk=int8_qk)
+                               nkeys=kh * kw, int8_qk=int8_qk, int8_pv=int8_pv)
 
 
 # ---------------------------------------------------------------------------
@@ -334,21 +358,39 @@ def rel_attention_window_rect(qkv, tables, qkv_bias, *, ws: int, rh: int, rw: in
 
 
 def rel_attention_global(qkv, tables, *, kh: int, kw: int, heads: int,
-                         hd: int, int8_qk: bool = False) -> torch.Tensor:
+                         hd: int, int8_qk: bool = False, int8_pv: bool = False) -> torch.Tensor:
     """K7 over (B, kh*kw, heads*3*hd) token grids; every token is a key.
-    ``int8_qk`` runs K7-int8: the q.k product on the int8 tensor cores."""
+    ``int8_qk`` runs K7-int8: the q.k product on the int8 tensor cores;
+    ``int8_pv`` K7-pv (K7-int8pv with ``int8_qk``): p.v in int8 too."""
     if qkv.device.type == "cpu":
-        return rel_attention_global_plain(qkv, tables, kh=kh, kw=kw,
-                                          heads=heads, hd=hd, int8_qk=int8_qk)
+        return rel_attention_global_plain(qkv, tables, kh=kh, kw=kw, heads=heads, hd=hd,
+                                          int8_qk=int8_qk, int8_pv=int8_pv)
     s, n = _check(qkv, tables, heads, hd, kh, kw)
     if n != kh * kw:
         raise ValueError(f"K7 expects {kh}x{kw} tokens, got {n}")
-    out = torch.empty((s, n, heads * hd), dtype=qkv.dtype, device=qkv.device)
+    dev = qkv.device
+    out = torch.empty((s, n, heads * hd), dtype=qkv.dtype, device=dev)
     scale = hd ** -0.5
+    kq = kmax = None
     if int8_qk:
         hdp = -(-hd // 32) * 32                    # the int8 k-step is 32 wide
-        kq = torch.empty((s, heads, n, hdp), dtype=torch.int8, device=qkv.device)
-        kmax = torch.empty((s, heads, hd), dtype=torch.float32, device=qkv.device)
+        kq = torch.empty((s, heads, n, hdp), dtype=torch.int8, device=dev)
+        kmax = torch.empty((s, heads, hd), dtype=torch.float32, device=dev)
+    if int8_pv:
+        nkp = -(-n // 64) * 64                     # keys padded to the 64-key tile
+        vq = torch.empty((s, heads, hd, nkp), dtype=torch.int8, device=dev)
+        vmax = torch.empty((s, heads, hd), dtype=torch.float32, device=dev)
+        code = _lib().k7_rel_attention_global_pv(
+            ptr(qkv), ptr(tables), ptr(kq), ptr(kmax), ptr(vq), ptr(vmax), ptr(out), s, n,
+            heads, hd, kh, kw, int(int8_qk), scale, 1.0 / scale, stream())
+        if int8_qk:
+            raise_on_error("K7-int8pv rel_attention_global", code)
+            LAUNCHES["K7-int8pv"] += 1
+        else:
+            raise_on_error("K7-pv rel_attention_global", code)
+            LAUNCHES["K7-pv"] += 1
+        return out
+    if int8_qk:
         code = _lib().k7_rel_attention_global_int8(
             ptr(qkv), ptr(tables), ptr(kq), ptr(kmax), ptr(out), s, n, heads, hd,
             kh, kw, scale, 1.0 / scale, stream())

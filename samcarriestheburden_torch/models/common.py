@@ -27,6 +27,23 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return (y * weight.float() + bias.float()).to(x.dtype)
 
 
+def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)`` in x's dtype: the weights are cast to it at use, as the
+    JAX package's ``linear`` casts its parameters (fp32 weights serve a bf16
+    decode without a second copy).  In fp32 this is ``layer(x)``."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+def norm(layer: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)``; below fp32, :func:`layer_norm` with fp32 statistics and
+    the affine parameters rounded to x's dtype (JAX ``layer_norm`` on cast
+    parameters)."""
+    if x.dtype == torch.float32:
+        return layer(x)
+    return layer_norm(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype), layer.eps)
+
+
 class LayerNorm2d(nn.Module):
     """Per-pixel LayerNorm over the channel axis of an NCHW tensor
     (reference modeling/common.py:31-43)."""
@@ -52,7 +69,7 @@ class MLPBlock(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.lin2(self.act(self.lin1(x)))
+        return linear(self.lin2, self.act(linear(self.lin1, x)))
 
 
 class MLP(nn.Module):
@@ -68,7 +85,7 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, layer in enumerate(self.layers):
-            x = layer(x)
+            x = linear(layer, x)
             if i < len(self.layers) - 1:
                 x = F.relu(x)
         return torch.sigmoid(x) if self.sigmoid_output else x

@@ -10,11 +10,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from samcarriestheburden_torch.config import MaskDecoderConfig
-from samcarriestheburden_torch.models.common import MLPBlock
+from samcarriestheburden_torch.models.common import MLPBlock, linear, norm
 
 
 class Attention(nn.Module):
-    """Attention with an optional downscaled internal width (reference :185-240)."""
+    """Attention with an optional downscaled internal width (reference :185-240).
+    It runs in its inputs' dtype with the logits and the softmax in fp32, cast
+    back before the product with v (JAX ``transformer.attention``)."""
 
     def __init__(self, embedding_dim: int, num_heads: int, downsample_rate: int = 1):
         super().__init__()
@@ -31,14 +33,34 @@ class Attention(nn.Module):
         b, n, c = x.shape
         return x.reshape(b, n, self.num_heads, c // self.num_heads).transpose(1, 2)
 
-    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        q = self._split(self.q_proj(q))
-        k = self._split(self.k_proj(k))
-        v = self._split(self.v_proj(v))
-        attn = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
-        out = torch.softmax(attn, dim=-1) @ v
+    @staticmethod
+    def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        logits = q.float() @ k.float().transpose(-1, -2) / math.sqrt(q.shape[-1])
+        return torch.softmax(logits, dim=-1).to(v.dtype) @ v
+
+    def _merge(self, out: torch.Tensor) -> torch.Tensor:
         b, _, n, _ = out.shape
-        return self.out_proj(out.transpose(1, 2).reshape(b, n, -1))
+        return linear(self.out_proj, out.transpose(1, 2).reshape(b, n, -1))
+
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        return self._merge(self._attend(self._split(linear(self.q_proj, q)),
+                                        self._split(linear(self.k_proj, k)),
+                                        self._split(linear(self.v_proj, v))))
+
+    def forward_shared_queries(self, q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor) -> torch.Tensor:
+        """``forward`` where the queries (n_img, Nq, C) are shared by the
+        B // n_img consecutive items of k, v (B, Nk, C) that belong to each
+        image: q's projection runs once per image (JAX
+        ``block_apply_image_shared``'s image-to-token step)."""
+        n_img = q.shape[0]
+        b, nk, _ = k.shape
+        qh = self._split(linear(self.q_proj, q))[:, None]           # (n_img, 1, h, Nq, d)
+        kh = self._split(linear(self.k_proj, k))
+        vh = self._split(linear(self.v_proj, v))
+        per_image = (n_img, b // n_img) + kh.shape[1:]
+        out = self._attend(qh, kh.reshape(per_image), vh.reshape(per_image))
+        return self._merge(out.reshape(b, *out.shape[2:]))
 
 
 class TwoWayAttentionBlock(nn.Module):
@@ -64,16 +86,41 @@ class TwoWayAttentionBlock(nn.Module):
         else:
             q = queries + query_pe
             queries = queries + self.self_attn(q, q, queries)
-        queries = self.norm1(queries)
+        queries = norm(self.norm1, queries)
 
         q = queries + query_pe
         k = keys + key_pe
-        queries = self.norm2(queries + self.cross_attn_token_to_image(q, k, keys))
-        queries = self.norm3(queries + self.mlp(queries))
+        queries = norm(self.norm2, queries + self.cross_attn_token_to_image(q, k, keys))
+        queries = norm(self.norm3, queries + self.mlp(queries))
 
         q = queries + query_pe
         k = keys + key_pe
-        keys = self.norm4(keys + self.cross_attn_image_to_token(k, q, queries))
+        keys = norm(self.norm4, keys + self.cross_attn_image_to_token(k, q, queries))
+        return queries, keys
+
+    def forward_image_shared(self, queries, keys, query_pe, key_pe):
+        """Layer 0 for items that share their image side (JAX
+        ``block_apply_image_shared``, vmapped over images): queries (B, Nq, C)
+        image-major, keys (n_img, HW, C) with B a multiple of n_img, key_pe
+        (1, HW, C).  The image-side projections (token-to-image k and v,
+        image-to-token q) run once per image, and the token-to-image attention
+        takes each image's B // n_img prompt sets as one query axis.  Returns
+        (queries (B, Nq, C), keys (B, HW, C))."""
+        b, nq, c = queries.shape
+        n_img = keys.shape[0]
+        if b % n_img:
+            raise ValueError(f"{b} items do not divide among {n_img} images")
+        queries = norm(self.norm1, self.self_attn(queries, queries, queries))
+
+        k_img = keys + key_pe
+        q = (queries + query_pe).reshape(n_img, (b // n_img) * nq, c)
+        out = self.cross_attn_token_to_image(q, k_img, keys).reshape(b, nq, c)
+        queries = norm(self.norm2, queries + out)
+        queries = norm(self.norm3, queries + self.mlp(queries))
+
+        out = self.cross_attn_image_to_token.forward_shared_queries(k_img, queries + query_pe,
+                                                                    queries)
+        keys = norm(self.norm4, keys.repeat_interleave(b // n_img, dim=0) + out)
         return queries, keys
 
 
@@ -90,22 +137,30 @@ class TwoWayTransformer(nn.Module):
     def forward(self, image_embedding: torch.Tensor, image_pe: torch.Tensor,
                 point_embedding: torch.Tensor,
                 image_shared: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        """image_embedding/image_pe (1 or B, C, H, W); point_embedding (B, N, C)
-        -> (queries (B, N, C), keys (B, HW, C)).  ``image_shared`` says the
-        image rows are one batch-1 embedding shared by every point set (JAX
-        computes its layer-0 image side once); here it is a broadcast,
-        which gives the same numbers."""
+        """image_embedding (1 or B, C, H, W), image_pe (1, C, H, W),
+        point_embedding (B, N, C) -> (queries (B, N, C), keys (B, HW, C)).
+
+        ``image_shared``: the image rows are those of n_img images, each
+        shared by B // n_img consecutive point sets (image_embedding (n_img,
+        C, H, W); round 1 of the refinement decode, where no item has a mask
+        input).  Layer 0 then projects each image's side once
+        (:meth:`TwoWayAttentionBlock.forward_image_shared`)."""
         b = point_embedding.shape[0]
-        if image_shared and image_embedding.shape[0] != 1:
-            raise ValueError("image_shared needs a batch-1 image embedding")
         c = image_embedding.shape[1]
-        keys = image_embedding.flatten(2).transpose(1, 2).expand(b, -1, c)
-        key_pe = image_pe.flatten(2).transpose(1, 2).expand(b, -1, c)
+        keys = image_embedding.flatten(2).transpose(1, 2)
+        key_pe = image_pe.flatten(2).transpose(1, 2)
         queries = point_embedding
-        for layer in self.layers:
+        layers = list(self.layers)
+        if image_shared:
+            queries, keys = layers[0].forward_image_shared(queries, keys, point_embedding, key_pe)
+            layers = layers[1:]
+        else:
+            keys = keys.expand(b, -1, c)
+        key_pe = key_pe.expand(b, -1, c)
+        for layer in layers:
             queries, keys = layer(queries, keys, point_embedding, key_pe)
         q = queries + point_embedding
         k = keys + key_pe
-        queries = self.norm_final_attn(
-            queries + self.final_attn_token_to_image(q, k, keys))
+        queries = norm(self.norm_final_attn,
+                       queries + self.final_attn_token_to_image(q, k, keys))
         return queries, keys

@@ -6,6 +6,10 @@
   class, chosen by one per-map histogram over label ids (the JAX exact
   branch; its top-k candidate stage was a device for the TPU's serialised
   scatters and has no counterpart here).
+
+Both take the JAX package's ``method`` keyword: ``"pool"``, ``"pallas"`` and
+(for the selection) ``"auto"`` are one fixpoint, computed by K8 on the card;
+``"scan"`` is a slower formulation of the same fixpoint, not ported yet.
 """
 
 from __future__ import annotations
@@ -15,8 +19,19 @@ import torch
 from samcarriestheburden_torch.kernels import ccl as ccl_k
 
 
+_METHODS = ("auto", "pool", "pallas")
+
+
+def _check_method(method: str) -> None:
+    if method == "scan":
+        raise NotImplementedError("method='scan' is not ported yet (ROADMAP.md, M11); "
+                                  "'pool', 'pallas' and 'auto' run K8")
+    if method not in _METHODS:
+        raise ValueError(f"unknown method {method!r}: one of {_METHODS + ('scan',)}")
+
+
 def connected_components(mask: torch.Tensor, num_iterations: int, check_every: int = 16,
-                         return_converged: bool = False):
+                         method: str = "pool", return_converged: bool = False):
     """Label 8-connected components of (..., H, W) masks (foreground > 0.5).
 
     Returns int32 labels: 0 is background, a component's label is the largest
@@ -24,7 +39,8 @@ def connected_components(mask: torch.Tensor, num_iterations: int, check_every: i
     steps at most and stops at the fixpoint, checked every ``check_every``
     steps, so truncated labels are bit-identical to the JAX package's.  With
     ``return_converged`` also a 0-d bool tensor: every map reached its
-    fixpoint."""
+    fixpoint.  ``method``: see the module docstring."""
+    _check_method(method)
     h, w = mask.shape[-2:]
     lead = mask.shape[:-2]
     flat = mask.reshape(-1, h, w).float().contiguous()
@@ -60,7 +76,8 @@ def _winners(labels: torch.Tensor, prob: torch.Tensor, selection: str) -> torch.
 
 
 def remove_all_but_one_connected_component(prob_mask: torch.Tensor, selection: str,
-                                           num_iter: int) -> torch.Tensor:
+                                           num_iter: int, max_components: int = 256,
+                                           method: str = "auto") -> torch.Tensor:
     """Keep one 8-connected component per class of a (C, H, W) or
     (N, C, H, W) probability mask, zeroing the rest (reference
     segmentation_preprocessing.py:7-52).
@@ -68,7 +85,10 @@ def remove_all_but_one_connected_component(prob_mask: torch.Tensor, selection: s
     ``selection``: 'largest' (pixel area) or 'highest_probability' (mean
     probability).  Propagation runs to its fixpoint (``max(num_iter, H*W)``
     steps at most), so a component is never split; an (N, C, H, W) stack is
-    one K8 launch.  Empty classes stay empty."""
+    one K8 launch.  Empty classes stay empty.  ``max_components`` (the JAX
+    candidate count) is accepted and unused: the histogram is exact over
+    every label.  ``method``: see the module docstring."""
+    _check_method(method)
     if prob_mask.ndim not in (3, 4):
         raise ValueError("segmentation_mask should be (C, H, W) or (N, C, H, W)")
     if selection not in ("largest", "highest_probability"):

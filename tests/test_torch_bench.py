@@ -1,0 +1,111 @@
+"""The port's bench (``samcarriestheburden_torch/bench.py``) on the CPU: its
+analytic encoder count against the JAX bench's, the flop convention it
+records (a known matmul at 2*m*n*k; K13's declared cost counted through the
+custom op's flop formula), its ``--smoke`` JSON line, and its refusal to run
+without a card unless asked for the CPU."""
+
+import json
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import bench as jax_bench
+from samcarriestheburden_torch import bench, config, kernels
+from samcarriestheburden_torch.kernels import cost_probe as k13
+from samcarriestheburden_tpu import config as jconfig
+
+#: bench.py's top-level and detail keys, which the port's line keeps
+TOP_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
+DETAIL_KEYS = {"vs_baseline_est", "vs_baseline_measured_cpu", "cpu_anchor",
+               "embed_images_per_sec", "refined_masks_per_sec", "full_enhance_images_per_sec",
+               "train_ms_per_step", "train_batch_hw", "amg_device_points_per_sec",
+               "amg_points_per_batch", "enhance_batch", "seg_grid_hw", "encoder_batch",
+               "attention", "encoder_dtype", "quantize", "unroll_blocks", "platform",
+               "device_kind", "peak_tflops", "tflops_per_leg", "mfu", "flops_convention",
+               "reference_implied_a100_mfu"}
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The smoke bench is hundreds of small CPU ops: one intra-op thread per
+    test worker keeps it inside its time limit when the workers share the
+    machine's cores (2 s alone, against 7 s with every core's thread)."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("model", ["vit_t", "vit_b", "vit_h"])
+def test_analytic_encoder_flops_equal_the_jax_bench(model, compact):
+    ours = bench.analytic_encoder_flops(bench.CONFIGS[model](), compact)
+    jcfg = {"vit_t": jconfig.sam_vit_t_config, "vit_b": jconfig.sam_vit_b_config,
+            "vit_h": jconfig.sam_vit_h_config}[model]()
+    assert ours == jax_bench.analytic_encoder_flops(jcfg, compact=compact)
+
+
+def test_the_compact_layout_counts_fewer_rows_at_vit_h():
+    cfg = config.sam_vit_h_config()
+    assert bench.analytic_encoder_flops(cfg, True) < bench.analytic_encoder_flops(cfg, False)
+
+
+def test_flops_convention_on_the_cpu():
+    conv = bench.flops_convention_check(torch.device("cpu"))
+    assert conv == {"matmul_2mnk_ratio": 1.0, "custom_kernel_cost_counted": True,
+                    "scan_body_counted_once": None, "ok": True}
+
+
+def test_the_probe_counts_its_declared_cost_and_is_x_times_two():
+    """K13's custom op: ``x * 2.0`` bit for bit on the CPU (the plain
+    version), ``declared`` operations under ``FlopCounterMode``, no launch."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((128, 128),
+                                                                   dtype=np.float32)).bfloat16()
+    kernels.reset_launches()
+    with FlopCounterMode(display=False) as fc:
+        out = k13.cost_probe(x, 777)
+    assert fc.get_total_flops() == 777
+    assert torch.equal(out, x * 2.0) and out.dtype == torch.bfloat16
+    assert kernels.LAUNCHES["K13"] == 0
+    assert torch.equal(torch.ops.samcarriestheburden.cost_probe(x, 1), k13.cost_probe_plain(x))
+
+
+def test_smoke_line_on_the_cpu(capsys):
+    t0 = time.perf_counter()
+    result = bench.main(["--smoke", "--device", "cpu"])
+    elapsed = time.perf_counter() - t0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line == json.loads(json.dumps(result))
+    assert set(line) == TOP_KEYS and DETAIL_KEYS <= set(line["detail"])
+    assert line["metric"] == "sam_vit_t_embed_refine_images_per_sec_per_chip_cpu_smoke"
+    assert line["unit"] == "images/sec" and np.isfinite(line["value"]) and line["value"] > 0
+    d = line["detail"]
+    assert d["platform"] == "cpu" and d["device_kind"] is None and d["peak_tflops"] is None
+    assert d["vs_baseline_est"] is None and line["vs_baseline"] is None
+    assert d["mfu"]["encoder"] is None and d["train_ms_per_step"] is None
+    assert d["flops_convention"]["ok"] is True
+    assert d["encoder_batch"] == 1 and d["enhance_batch"] == 1 and d["seg_grid_hw"] == [48, 32]
+    assert d["tflops_per_leg"]["refine_17class_2round"] >= 0
+    assert elapsed < 30, elapsed
+
+
+def test_unroll_blocks_is_recorded(capsys):
+    line = bench.main(["--smoke", "--device", "cpu", "--iters", "1", "--unroll_blocks"])
+    assert line["detail"]["unroll_blocks"] is True
+
+
+def test_without_a_card_the_bench_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main(["--smoke"])
+
+
+def test_the_unfused_formulations_refuse_int8():
+    with pytest.raises(ValueError, match="no int8 mode"):
+        bench.main(["--attention", "pallas", "--device", "cpu"])

@@ -32,7 +32,8 @@ def _port_modules():
 
 def test_every_module_imports_without_jax():
     modules = _port_modules()
-    for name in ("kernels.attention", "kernels.quant", "models.quantize"):
+    for name in ("kernels.attention", "kernels.quant", "models.quantize", "kernels.cost_probe",
+                 "bench", "tools.bench_int8pv"):
         assert f"samcarriestheburden_torch.{name}" in modules
     code = ("import sys\n"
             + "".join(f"sys.modules[{name!r}] = None\n" for name in FORBIDDEN)
@@ -75,8 +76,11 @@ def test_no_import_of_jax_or_the_jax_package(path):
 
 
 def test_the_parametrized_scan_covers_the_int8_modules():
+    """... and the port's bench and tools (their JAX originals, ``bench.py``
+    and ``tools/``, import JAX)."""
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
-    assert {"kernels/quant.py", "models/quantize.py", "models/convert.py"} <= scanned
+    assert {"kernels/quant.py", "models/quantize.py", "models/convert.py", "bench.py",
+            "tools/bench_int8pv.py", "kernels/cost_probe.py"} <= scanned
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT))
@@ -120,6 +124,8 @@ def test_cuda_sources_are_registered_and_stand_alone():
         assert symbol in quant
     attention = (build.CSRC / "attention.cu").read_text()
     assert "k7_rel_attention_global_int8" in attention and "mma_s8" in attention
+    assert "k7_rel_attention_global_pv" in attention and "v_quant_kernel" in attention
+    assert "k13_cost_probe" in (build.CSRC / "cost_probe.cu").read_text()
     block = (build.CSRC / "block_attention.cu").read_text()
     assert "k12_window_block_attention" in block and "atomicAdd" in block and "mma_bf16" in block
     assert "m16n8k32.row.col.s32.s8.s8.s32" in (build.CSRC / "common.cuh").read_text()
@@ -137,7 +143,10 @@ ENTRY_POINTS = {"K1": ("mlp", "k1_"), "K2": ("quant", "k2_ln_masked_linear_int8"
                 "K9": ("attention", "k9_rel_attention_pre"),
                 "K10": ("attention", "k10_rel_attention_headmajor"),
                 "K11": ("attention", "k11_rel_attention_headmajor_global"),
-                "K12": ("block_attention", "k12_window_block_attention", "attention")}
+                "K12": ("block_attention", "k12_window_block_attention", "attention"),
+                "K7-pv": ("attention", "k7_rel_attention_global_pv"),
+                "K7-int8pv": ("attention", "k7_rel_attention_global_pv"),
+                "K13": ("cost_probe", "k13_cost_probe")}
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -145,8 +154,9 @@ def test_every_counted_kernel_has_a_c_entry_point_in_a_registered_source(name):
     """``kernels.LAUNCHES`` counts exactly these kernels, and each one's
     ``extern "C"`` launch function stands in a source that ``build.SOURCES``
     builds and that its Python module binds (K6, the compact layout's edge
-    windows, in ``attention.cu`` beside K5; K9-K11 there too, K12 in
-    ``block_attention.cu``, bound by ``kernels/attention.py``)."""
+    windows, in ``attention.cu`` beside K5; K9-K11 and K7's int8 p.v there
+    too, K12 in ``block_attention.cu``, bound by ``kernels/attention.py``;
+    K13 in ``cost_probe.cu``)."""
     from samcarriestheburden_torch import kernels
 
     assert set(kernels.LAUNCHES) == set(ENTRY_POINTS)

@@ -1,0 +1,357 @@
+"""The batched refinement and the bf16 decoder of the port against the JAX
+package, on the CPU at the tiny vit_t config: the four signature repairs
+(``max_points``, the CCL keywords, ``SegEnhance``'s device, ``unroll_blocks``),
+round 1 over several images' shared image sides, the bf16 decode against JAX
+``compute_dtype=jnp.bfloat16``, and ``refine_batch`` (one decode per round
+over N x 17 prompt sets) against ``refine`` image by image and against the
+JAX package's vmapped ``refine_batch``.  Weights: the port's seeded random
+SAM (full-scale uniform init), handed to the JAX package by its own
+converter; inputs seeded with numpy."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from samcarriestheburden_torch.config import N_CLASSES, sam_vit_t_config
+from samcarriestheburden_torch.engine import embeddings as temb
+from samcarriestheburden_torch.engine.decoder_head import SamMaskDecoderHead as TorchHead
+from samcarriestheburden_torch.engine.refinement import SamSegRefiner as TorchRefiner
+from samcarriestheburden_torch.engine.refinement import SegEnhance as TorchEnhance
+from samcarriestheburden_torch.engine.refinement import SegRefiner
+from samcarriestheburden_torch.models.sam import build_sam
+from samcarriestheburden_torch.ops import ccl as tccl
+from samcarriestheburden_tpu.config import sam_vit_t_config as jax_vit_t_config
+from samcarriestheburden_tpu.data import h5io as jh5
+from samcarriestheburden_tpu.engine.decoder_head import SamMaskDecoderHead as JaxHead
+from samcarriestheburden_tpu.engine.refinement import SamSegRefiner as JaxRefiner
+from samcarriestheburden_tpu.engine.refinement import SegEnhance as JaxEnhance
+from samcarriestheburden_tpu.models import convert as jconvert
+from samcarriestheburden_tpu.ops import ccl as jccl
+
+CFG = jax_vit_t_config()
+SEG_HW = (48, 32)
+SIZES = {"img_a": ((256, 150), (128, 75)), "img_b": ((200, 256), (100, 128)),
+         "img_c": ((256, 256), (128, 128))}          # (original, input) per image
+STEMS = tuple(SIZES)
+CKPT = "tiny.npz"
+TWO_ROUNDS = [["box"], ["pos_points", "neg_points"]]
+
+# The bf16 decode against JAX's, relative to max |JAX logits|, over the three
+# images.  Both cast the same weights and inputs to bf16 and keep the softmax,
+# the LayerNorm statistics and the hypernetwork sums in fp32, but XLA on the
+# CPU computes bf16 chains in fp32 (its float normalisation then drops the
+# convert pairs between ops), so the JAX side here is fp32 arithmetic on
+# bf16-rounded weights and inputs, while the port rounds every product and sum
+# to bf16, as on the card.  The random decoder's logits are small
+# cancellations of O(1) terms (max |logit| 0.03-0.07), which inflates the
+# error relative to their max.  Readings over three mask seeds and the three
+# images: max 0.0673, mean 0.00539 (0.0040 for round 1 at mask seed 40), IoU
+# 0.00293, thresholded logits agree on >= 0.98443 of the pixels; against the
+# fp32 decode the port reads mean 0.0052, JAX 0.0032.  The tolerances are twice
+# the readings (disagreement: twice 1.56 %); the refined masks of
+# ``enhance_batch`` agree on 0.99783 of the pixels, est-Dice within 0.0048.
+BF16_MAX, BF16_MEAN, BF16_IOU, BF16_AGREE = 0.135, 0.011, 0.006, 0.969
+BF16_DICE = 0.01
+
+
+def _np(t):
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def seg_probs(seed: int) -> np.ndarray:
+    """17-class U-Net-like probabilities on SEG_HW: a soft blob per class,
+    a second one in every odd class, two empty classes."""
+    rng = np.random.default_rng(seed)
+    h, w = SEG_HW
+    yy, xx = np.mgrid[:h, :w]
+    prob = np.zeros((N_CLASSES, h, w), np.float32)
+    for c in range(N_CLASSES - 2):
+        cy, cx = rng.uniform(0.2, 0.8) * h, rng.uniform(0.2, 0.8) * w
+        ry, rx = rng.uniform(0.1, 0.3) * h, rng.uniform(0.05, 0.2) * w
+        prob[c] = np.clip(1.2 - ((yy - cy) / ry) ** 2 - ((xx - cx) / rx) ** 2, 0, 1)
+        if c % 2:
+            sy, sx = rng.integers(2, h - 4), rng.integers(2, w - 4)
+            prob[c, sy:sy + 3, sx:sx + 3] = 0.8
+    return prob
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """(port state dict, JAX decoder params) of one seeded random SAM."""
+    sd = build_sam(sam_vit_t_config(), device="cpu", seed=5).state_dict()
+    jp = jconvert.sam_params_from_torch({k: v.numpy().copy() for k, v in sd.items()}, CFG)
+    return sd, {"prompt_encoder": jp["prompt_encoder"], "mask_decoder": jp["mask_decoder"]}
+
+
+@pytest.fixture(scope="module")
+def h5_path(tmp_path_factory):
+    rng = np.random.default_rng(12)
+    path = tmp_path_factory.mktemp("emb") / "emb.h5"
+    with jh5.EmbeddingWriter(path, checkpoint_name=CKPT, img_encoder_img_size=128) as w:
+        for stem, (orig, inp) in SIZES.items():
+            w.write(stem, rng.standard_normal((1, 16, 8, 8)).astype(np.float32), orig, inp)
+    return path
+
+
+@pytest.fixture(scope="module")
+def heads(weights, h5_path):
+    """{dtype: (JAX head, port head)} for fp32 and bf16 decodes."""
+    sd, jp = weights
+    out = {}
+    for name, jdt, tdt in (("fp32", None, None), ("bf16", jnp.bfloat16, torch.bfloat16)):
+        out[name] = (JaxHead(None, "vit_t", h5_path, params=jp, compute_dtype=jdt),
+                     TorchHead(None, "vit_t", h5_path, device="cpu", params=sd,
+                               compute_dtype=tdt))
+    return out
+
+
+def _prompts(bool_masks, prompts):
+    """(N*17, P, 2) coords and labels from the JAX package's ``_build_prompts``, per image."""
+    from samcarriestheburden_tpu.engine import prompts as jprompts
+
+    cs, ls = [], []
+    for m, stem in zip(bool_masks, STEMS):
+        arrays = jprompts.extract_prompt_arrays(jnp.asarray(m))
+        table, valid = jprompts.neg_seed_table(arrays["pos_seeds"], arrays["pos_valid"])
+        c, l = JaxRefiner._build_prompts(arrays, table, valid, prompts, SEG_HW,
+                                         jnp.asarray(SIZES[stem][1]))
+        cs.append(np.asarray(c))
+        ls.append(np.asarray(l))
+    return np.concatenate(cs), np.concatenate(ls)
+
+
+# ---------------------------------------------------------------------------
+# the four signature repairs: calls the JAX package accepts
+# ---------------------------------------------------------------------------
+
+
+def test_refiner_takes_max_points(heads):
+    """C1: ``SamSegRefiner(max_points=)`` is accepted (and unused, as in JAX)."""
+    jax_head, torch_head = heads["fp32"]
+    seg = seg_probs(20) > 0.5
+    got = TorchRefiner(torch_head, None, TWO_ROUNDS, "data", max_points=4).refine(seg, "img_a")
+    want = JaxRefiner(jax_head, None, TWO_ROUNDS, "data", max_points=4).refine(seg, "img_a")
+    np.testing.assert_array_equal(_np(got[0]), np.asarray(want[0]))
+    ref = TorchRefiner(torch_head, prompts2use=TWO_ROUNDS).refine(seg, "img_a")
+    assert torch.equal(got[0], ref[0])
+
+
+@pytest.mark.parametrize("method", ["auto", "pool", "pallas"])
+def test_ccl_takes_the_jax_keywords(method):
+    """C2: ``max_components`` and ``method`` are accepted; every method is the
+    same fixpoint (K8 on the card, its plain version here)."""
+    probs = seg_probs(21)[:4]
+    want = jccl.remove_all_but_one_connected_component(jnp.asarray(probs), "largest", 48,
+                                                       max_components=8, method="pool")
+    got = tccl.remove_all_but_one_connected_component(torch.from_numpy(probs), "largest", 48,
+                                                      max_components=8, method=method)
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    if method != "auto":
+        labels = tccl.connected_components(torch.from_numpy(probs), 48, 16, method)
+        assert torch.equal(labels, tccl.connected_components(torch.from_numpy(probs), 48))
+        np.testing.assert_array_equal(
+            _np(labels), np.asarray(jccl.connected_components(jnp.asarray(probs), 48,
+                                                              method="pool")))
+
+
+def test_ccl_scan_is_not_ported_and_unknown_methods_raise():
+    probs = torch.from_numpy(seg_probs(22)[:2])
+    with pytest.raises(NotImplementedError, match="M11"):
+        tccl.connected_components(probs, 48, method="scan")
+    with pytest.raises(NotImplementedError, match="M11"):
+        tccl.remove_all_but_one_connected_component(probs, "largest", 48, method="scan")
+    with pytest.raises(ValueError, match="unknown method"):
+        tccl.remove_all_but_one_connected_component(probs, "largest", 48, method="kornia")
+
+
+class _NoDeviceRefiner(SegRefiner):
+    """A refiner without a ``device`` (as the random-walk refiner has none)."""
+
+    def refine(self, seg, file_name=None):
+        return seg > 0.5, None
+
+
+def test_seg_enhance_device(heads, monkeypatch):
+    """C3: ``SegEnhance`` keeps its own ``device``; without one it takes the
+    refiner's where there is one, else the card."""
+    seg = seg_probs(23)
+    enh = TorchEnhance(_NoDeviceRefiner(), "largest", "dilation", "square", 2, device="cpu")
+    refined, est = enh.enhance(seg)
+    want = jccl.remove_all_but_one_connected_component(jnp.asarray(seg), "largest", 48)
+    np.testing.assert_array_equal(_np(refined), np.asarray(want) > 0.5)
+    j_enh = JaxEnhance(_NoDeviceRefiner(), "largest", "dilation", "square", 2)
+    j_enh.enhance(seg)
+    np.testing.assert_array_equal(_np(enh.last_preprocessed_seg),
+                                  np.asarray(j_enh.last_preprocessed_seg))
+    _, torch_head = heads["fp32"]
+    assert TorchEnhance(TorchRefiner(torch_head), None, "dilation", "square",
+                        2)._device().type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchEnhance(_NoDeviceRefiner(), None, "dilation", "square", 2).enhance(seg)
+
+
+def test_entry_points_take_unroll_blocks():
+    """C4: ``unroll_blocks`` is accepted by the three encode entry points and
+    changes nothing (as in JAX, whose outputs are the same either way)."""
+    model = build_sam(sam_vit_t_config(), device="cpu", seed=3)
+    rng = np.random.default_rng(24)
+    imgs = torch.from_numpy(rng.integers(0, 256, (1, 3, 128, 128), dtype=np.uint8))
+    sizes = torch.tensor([[128, 90]])
+    encode, packed = temb.make_serving_encoder(model, torch.float32)
+    ref = encode(packed, imgs, sizes)
+    for unroll in (True, False):
+        enc_u, packed_u = temb.make_serving_encoder(model, torch.float32, unroll_blocks=unroll)
+        assert torch.equal(enc_u(packed_u, imgs, sizes), ref)
+        assert torch.equal(temb.make_encode_batch(model, torch.float32, unroll_blocks=unroll)(
+            packed, imgs, sizes), ref)
+        med = temb.make_encode_batch_medsam(model, torch.float32, unroll_blocks=unroll)
+        enc_m, _ = temb.make_serving_encoder(model, torch.float32, medsam=True,
+                                             unroll_blocks=unroll)
+        assert torch.equal(med(packed, imgs), enc_m(packed, imgs))
+
+
+# ---------------------------------------------------------------------------
+# round 1 over several images, and the bf16 decoder
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_image_shared_over_n_images_is_the_per_image_decode(heads, dtype):
+    """Round 1 with n_img = 3 images, each shared by its 17 prompt sets,
+    equals three single-image decodes (fp32: logits within 1e-5), and round
+    2 over the three images likewise."""
+    _, head = heads[dtype]
+    masks = np.stack([seg_probs(30 + i) > 0.5 for i in range(3)])
+    c1, l1 = map(torch.from_numpy, _prompts(masks, ["box"]))
+    c2, l2 = map(torch.from_numpy, _prompts(masks, ["pos_points", "neg_points"]))
+    feats = torch.cat([head.features(s) for s in STEMS])
+    low, iou = head._decode(feats, c1, l1, None, None, image_shared=True)
+    use = torch.ones((c2.shape[0],), dtype=torch.bool)
+    low2, iou2 = head._decode(feats, c2, l2, low, use)
+    tol = 1e-5 if dtype == "fp32" else 0.0
+    for i in range(3):
+        sl = slice(17 * i, 17 * (i + 1))
+        one, one_iou = head._decode(feats[i:i + 1], c1[sl], l1[sl], None, None, image_shared=True)
+        two, two_iou = head._decode(feats[i:i + 1], c2[sl], l2[sl], one, use[sl])
+        for got, want in ((low[sl], one), (iou[sl], one_iou), (low2[sl], two),
+                          (iou2[sl], two_iou)):
+            assert got.dtype == torch.float32
+            if dtype == "fp32":
+                torch.testing.assert_close(got, want, atol=tol, rtol=0)
+            else:   # bf16 GEMMs of other heights may round elsewhere: one bf16 ulp
+                scale = want.abs().max().item()
+                assert (got - want).abs().max().item() <= 2 ** -7 * scale
+
+
+@pytest.mark.parametrize("image_shared", [True, False], ids=["round1", "round2"])
+def test_bf16_decode_matches_jax(heads, image_shared):
+    """The port's bf16 decode against JAX ``_decode_impl`` with
+    ``compute_dtype=jnp.bfloat16`` on the same inputs, each of the three
+    images (BF16_* above)."""
+    jax_head, torch_head = heads["bf16"]
+    masks = np.stack([seg_probs(40) > 0.5])
+    prompts = ["box"] if image_shared else ["pos_points", "neg_points"]
+    c, l = _prompts(masks, prompts)
+    g4 = CFG.prompt_encoder.image_embedding_size[0] * 4
+    n = c.shape[0]
+    if image_shared:
+        mask_in, use = np.zeros((n, 1, g4, g4), np.float32), np.zeros((n,), bool)
+    else:
+        mask_in = (np.random.default_rng(41).standard_normal((n, 1, g4, g4)) * 4).astype(
+            np.float32)
+        use = np.ones((n,), bool)
+    for stem in STEMS:
+        want_low, want_iou = jax_head._decode(jax_head.features(stem), jnp.asarray(c),
+                                              jnp.asarray(l), jnp.asarray(mask_in),
+                                              jnp.asarray(use), image_shared=image_shared)
+        want_low, want_iou = np.asarray(want_low, np.float32), np.asarray(want_iou, np.float32)
+        low, iou = torch_head._decode(torch_head.features(stem), torch.from_numpy(c),
+                                      torch.from_numpy(l),
+                                      None if image_shared else torch.from_numpy(mask_in),
+                                      None if image_shared else torch.from_numpy(use),
+                                      image_shared=image_shared)
+        assert low.dtype == torch.float32 and iou.dtype == torch.float32
+        scale = np.abs(want_low).max()
+        diff = np.abs(_np(low) - want_low)
+        agree = ((_np(low) > 0) == (want_low > 0)).mean()
+        iou_err = np.abs(_np(iou) - want_iou).max()
+        assert diff.max() <= BF16_MAX * scale, (stem, diff.max() / scale)
+        assert diff.mean() <= BF16_MEAN * scale, (stem, diff.mean() / scale)
+        assert iou_err <= BF16_IOU, (stem, iou_err)
+        assert agree >= BF16_AGREE, (stem, agree)
+
+
+def test_bf16_decode_is_live(heads):
+    """The bf16 decode differs from the fp32 one (the dtype reaches the
+    decoder), within the bf16 tolerance of the logits' scale (reading 0.060)."""
+    masks = np.stack([seg_probs(42) > 0.5])
+    c, l = map(torch.from_numpy, _prompts(masks, ["box"]))
+    out = {}
+    for name in ("fp32", "bf16"):
+        _, head = heads[name]
+        out[name] = head._decode(head.features("img_a"), c, l, None, None, image_shared=True)[0]
+    d = (out["bf16"] - out["fp32"]).abs().max().item()
+    assert 0 < d <= BF16_MAX * out["fp32"].abs().max().item()
+
+
+def test_the_prompt_encoder_stays_fp32(heads):
+    _, head = heads["bf16"]
+    assert head.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in head.prompt_encoder.parameters())
+    assert all(p.dtype == torch.float32 for p in head.mask_decoder.parameters())
+    assert head.prompt_encoder.get_dense_pe().dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# refine_batch: one decode per round over N x 17 prompt sets
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_refine_batch_is_refine_image_by_image(heads, dtype):
+    """Masks equal and est-Dice within 1e-4 (as ``enhance_batch`` is held in
+    tests/test_torch_enhance.py)."""
+    _, head = heads[dtype]
+    refiner = TorchRefiner(head, prompts2use=TWO_ROUNDS)
+    segs = np.stack([seg_probs(50 + i) > 0.5 for i in range(3)])
+    refined, est = refiner.refine_batch(segs, list(STEMS))
+    assert refined.shape == (3, N_CLASSES, *SEG_HW) and refined.dtype == torch.bool
+    assert est.shape == (3, N_CLASSES) and est.dtype == torch.float32
+    for i, stem in enumerate(STEMS):
+        one, one_est = refiner.refine(segs[i], stem)
+        assert torch.equal(refined[i], one)
+        assert torch.equal(torch.isnan(est[i]), torch.isnan(one_est))
+        torch.testing.assert_close(est[i], one_est, atol=1e-4, rtol=0, equal_nan=True)
+
+
+def test_refine_batch_matches_jax_vmapped(heads):
+    """The port's batched refinement against the JAX package's vmapped
+    ``refine_batch`` on the same masks and embeddings (fp32)."""
+    jax_head, torch_head = heads["fp32"]
+    segs = np.stack([seg_probs(60 + i) > 0.5 for i in range(3)])
+    want = JaxRefiner(jax_head, prompts2use=TWO_ROUNDS).refine_batch(segs, list(STEMS))
+    got = TorchRefiner(torch_head, prompts2use=TWO_ROUNDS).refine_batch(segs, list(STEMS))
+    np.testing.assert_array_equal(_np(got[0]), np.asarray(want[0]))
+    est, j_est = _np(got[1]), np.asarray(want[1])
+    np.testing.assert_array_equal(np.isnan(est), np.isnan(j_est))
+    np.testing.assert_allclose(est, j_est, atol=1e-4)
+
+
+def test_seg_enhance_batch_with_the_bf16_decoder(heads):
+    """``SegEnhance.enhance_batch`` over the bf16 head, against the JAX
+    package's with ``compute_dtype=jnp.bfloat16``: nearly every refined
+    pixel agrees, est-Dice within BF16_DICE."""
+    jax_head, torch_head = heads["bf16"]
+    segs = np.stack([seg_probs(70 + i) for i in range(3)])
+    t_enh = TorchEnhance(TorchRefiner(torch_head, prompts2use=TWO_ROUNDS),
+                         "highest_probability", "dilation", "square", 8)
+    j_enh = JaxEnhance(JaxRefiner(jax_head, prompts2use=TWO_ROUNDS),
+                       "highest_probability", "dilation", "square", 8)
+    got = t_enh.enhance_batch(segs, list(STEMS))
+    want = j_enh.enhance_batch(segs, list(STEMS))
+    assert (_np(got[0]) == np.asarray(want[0])).mean() >= BF16_AGREE
+    est, j_est = _np(got[1]), np.asarray(want[1], np.float32)
+    np.testing.assert_array_equal(np.isnan(est), np.isnan(j_est))
+    np.testing.assert_allclose(est, j_est, atol=BF16_DICE)
