@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. builds the port's CUDA kernels (K1, K2, K3, K4, K5, K6, K7, K7-int8,
-   K7-pv, K7-int8pv, K8, K9, K10, K11, K12, K13) from
+   K7-pv, K7-int8pv, K8, K9, K10, K11, K12, K13, K14, K15) from
    ``samcarriestheburden_torch/csrc``, one ``nvcc`` per source, all at once;
 2. drives the flat embed path once at full ViT-H width and depth with seeded
    random weights: ``make_serving_encoder(model, torch.bfloat16,
@@ -60,6 +60,16 @@
    JSON line parses, with a finite value and ``flops_convention.ok``, and K13
    launched; then the int8 p.v A/B tool (``tools/bench_int8pv.run``),
    counted: K7, K7-int8, K7-pv and K7-int8pv launched;
+4f. drives the port's int8-MLP and GEMM experiment tools at their shapes
+   (``tools/exp_int8.run``, ``exp_mlp2.run``, ``exp_3d.run``: T=19600, E=1280,
+   M=5120; 100 x 196 rows), counted: every experiment makes exactly one launch
+   of its kernel per call (K3, K4, K14 or K15; none for the library products);
+   then K14 in its three modes (bf16 -> fp32, int8 -> int32 equal, bf16 ->
+   bf16) against its float64 plain version and timed beside ``torch.mm
+   (out_dtype=fp32)``, ``torch._int_mm`` and ``torch.matmul``; K15 in every
+   configuration the tools run against its plain version (chunks 1, 2, 4, 8,
+   each activation, both row quantizations, the fixed hidden scale), equal
+   to K4 bit for bit at K4's settings, and stressed with planted faults;
 5. holds each kernel against its plain PyTorch version on the card, on the
    inputs each of its paths gives it (the flat rows and windows; the
    compact stream's: K1-K4 on 8416 rows, K5 on 32 windows and K6, both
@@ -199,6 +209,29 @@ STRESS_TOL = {"K1": 1e-2, "K2": 1e-2, "K3": 1e-2, "K4": 1e-2, "K5": 2e-2, "K6": 
 PV_KERNELS = ("K7-pv", "K7-int8pv")
 PV_STEPS = 2
 FAULT_MARGIN = 4.0
+# K14, the experiment tools' bare GEMM, against its plain version (float64,
+# converted to the output type) on the tools' own inputs: the int8 product
+# must be equal; the fp32 output differs by the order of the fp32 sums, the
+# bf16 one by the bf16 rounding an fp32 sum lands on (one bf16 step of an
+# entry, at most 2^-7 of the largest).  TOL x max |plain|, set from the first
+# reading on the H100 (x max |plain|): bf16 -> fp32 1.72e-6 (tolerance about
+# six times that), bf16 -> bf16 3.76e-3 (0.9993 of the entries equal; one step
+# in the largest binade is the tolerance).
+K14_TOL = {"bf16->fp32": 1e-5, "bf16->bf16": 2.0 ** -7}
+# K15, K4 with the tools' flags, shares K4's arithmetic and is held to K4's
+# tolerances on the tools' inputs (KERNEL_TOL) and stressed (STRESS_TOL); at
+# K4's settings it must equal K4 bit for bit.  Its stressed inputs are K4's
+# (channels of very different weight scale, non-zero biases and LayerNorm
+# affines) with the hidden channels of chunk j scaled by K15_SPREAD^(j - (c-1)/2)
+# in lin1 and by its inverse in lin2, so that every chunk carries a share of
+# the output at a row scale of its own; the planted faults: one hidden scale
+# per row in place of one per (row, chunk), the chunk partials summed in int32
+# and dequantized once, sigmoid's 1.702 dropped, the fixed scale's 1/8 left
+# out of the dequantization.  Readings on the H100 (x max |plain|): on the
+# tools' inputs 0.20-0.49 %, 0.9990-0.9997 of the entries equal; stressed
+# 0.36-0.53 %; the smallest fault (sigmoid's 1.702 dropped) misses by 2.06
+# against the 4x-tolerance line's 0.90.
+K15_SPREAD = 4.0
 # the whole 32-layer encoder, kernel path vs plain path, both bf16: the
 # per-layer differences above compound through 32 residual blocks; the
 # output is LayerNorm2d'd, so unit scale.  Run twice: with the random weights
@@ -318,7 +351,13 @@ KERNELS = {  # name: (path, source, replaced TPU kernel)
     "K7-int8pv": ("int8pv-tool", "samcarriestheburden_torch/csrc/attention.cu",
                   "samcarriestheburden_tpu/kernels/attention.py:615"),
     "K13": ("bench", "samcarriestheburden_torch/csrc/cost_probe.cu", "bench.py:104"),
+    "K14": ("exp-tools", "samcarriestheburden_torch/csrc/gemm.cu", "tools/exp_int8.py:97"),
+    "K15": ("exp-tools", "samcarriestheburden_torch/csrc/quant.cu", "tools/exp_int8.py:163"),
 }
+# the TPU kernels K14 and K15 replace, by the experiment that ran them
+TOOL_KERNELS = {"pallas_dot": "tools/exp_int8.py:97", "exp_3d": "tools/exp_3d.py:61,83,104",
+                "mlp_int8_chunk": "tools/exp_int8.py:163", "diag": "tools/exp_int8.py:227",
+                "exp_mlp2": "tools/exp_mlp2.py:110"}
 
 
 # the kernel behind each field of the floating-point ``EncoderOps``
@@ -1603,6 +1642,229 @@ def phase_k13(torch, dev, launches: int) -> dict:
             "bound_by": bound_by, "library_ms": library_ms}
 
 
+def phase_tools(torch, kernels):
+    """(e) The port's experiment tools (``tools/exp_int8``, ``exp_mlp2``,
+    ``exp_3d``) at their full shapes, counted: every experiment must have made
+    exactly its launches (one per call of its kernel; none for the library
+    products).  Returns the run's launches and each tool's numbers."""
+    from samcarriestheburden_torch.tools import exp_3d, exp_int8, exp_mlp2, timing
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = {"exp_int8": exp_int8.run(), "exp_mlp2": exp_mlp2.run(), "exp_3d": exp_3d.run()}
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"experiment tools in {time.perf_counter() - t0:.1f} s, launches {launches}")
+    calls = 1 + timing.WARMUP + timing.ITERS
+    want = {"xla_dot_bf16": {}, "xla_dot_int8": {}, "pallas_dot_bf16": {"K14": calls},
+            "pallas_dot_int8": {"K14": calls}, "mlp_bf16": {"K3": calls},
+            "mlp_int8_preq": {"K4": calls}}
+    for tool, numbers in res.items():
+        check(list(numbers) == list({"exp_int8": exp_int8, "exp_mlp2": exp_mlp2,
+                                     "exp_3d": exp_3d}[tool].NAMES), f"{tool} skipped a name")
+        for name, r in numbers.items():
+            expect = want.get(name, {"K14": calls} if tool == "exp_3d" else {"K15": calls})
+            check(r["launches"] == expect, f"{tool} {name} launched {r['launches']}, not {expect}")
+    for name in ("K3", "K4", "K14", "K15"):
+        check(launches[name] >= 1, f"{name} was not launched by the experiment tools")
+    return launches, res
+
+
+def phase_k14(torch, res, dev) -> list:
+    """K14 in its three modes against its plain version on the tools' inputs
+    (the int32 product equal), timed beside the library's product; its rows
+    of the kernels line, with the launches of the tools' run."""
+    from samcarriestheburden_torch.kernels import gemm as gemm_k
+    from samcarriestheburden_torch.tools import exp_3d, exp_int8
+
+    v = exp_int8.inputs(dev)
+    x2, wt = exp_3d.experiments(dev)["dot2d"][1]
+
+    def launched(tool, names):
+        return sum(res[tool][n]["launches"].get("K14", 0) for n in names)
+
+    cases = [("bf16->fp32", "exp_int8 pallas_dot_bf16", (v["xb"], v["w1b"]), torch.float32,
+              launched("exp_int8", ["pallas_dot_bf16"]), TOOL_KERNELS["pallas_dot"],
+              lambda a, w: torch.mm(a, w.t(), out_dtype=torch.float32), "torch.mm(out_dtype=fp32)"),
+             ("int8->int32", "exp_int8 pallas_dot_int8", (v["xq"], v["w1q"]), torch.int32,
+              launched("exp_int8", ["pallas_dot_int8"]), TOOL_KERNELS["pallas_dot"],
+              lambda a, w: torch._int_mm(a, w.t()), "torch._int_mm"),
+             ("bf16->bf16", "exp_3d dot3d dotreshape dot2d", (x2, wt), torch.bfloat16,
+              launched("exp_3d", exp_3d.NAMES), TOOL_KERNELS["exp_3d"],
+              lambda a, w: torch.matmul(a, w.t()), "torch.matmul")]
+    rows = []
+    for mode, path, (a, w), out_dtype, n_launches, replaces, library, lib_name in cases:
+        out = gemm_k.dot(a, w, out_dtype)
+        ref = gemm_k.dot_plain(a, w, out_dtype)
+        lib_out = library(a, w)
+        torch.cuda.synchronize()
+        err, scale = max_err(out, ref), ref.double().abs().max().item()
+        equal = (out == ref).double().mean().item()
+        lib_err = max_err(lib_out, ref)
+        del out, ref, lib_out
+        m, k = a.shape
+        n = w.shape[0]
+        ms = card_ms(torch, lambda: gemm_k.dot(a, w, out_dtype))
+        plain_ms = card_ms(torch, lambda: gemm_k.dot_plain(a, w, out_dtype), iters=3, warmup=1)
+        library_ms = card_ms(torch, lambda: library(a, w))
+        ops = 2.0 * m * n * k
+        nbytes = a.numel() * a.element_size() + w.numel() * w.element_size() \
+            + m * n * torch.empty((), dtype=out_dtype).element_size()
+        bound_ms, bound_by = bound(0.0, nbytes, ops) if out_dtype == torch.int32 \
+            else bound(ops, nbytes)
+        log(f"K14 {mode} on ({m}, {k}) x ({n}, {k}): max abs err {err:.4g} vs max |plain| "
+            f"{scale:.4g} ({err / scale:.3g}; {equal:.6f} of the entries equal; "
+            f"{lib_name} {lib_err / scale:.3g}), {ms:.4f} ms (plain {plain_ms:.4f}, "
+            f"{lib_name} {library_ms:.4f}, bound {bound_ms:.4f} by {bound_by}); "
+            f"{ops / (ms * 1e-3) / 1e12:.1f} Tops/s")
+        if out_dtype == torch.int32:
+            check(err == 0, "K14 int8 -> int32 differs from the exact product")
+        else:
+            check(err <= K14_TOL[mode] * scale, f"K14 {mode} disagrees with its plain version")
+        rows.append({"name": "K14", "path": path, "mode": mode, "shape": [m, k, n],
+                     "route": "cuda", "source": KERNELS["K14"][1], "replaces": replaces,
+                     "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                     "library": lib_name})
+    return rows
+
+
+def k15_stressed(torch, quant_k, t, e, m, chunks, gen):
+    """K15's stressed operands at (t, e, m): K4's, with the hidden channels
+    of chunk j scaled by K15_SPREAD^(j - (chunks - 1) / 2) in lin1 and by its
+    inverse in lin2."""
+    dev = gen.device
+
+    def randn(*shape, std=1.0, mean=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * std + mean
+
+    def chan(n):
+        return 0.2 + 2.8 * torch.rand((n, 1), generator=gen, device=dev)
+
+    c = K15_SPREAD ** (torch.arange(m, device=dev) // (m // chunks) - (chunks - 1) / 2)
+    w1 = randn(m, e, std=e ** -0.5) * chan(m) * c[:, None]
+    w2 = randn(e, m, std=m ** -0.5) * chan(e) / c[None, :]
+    return (randn(t, e).bfloat16(), randn(e, std=0.5, mean=1.0), randn(e, std=0.5),
+            *quant_k.quantize_weight(w1), randn(m, std=0.5) * c, *quant_k.quantize_weight(w2),
+            randn(e, mean=1.0))
+
+
+def k15_variant(torch, quant_k, args, *, chunks, act, fault):
+    """Planted faults of K15: its plain arithmetic (div row quantization) with
+    one step wrong."""
+    x, g, b, w1q, s1, b1, w2q, s2, b2 = args
+    xf = x.float()
+    xq, sx = quant_k.row_quant(torch.nn.functional.layer_norm(xf, x.shape[-1:], g, b, 1e-6))
+    ch = w1q.shape[0] // chunks
+    cols = [slice(j * ch, (j + 1) * ch) for j in range(chunks)]
+    hs = [exact_product(xq, w1q[c]) * (sx * s1[c]) + b1[c] for c in cols]
+    hs = [h * torch.sigmoid(h) if fault == "sigmoid's 1.702 dropped" else
+          quant_k.activation(h, act) for h in hs]
+    if fault == "one hidden scale per row":
+        _, s_row = quant_k.row_quant(torch.cat(hs, 1))
+        y = sum(exact_product(torch.round(h / s_row), w2q[:, c]) for h, c in zip(hs, cols)) \
+            * (s_row * s2)
+    elif fault == "chunk partials summed in int32":
+        q = [quant_k.row_quant(h) for h in hs]
+        y = sum(exact_product(hq, w2q[:, c]) for (hq, _), c in zip(q, cols)) \
+            * (torch.stack([sh for _, sh in q]).amax(0) * s2)
+    elif fault == "the fixed scale's 1/8 dropped":
+        y = sum(exact_product(torch.clamp(torch.round(h * 8.0), -128, 127), w2q[:, c])
+                for h, c in zip(hs, cols)) * s2
+    else:
+        q = [quant_k.row_quant(h) for h in hs]
+        y = sum(exact_product(hq, w2q[:, c]) * (sh * s2) for (hq, sh), c in zip(q, cols))
+    return (xf + y + b2).to(x.dtype)
+
+
+def phase_k15(torch, res, gen, dev) -> list:
+    """K15 in every configuration the tools run, on each tool's inputs,
+    against its plain version; K15 against K4 bit for bit at K4's settings;
+    K15 stressed with planted faults.  Its rows of the kernels line (one per
+    configuration, with the launches of the tools' names that run it)."""
+    from samcarriestheburden_torch.kernels import quant as quant_k
+    from samcarriestheburden_torch.tools import exp_int8, exp_mlp2
+
+    v = exp_int8.inputs(dev)
+    tool_args = {"exp_int8": (v["xb"], v["g"], v["b"], v["w1q"], v["s1"], v["b1"], v["w2q"],
+                              v["s2"], v["b2"]),
+                 "exp_mlp2": exp_mlp2.inputs(dev)}
+    del v
+    kern, plain = quant_k.ln_mlp_residual_int8_exp, quant_k.ln_mlp_residual_int8_exp_plain
+    args = tool_args["exp_int8"]
+    for gelu in quant_k.GELU_IMPLS:
+        k4 = quant_k.ln_mlp_residual_int8(*args, gelu=gelu)
+        k15 = kern(*args, act=gelu)
+        torch.cuda.synchronize()
+        log(f"K15 at K4's settings (chunks 1, div, act {gelu}) vs K4 on the exp_int8 inputs: "
+            f"bit for bit {torch.equal(k15.view(torch.int16), k4.view(torch.int16))}")
+        check(torch.equal(k15.view(torch.int16), k4.view(torch.int16)),
+              f"K15 differs from K4 at K4's settings (gelu {gelu})")
+    del k4, k15
+    configs = {}
+    for tool, mod in (("exp_int8", exp_int8), ("exp_mlp2", exp_mlp2)):
+        for name, flags in mod.K15_EXPERIMENTS.items():
+            flags = {"chunks": 1, "act": "poly", "rq": "div", "fixed_hscale": False, **flags}
+            configs.setdefault((tool, tuple(flags.items())), []).append(name)
+    rows = []
+    seen = {"chunks": set(), "act": set(), "rq": set(), "fixed_hscale": set()}
+    for (tool, flags), names in configs.items():
+        flags = dict(flags)
+        for key, value in flags.items():
+            seen[key].add(value)
+        a = tool_args[tool]
+        out, ref = kern(*a, **flags), plain(*a, **flags)
+        torch.cuda.synchronize()
+        err, scale = max_err(out, ref), ref.float().abs().max().item()
+        equal = (out == ref).float().mean().item()
+        del out, ref
+        ms = card_ms(torch, lambda: kern(*a, **flags))
+        plain_ms = card_ms(torch, lambda: plain(*a, **flags), iters=3, warmup=1)
+        t, e = a[0].shape
+        m = a[3].shape[0]
+        ops = 4.0 * t * e * m
+        nbytes = 2 * 2 * t * e + 2 * e * m + 4 * (2 * m + 4 * e)
+        bound_ms, bound_by = bound(0.0, nbytes, ops)
+        log(f"K15 {tool} {'/'.join(names)} {flags}: max abs err {err:.4g} vs max |plain| "
+            f"{scale:.4g} ({err / scale:.3g}, tol {KERNEL_TOL['K4']}; {equal:.6f} equal), "
+            f"{ms:.4f} ms (plain {plain_ms:.4f}, bound {bound_ms:.4f} by {bound_by}); "
+            f"{ops / (ms * 1e-3) / 1e12:.1f} Tops/s")
+        check(err <= KERNEL_TOL["K4"] * scale, f"K15 {flags} disagrees with its plain version")
+        key = "exp_mlp2" if tool == "exp_mlp2" else \
+            ("mlp_int8_chunk" if names[0].startswith("mlp_int8_chunk") else "diag")
+        rows.append({"name": "K15", "path": f"{tool} {' '.join(names)}", "flags": flags,
+                     "shape": [t, e, m], "route": "cuda", "source": KERNELS["K15"][1],
+                     "replaces": TOOL_KERNELS[key],
+                     "launches": sum(res[tool][n]["launches"]["K15"] for n in names),
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
+    check(seen == {"chunks": {1, 2, 4, 8}, "act": set(quant_k.ACTS),
+                   "rq": set(quant_k.ROW_QUANTS), "fixed_hscale": {False, True}},
+          f"the tools left a K15 flag value unchecked: {seen}")
+    del tool_args
+    t, e, m = exp_int8.T, exp_int8.E, exp_int8.M
+    for flags, faults in ((dict(chunks=4, act="sigmoid"),
+                           ("one hidden scale per row", "chunk partials summed in int32",
+                            "sigmoid's 1.702 dropped")),
+                          (dict(chunks=2, act="relu", fixed_hscale=True),
+                           ("the fixed scale's 1/8 dropped",)),
+                          (dict(chunks=8, act="erf", rq="recip"), ("one hidden scale per row",))):
+        a = k15_stressed(torch, quant_k, t, e, m, flags["chunks"], gen)
+        ref = plain(*a, **flags)
+        tol = STRESS_TOL["K4"] * ref.float().abs().max().item()
+        err = max_err(kern(*a, **flags), ref)
+        misses = {f: max_err(k15_variant(torch, quant_k, a, chunks=flags["chunks"],
+                                         act=flags["act"], fault=f), ref) for f in faults}
+        log(f"K15 {flags} stressed: max abs err {err:.4g} (tol {tol:.4g}); planted faults miss by "
+            + ", ".join(f"{f} {d:.4g}" for f, d in misses.items())
+            + f" (must be >= {FAULT_MARGIN * tol:.4g})")
+        check(err <= tol, f"K15 {flags} disagrees with its plain version on stressed inputs")
+        for f, d in misses.items():
+            check(d >= FAULT_MARGIN * tol, f"K15's stressed check cannot see '{f}'")
+        del a, ref
+    return rows
+
+
 def phase_embed_int8(torch, kernels, cfg, model, make_serving_encoder, two_round_decode,
                      inputs, n_classes: int, emb_bf16, results_bf16, bf16_ips: float,
                      enhance_ips: float):
@@ -2330,6 +2592,13 @@ def main() -> int:
         rows.append(row_of(name, "int8pv-tool", launches_tool[name], (qkv7, tables7), kw7))
     del recorded_k7, qkv7
     rows.append(phase_k13(torch, dev, launches_bench["K13"]))
+
+    # 6c. the experiment tools at their shapes, counted (K3, K4, K14 and K15
+    # launch there); K14 in its three modes and K15 in every configuration
+    # against their plain versions, K15 against K4 and stressed
+    _, tool_res = phase_tools(torch, kernels)
+    rows += phase_k14(torch, tool_res, dev)
+    rows += phase_k15(torch, tool_res, torch.Generator(device=dev).manual_seed(7), dev)
 
     # 7. the tiny config through the kernels vs the reference golden --------
     phase_golden(torch, np, sam_vit_t_config(), ImageEncoderViT, KERNEL_OPS, KERNEL_OPS_INT8,

@@ -13,8 +13,8 @@
 // E = 1280, qkv 3840 wide, MLP 5120 wide) both are matrix products with
 // ~900 (K1) and ~2500 (K3) operations per byte moved, far above the card's
 // ~295 ops/byte ridge, so tensor-core throughput bounds them.  The design: one tiled
-// tensor-core GEMM (128x128x32 tiles, 8 warps each owning 64x32, three-stage
-// cp.async ring, mma.sync m16n8k16) with the bias / GELU / residual fused
+// tensor-core GEMM (common.cuh's bf16 mainloop: 128x128x32 tiles, 8 warps each
+// owning 64x32, three-stage cp.async ring, mma.sync m16n8k16) with the bias / GELU / residual fused
 // into its epilogue, preceded by a one-warp-per-row LayerNorm pass that
 // writes the normalised bf16 rows once (the same bf16 rounding the TPU
 // kernel applies before its product).  K3 stages its (T, 5120) bf16 hidden
@@ -54,90 +54,21 @@ ln_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ add,
     out[base + i] = __float2bfloat16(((val(i) - mean) * rstd * gamma[i] + beta[i]) * m);
 }
 
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, LDS = BK + 8;
-constexpr int GEMM_THREADS = 256;
-constexpr int GEMM_SMEM = STAGES * (BM + BN) * LDS * (int)sizeof(bf16);
-
 enum { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RESIDUAL = 2 };
 
 // C[M, N] = epilogue(A[M, K] @ W[N, K]^T + bias); rows of A and W are K-contiguous.
 template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
+__global__ void __launch_bounds__(gemm_bf16::THREADS)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
             const float* __restrict__ bias, bf16* __restrict__ C,
             const bf16* __restrict__ rx, const bf16* __restrict__ radd,
             int M, int N, int K) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);
-  bf16* sB = sA + STAGES * BM * LDS;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps, 64 x 32 each
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int KT = (K + BK - 1) / BK;
-
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int i = 0; i < (BM * BK / 8) / GEMM_THREADS; ++i) {
-      const int c = tid + i * GEMM_THREADS;
-      const int r = c >> 2, kc = (c & 3) * 8;
-      const int gk = k0 + kc;
-      const bool oka = m0 + r < M && gk < K;
-      cp_async16(sA + (stage * BM + r) * LDS + kc,
-                 oka ? A + (size_t)(m0 + r) * K + gk : A, oka ? 16 : 0);
-      const bool okb = n0 + r < N && gk < K;
-      cp_async16(sB + (stage * BN + r) * LDS + kc,
-                 okb ? W + (size_t)(n0 + r) * K + gk : W, okb ? 16 : 0);
-    }
-  };
-
   float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt landed; stage kt-1 is free for the next load
-    const int nk = kt + STAGES - 1;
-    if (nk < KT) load_stage(nk % STAGES, nk);
-    cp_async_commit();
-
-    const bf16* a_s = sA + (kt % STAGES) * BM * LDS;
-    const bf16* b_s = sB + (kt % STAGES) * BN * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi], a_s + (wm * 64 + mi * 16 + (lane & 15)) * LDS + kk + (lane >> 4) * 8);
-      uint32_t bfr[4][2];
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t r[4];
-        ldmatrix_x4(r, b_s + (wn * 32 + nj * 16 + (lane & 7) + (lane >> 4) * 8) * LDS + kk +
-                           ((lane >> 3) & 1) * 8);
-        bfr[2 * nj][0] = r[0];
-        bfr[2 * nj][1] = r[1];
-        bfr[2 * nj + 1][0] = r[2];
-        bfr[2 * nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
-    }
-  }
-  cp_async_wait<0>();
+  gemm_bf16_mainloop(A, W, M, N, K, smem, acc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int m0 = blockIdx.y * gemm_bf16::BM, n0 = blockIdx.x * gemm_bf16::BN;
 
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) {
@@ -177,11 +108,12 @@ template <int EPI>
 cudaError_t launch_gemm(const bf16* A, const bf16* W, const float* bias, bf16* C,
                         const bf16* rx, const bf16* radd, int M, int N, int K,
                         cudaStream_t stream) {
+  using namespace gemm_bf16;
   cudaError_t err = cudaFuncSetAttribute(gemm_kernel<EPI>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<EPI><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(A, W, bias, C, rx, radd, M, N, K);
+  gemm_kernel<EPI><<<grid, THREADS, SMEM, stream>>>(A, W, bias, C, rx, radd, M, N, K);
   return cudaGetLastError();
 }
 

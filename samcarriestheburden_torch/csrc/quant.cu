@@ -9,6 +9,15 @@
 //    h = GELU(int32(xq @ W1q^T) * (sx * s1) + b1)            fp32
 //    hq, sh = rowquant(h)                                    from the fp32 h
 //    out = bf16(s + int32(hq @ W2q^T) * (sh * s2) + b2)
+// K15 replaces the int8 MLP variants of the JAX experiment tools,
+//    tools/exp_int8.py:mk_chunked and :mk_diag, tools/exp_mlp2.py:mk: K4
+//    (without add) with the hidden split into `chunks` column chunks of ch = M /
+//    chunks, each requantized per (row, chunk) by its own absmax and its lin2
+//    partial dequantized and summed in fp32 in chunk order; the activation erf,
+//    poly, sigmoid (h * sigmoid(1.702 h)) or relu; the row quantization by a
+//    divide (K4's) or by the row's reciprocal (q = rint(x * (127 / a)), s =
+//    a * (1/127)); or a fixed hidden scale of 1/8 (q = sat_s8(rint(8 h))).
+//    At chunks = 1, divide, no fixed scale and GELU it is K4 bit for bit.
 // Weights are int8 (out, in) with fp32 per-output-channel scales; LayerNorm
 // statistics, GELU and the residual are fp32; the rounding is half-to-even
 // and the quotient a true division, as in the TPU kernels.
@@ -31,26 +40,42 @@
 // as integers), a pass quantizes the rows, and the second GEMM reads int8.
 // That staging moves 4 + 4 + 1 + 1 bytes per hidden element that the
 // function itself does not need; keeping the hidden on chip is later work.
+// The two GEMMs are common.cuh's int8 mainloop, which K14 times bare.  K15
+// runs K4's passes with three changes: the first GEMM's epilogue folds the
+// absmax per (row, chunk) (ch % 128 == 0, so a column tile lies in one
+// chunk), the quantize pass takes each chunk's scale (or the fixed 1/8) and
+// writes it, and the second GEMM flushes its int32 accumulators at every
+// chunk boundary but the last (ch / 64 k-tiles) into fp32 ones, dequantized
+// by the chunk's row scale; the epilogue lands the last chunk's partial on
+// the residual plus that sum in one fused multiply-add, as K4 lands its one
+// partial, so that K15 at K4's settings is K4 bit for bit.  Its fp32 sums
+// cost registers: 184 a thread in the second GEMM against K4's 96.
 #include "common.cuh"
 
 namespace {
 
 constexpr int LN_ROWS = 8;  // rows per LayerNorm block, one warp each
 
+// rint(v / s) four times, packed; RECIP: rint(v * s), s the row's 127 / absmax
+template <bool RECIP = false>
 __device__ __forceinline__ uint32_t pack_s8(float a, float b, float c, float d, float s) {
-  const int q0 = __float2int_rn(a / s), q1 = __float2int_rn(b / s);
-  const int q2 = __float2int_rn(c / s), q3 = __float2int_rn(d / s);
+  const int q0 = __float2int_rn(RECIP ? a * s : a / s), q1 = __float2int_rn(RECIP ? b * s : b / s);
+  const int q2 = __float2int_rn(RECIP ? c * s : c / s), q3 = __float2int_rn(RECIP ? d * s : d / s);
   return (uint32_t)(q0 & 0xff) | ((uint32_t)(q1 & 0xff) << 8) | ((uint32_t)(q2 & 0xff) << 16) |
          ((uint32_t)(q3 & 0xff) << 24);
 }
 
 // xq[row] = rint(xn / sx[row]) with xn = LN(x (+ add)) * mask; E % 4 == 0.
-// hmax, where given, is zeroed for the row absmax the first GEMM folds in.
+// RECIP: xq[row] = rint(xn * (127 / a)), sx[row] = a * (1/127), a = max(absmax, 1e-12).
+// hmax, where given, has its nh entries of the row zeroed for the absmax the
+// first GEMM folds in.
+template <bool RECIP = false>
 __global__ void __launch_bounds__(LN_ROWS * 32)
 ln_quant_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ add,
                      const bf16* __restrict__ mask, const float* __restrict__ gamma,
                      const float* __restrict__ beta, int8_t* __restrict__ xq,
-                     float* __restrict__ sx, float* __restrict__ hmax, int T, int E, float eps) {
+                     float* __restrict__ sx, float* __restrict__ hmax, int nh, int T, int E,
+                     float eps) {
   const int row = blockIdx.x * LN_ROWS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= T) return;
@@ -96,27 +121,53 @@ ln_quant_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ add,
     norm4(i, v);
     amax = fmaxf(fmaxf(amax, fmaxf(fabsf(v[0]), fabsf(v[1]))), fmaxf(fabsf(v[2]), fabsf(v[3])));
   }
-  const float scale = fmaxf(warp_max(amax), 1e-12f) / 127.f;
+  const float a = fmaxf(warp_max(amax), 1e-12f);
+  const float scale = RECIP ? a * (1.f / 127.f) : a / 127.f;
+  const float step = RECIP ? 127.f / a : scale;
   for (int i = lane * 4; i < E; i += 128) {
     norm4(i, v);
-    *reinterpret_cast<uint32_t*>(xq + base + i) = pack_s8(v[0], v[1], v[2], v[3], scale);
+    *reinterpret_cast<uint32_t*>(xq + base + i) = pack_s8<RECIP>(v[0], v[1], v[2], v[3], step);
   }
   if (lane == 0) {
     sx[row] = scale;
-    if (hmax != nullptr) hmax[row] = 0.f;
+    if (hmax != nullptr)
+      for (int j = 0; j < nh; ++j) hmax[(size_t)row * nh + j] = 0.f;
   }
 }
 
-// hq[row] = rint(h[row] / sh) with sh = max(hmax[row], 1e-12) / 127; M % 4 == 0.
+enum { RQ_DIV = 0, RQ_RECIP = 1, RQ_FIXED = 2 };
+
+// hq[row, c] = the row quantization of the hidden h[row, c] within its chunk
+// j = c / ch, from the chunk's absmax hmax[row, j]: K4's rint(h / sh) with sh =
+// max(hmax, 1e-12) / 127 (one chunk, ch = M), or K15's (RQ_RECIP: rint(h *
+// (127 / a)), sh = a * (1/127); RQ_FIXED: sat_s8(rint(8 h)), sh = 1/8).  Where
+// given, sh[row, j] receives the scale.  M % 4 == 0, ch % 4 == 0.
+template <int RQ>
 __global__ void __launch_bounds__(256)
-quant_rows_kernel(const float* __restrict__ h, const float* __restrict__ hmax,
-                  int8_t* __restrict__ hq, size_t total4, int M) {
+quant_chunks_kernel(const float* __restrict__ h, const float* __restrict__ hmax,
+                    int8_t* __restrict__ hq, float* __restrict__ sh, size_t total4, int M, int ch,
+                    int chunks) {
   const size_t i4 = (size_t)blockIdx.x * 256 + threadIdx.x;
   if (i4 >= total4) return;
   const size_t i = i4 * 4;
-  const float sh = fmaxf(hmax[i / M], 1e-12f) / 127.f;
+  const size_t row = i / M;
+  const int col = (int)(i % M), j = col / ch;
   const float4 v = *reinterpret_cast<const float4*>(h + i);
-  *reinterpret_cast<uint32_t*>(hq + i) = pack_s8(v.x, v.y, v.z, v.w, sh);
+  float s;
+  uint32_t q;
+  if constexpr (RQ == RQ_FIXED) {
+    auto sat = [](float x) {
+      return (uint32_t)(min(max(__float2int_rn(x * 8.f), -128), 127) & 0xff);
+    };
+    q = sat(v.x) | (sat(v.y) << 8) | (sat(v.z) << 16) | (sat(v.w) << 24);
+    s = 0.125f;
+  } else {
+    const float a = fmaxf(hmax[row * chunks + j], 1e-12f);
+    s = RQ == RQ_RECIP ? a * (1.f / 127.f) : a / 127.f;
+    q = pack_s8<RQ == RQ_RECIP>(v.x, v.y, v.z, v.w, RQ == RQ_RECIP ? 127.f / a : s);
+  }
+  *reinterpret_cast<uint32_t*>(hq + i) = q;
+  if (sh != nullptr && col % ch == 0) sh[row * chunks + j] = s;
 }
 
 // K4's GELU, fp32.  'poly': the odd-polynomial fit of Phi, Horner in u = h^2.
@@ -144,99 +195,78 @@ __device__ __forceinline__ float gelu_erf(float h) {
   return 0.5f * h * (1.f + sign * erf_a);
 }
 
-// byte geometry: 64 contracted int8 per stage, rows padded to 80 bytes so the
-// eight 16-byte rows of an ldmatrix tile fall in distinct banks
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3, LDS = BK + 16;
-constexpr int GEMM_THREADS = 256;
-constexpr int GEMM_SMEM = STAGES * (BM + BN) * LDS;
+enum {
+  EPI_BIAS = 0, EPI_GELU_POLY = 1, EPI_GELU_ERF = 2, EPI_RESIDUAL = 3,
+  EPI_SIGMOID = 4, EPI_RELU = 5, EPI_RESIDUAL_CHUNKED = 6
+};
 
-enum { EPI_BIAS = 0, EPI_GELU_POLY = 1, EPI_GELU_ERF = 2, EPI_RESIDUAL = 3 };
+__host__ __device__ constexpr bool is_act(int epi) {
+  return epi == EPI_GELU_POLY || epi == EPI_GELU_ERF || epi == EPI_SIGMOID || epi == EPI_RELU;
+}
 
-// acc[M, N] = A[M, K] @ W[N, K]^T in int32; rows of A and W are K-contiguous int8.
+template <int EPI>
+__device__ __forceinline__ float activation(float h) {
+  if constexpr (EPI == EPI_GELU_POLY) return gelu_poly(h);
+  else if constexpr (EPI == EPI_GELU_ERF) return gelu_erf(h);
+  else if constexpr (EPI == EPI_SIGMOID) return h * (1.f / (1.f + expf(-1.702f * h)));
+  else return fmaxf(h, 0.f);
+}
+
+// acc[M, N] = A[M, K] @ W[N, K]^T in int32 (common.cuh's int8 mainloop); rows
+// of A and W are K-contiguous int8.
 //   EPI_BIAS       C bf16 = acc * (sa[row] * sw[col]) + bias[col]
-//   EPI_GELU_*     C fp32 = GELU(the same); rowmax[row] = max |C[row, :]|
+//   activations    C fp32 = act(the same); rowmax[row, col / ch] = max |C| over the
+//                  row's columns of chunk col / ch, (M, chunks) (ch % 128 == 0)
 //   EPI_RESIDUAL   C bf16 = (rx (+ radd)) + acc * (sh * sw[col]) + bias[col],
 //                  sh = max(sa[row], 1e-12) / 127 from the row absmax in sa
+//   EPI_RESIDUAL_CHUNKED  the same without radd, the contraction in chunks of
+//                  ch: chunk j's int32 partial times (sa[row, j] * sw[col]), sa the
+//                  chunk scales (M, chunks), summed in fp32 in chunk order
+//                  (ch % 64 == 0); the last chunk's is fused onto rx + the sum
 template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
+__global__ void __launch_bounds__(gemm_s8::THREADS)
 gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
                const float* __restrict__ sa, const float* __restrict__ sw,
                const float* __restrict__ bias, void* __restrict__ Cout,
                float* __restrict__ rowmax, const bf16* __restrict__ rx,
-               const bf16* __restrict__ radd, int M, int N, int K) {
+               const bf16* __restrict__ radd, int M, int N, int K, int ch, int chunks) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* sA = reinterpret_cast<int8_t*>(smem);
-  int8_t* sB = sA + STAGES * BM * LDS;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps, 64 x 32 each
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int KT = (K + BK - 1) / BK;
-
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int i = 0; i < (BM * BK / 16) / GEMM_THREADS; ++i) {
-      const int c = tid + i * GEMM_THREADS;
-      const int r = c >> 2, kc = (c & 3) * 16;
-      const int gk = k0 + kc;
-      const bool oka = m0 + r < M && gk < K;
-      cp_async16(sA + (stage * BM + r) * LDS + kc,
-                 oka ? A + (size_t)(m0 + r) * K + gk : A, oka ? 16 : 0);
-      const bool okb = n0 + r < N && gk < K;
-      cp_async16(sB + (stage * BN + r) * LDS + kc,
-                 okb ? W + (size_t)(n0 + r) * K + gk : W, okb ? 16 : 0);
-    }
-  };
-
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int m0 = blockIdx.y * gemm_s8::BM, n0 = blockIdx.x * gemm_s8::BN;
+  constexpr bool CHUNKED = EPI == EPI_RESIDUAL_CHUNKED;
   int acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt landed; stage kt-1 is free for the next load
-    const int nk = kt + STAGES - 1;
-    if (nk < KT) load_stage(nk % STAGES, nk);
-    cp_async_commit();
-
-    const int8_t* a_s = sA + (kt % STAGES) * BM * LDS;
-    const int8_t* b_s = sB + (kt % STAGES) * BN * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi], a_s + (wm * 64 + mi * 16 + (lane & 15)) * LDS + kk + (lane >> 4) * 16);
-      uint32_t bfr[4][2];
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t r[4];
-        ldmatrix_x4(r, b_s + (wn * 32 + nj * 16 + (lane & 7) + (lane >> 4) * 8) * LDS + kk +
-                           ((lane >> 3) & 1) * 16);
-        bfr[2 * nj][0] = r[0];
-        bfr[2 * nj][1] = r[1];
-        bfr[2 * nj + 1][0] = r[2];
-        bfr[2 * nj + 1][1] = r[3];
-      }
+  float facc[CHUNKED ? 4 : 1][4][4];
+  if constexpr (CHUNKED) {
+    const int steps = ch / gemm_s8::BK;
+    gemm_s8_mainloop(A, W, M, N, K, smem, acc, [&](int kt) {
+      const int j = kt / steps;
+      if ((kt + 1) % steps != 0 || j == chunks - 1) return;  // the last chunk: the epilogue
 #pragma unroll
       for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
-    }
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = m0 + wm * 64 + mi * 16 + (lane >> 2) + hh * 8;
+          const float sr = row < M ? sa[(size_t)row * chunks + j] : 0.f;
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            const int col = n0 + wn * 32 + ni * 8 + (lane & 3) * 2;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float v = col + e < N ? (float)acc[mi][ni][2 * hh + e] * (sr * sw[col + e])
+                                          : 0.f;
+              float& f = facc[mi][ni][2 * hh + e];
+              f = j == 0 ? v : f + v;
+              acc[mi][ni][2 * hh + e] = 0;
+            }
+          }
+        }
+    });
+  } else {
+    gemm_s8_mainloop(A, W, M, N, K, smem, acc);
   }
-  cp_async_wait<0>();
 
-  constexpr bool GELU = EPI == EPI_GELU_POLY || EPI == EPI_GELU_ERF;
+  constexpr bool ACT = is_act(EPI);
   float rmax[4][2];
 #pragma unroll
   for (int mi = 0; mi < 4; ++mi) rmax[mi][0] = rmax[mi][1] = 0.f;
@@ -253,10 +283,25 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
       for (int hh = 0; hh < 2; ++hh) {
         const int row = m0 + wm * 64 + mi * 16 + (lane >> 2) + hh * 8;
         if (row >= M || !colok) continue;
-        const float sr = EPI == EPI_RESIDUAL ? fmaxf(sa[row], 1e-12f) / 127.f : sa[row];
         const size_t o = (size_t)row * N + col;
-        float v0 = (float)acc[mi][ni][2 * hh] * (sr * w0);
-        float v1 = (float)acc[mi][ni][2 * hh + 1] * (sr * w1);
+        float v0, v1;
+        if constexpr (CHUNKED) {
+          // the last chunk's partial lands on the residual and the earlier
+          // chunks' sum in one fused multiply-add, as K4's single chunk does
+          const float sr = sa[(size_t)row * chunks + chunks - 1];
+          const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(rx + o);
+          float s0 = __bfloat162float(xv.x), s1 = __bfloat162float(xv.y);
+          if (chunks > 1) {
+            s0 += facc[mi][ni][2 * hh];
+            s1 += facc[mi][ni][2 * hh + 1];
+          }
+          v0 = __fmaf_rn((float)acc[mi][ni][2 * hh], sr * w0, s0) + b0;
+          v1 = __fmaf_rn((float)acc[mi][ni][2 * hh + 1], sr * w1, s1) + b1;
+        } else {
+          const float sr = EPI == EPI_RESIDUAL ? fmaxf(sa[row], 1e-12f) / 127.f : sa[row];
+          v0 = (float)acc[mi][ni][2 * hh] * (sr * w0);
+          v1 = (float)acc[mi][ni][2 * hh + 1] * (sr * w1);
+        }
         if (EPI == EPI_RESIDUAL) {
           const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(rx + o);
           float s0 = __bfloat162float(xv.x), s1 = __bfloat162float(xv.y);
@@ -267,13 +312,13 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
           }
           v0 = (s0 + v0) + b0;
           v1 = (s1 + v1) + b1;
-        } else {
+        } else if (!CHUNKED) {
           v0 += b0;
           v1 += b1;
         }
-        if (GELU) {
-          v0 = EPI == EPI_GELU_POLY ? gelu_poly(v0) : gelu_erf(v0);
-          v1 = EPI == EPI_GELU_POLY ? gelu_poly(v1) : gelu_erf(v1);
+        if (ACT) {
+          v0 = activation<EPI>(v0);
+          v1 = activation<EPI>(v1);
           rmax[mi][hh] = fmaxf(rmax[mi][hh], fmaxf(fabsf(v0), fabsf(v1)));
           *reinterpret_cast<float2*>(static_cast<float*>(Cout) + o) = make_float2(v0, v1);
         } else {
@@ -284,8 +329,9 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
     }
   }
 
-  if (GELU) {
-    // the four lanes of a quad hold one row's columns of this warp's 32
+  if (ACT) {
+    // the four lanes of a quad hold one row's columns of this warp's 32; the
+    // block's 128 columns lie in chunk n0 / ch
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
@@ -295,29 +341,60 @@ gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
         r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
         const int row = m0 + wm * 64 + mi * 16 + (lane >> 2) + hh * 8;
         if ((lane & 3) == 0 && row < M)
-          atomicMax(reinterpret_cast<int*>(rowmax + row), __float_as_int(r));
+          atomicMax(reinterpret_cast<int*>(rowmax + (size_t)row * chunks + n0 / ch),
+                    __float_as_int(r));
       }
   }
 }
 
+// ch = 0: the whole of N is one chunk (K2, K4)
 template <int EPI>
 cudaError_t launch_gemm(const int8_t* A, const int8_t* W, const float* sa, const float* sw,
                         const float* bias, void* C, float* rowmax, const bf16* rx,
-                        const bf16* radd, int M, int N, int K, cudaStream_t stream) {
+                        const bf16* radd, int M, int N, int K, cudaStream_t stream, int ch = 0,
+                        int chunks = 1) {
+  using namespace gemm_s8;
   cudaError_t err = cudaFuncSetAttribute(gemm_s8_kernel<EPI>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_s8_kernel<EPI><<<grid, GEMM_THREADS, GEMM_SMEM, stream>>>(A, W, sa, sw, bias, C, rowmax, rx,
-                                                                 radd, M, N, K);
+  gemm_s8_kernel<EPI><<<grid, THREADS, SMEM, stream>>>(A, W, sa, sw, bias, C, rowmax, rx, radd, M,
+                                                       N, K, ch > 0 ? ch : N, chunks);
   return cudaGetLastError();
 }
 
+template <bool RECIP = false>
 cudaError_t launch_ln_quant(const bf16* x, const bf16* add, const bf16* mask, const float* g,
                             const float* b, int8_t* xq, float* sx, float* hmax, int T, int E,
-                            float eps, cudaStream_t stream) {
-  ln_quant_rows_kernel<<<(T + LN_ROWS - 1) / LN_ROWS, LN_ROWS * 32, 0, stream>>>(
-      x, add, mask, g, b, xq, sx, hmax, T, E, eps);
+                            float eps, cudaStream_t stream, int nh = 1) {
+  ln_quant_rows_kernel<RECIP><<<(T + LN_ROWS - 1) / LN_ROWS, LN_ROWS * 32, 0, stream>>>(
+      x, add, mask, g, b, xq, sx, hmax, nh, T, E, eps);
+  return cudaGetLastError();
+}
+
+// K15's first GEMM, its activation chosen at run time
+cudaError_t launch_gemm_act(int act, const int8_t* A, const int8_t* W, const float* sa,
+                            const float* sw, const float* bias, float* C, float* rowmax, int M,
+                            int N, int K, int ch, int chunks, cudaStream_t st) {
+  switch (act) {
+    case 0: return launch_gemm<EPI_GELU_POLY>(A, W, sa, sw, bias, C, rowmax, nullptr, nullptr, M,
+                                              N, K, st, ch, chunks);
+    case 1: return launch_gemm<EPI_GELU_ERF>(A, W, sa, sw, bias, C, rowmax, nullptr, nullptr, M,
+                                             N, K, st, ch, chunks);
+    case 2: return launch_gemm<EPI_SIGMOID>(A, W, sa, sw, bias, C, rowmax, nullptr, nullptr, M,
+                                            N, K, st, ch, chunks);
+    case 3: return launch_gemm<EPI_RELU>(A, W, sa, sw, bias, C, rowmax, nullptr, nullptr, M, N,
+                                         K, st, ch, chunks);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int RQ>
+cudaError_t launch_quant_chunks(const float* h, const float* hmax, int8_t* hq, float* sh, int T,
+                                int M, int ch, int chunks, cudaStream_t st) {
+  const size_t total4 = (size_t)T * M / 4;
+  quant_chunks_kernel<RQ><<<(unsigned)((total4 + 255) / 256), 256, 0, st>>>(h, hmax, hq, sh,
+                                                                            total4, M, ch, chunks);
   return cudaGetLastError();
 }
 
@@ -374,13 +451,59 @@ extern "C" int k4_ln_mlp_residual_int8(const void* x, const void* add, const voi
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
-  const size_t total4 = (size_t)T * M / 4;
-  quant_rows_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(hidden), hm, static_cast<int8_t*>(hq), total4, M);
-  err = cudaGetLastError();
+  err = launch_quant_chunks<RQ_DIV>(static_cast<const float*>(hidden), hm,
+                                    static_cast<int8_t*>(hq), nullptr, T, M, M, 1, st);
   if (err != cudaSuccess) return err;
   return launch_gemm<EPI_RESIDUAL>(static_cast<const int8_t*>(hq),
                                    static_cast<const int8_t*>(w2q), hm,
                                    static_cast<const float*>(s2), static_cast<const float*>(b2),
                                    out, nullptr, xb, ab, T, E, M, st);
+}
+
+// Shapes: x (T, E) bf16, w1q (M, E), w2q (E, M) int8, s1, b1 (M,), s2, b2 (E,)
+// fp32; scratch xq (T, E) int8, sx (T,) fp32, hidden (T, M) fp32, hmax and sh
+// (T, chunks) fp32, hq (T, M) int8; out (T, E) bf16.
+// act: 0 GELU poly, 1 GELU erf, 2 sigmoid, 3 relu; rq: 0 divide, 1 reciprocal
+// (x's quantization and, without fixed_hscale, the hidden's); fixed_hscale:
+// the hidden at the fixed scale 1/8.  E must be a multiple of 16, M of chunks
+// and M / chunks of 128.
+extern "C" int k15_ln_mlp_residual_int8_exp(const void* x, const void* gamma, const void* beta,
+                                            const void* w1q, const void* s1, const void* b1,
+                                            const void* w2q, const void* s2, const void* b2,
+                                            void* xq, void* sx, void* hidden, void* hmax,
+                                            void* sh, void* hq, void* out, int T, int E, int M,
+                                            float eps, int chunks, int act, int rq,
+                                            int fixed_hscale, void* stream) {
+  if (E % 16 || chunks < 1 || M % chunks || (M / chunks) % gemm_s8::BN || rq < 0 || rq > 1)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ch = M / chunks;
+  const bf16* xb = static_cast<const bf16*>(x);
+  float* hm = static_cast<float*>(hmax);
+  float* hf = static_cast<float*>(hidden);
+  float* shf = static_cast<float*>(sh);
+  int8_t* hqi = static_cast<int8_t*>(hq);
+  cudaError_t err =
+      rq == 1 ? launch_ln_quant<true>(xb, nullptr, nullptr, static_cast<const float*>(gamma),
+                                      static_cast<const float*>(beta), static_cast<int8_t*>(xq),
+                                      static_cast<float*>(sx), hm, T, E, eps, st, chunks)
+              : launch_ln_quant<false>(xb, nullptr, nullptr, static_cast<const float*>(gamma),
+                                       static_cast<const float*>(beta), static_cast<int8_t*>(xq),
+                                       static_cast<float*>(sx), hm, T, E, eps, st, chunks);
+  if (err != cudaSuccess) return err;
+  err = launch_gemm_act(act, static_cast<const int8_t*>(xq), static_cast<const int8_t*>(w1q),
+                        static_cast<const float*>(sx), static_cast<const float*>(s1),
+                        static_cast<const float*>(b1), hf, hm, T, M, E, ch, chunks, st);
+  if (err != cudaSuccess) return err;
+  if (fixed_hscale)
+    err = launch_quant_chunks<RQ_FIXED>(hf, hm, hqi, shf, T, M, ch, chunks, st);
+  else if (rq == 1)
+    err = launch_quant_chunks<RQ_RECIP>(hf, hm, hqi, shf, T, M, ch, chunks, st);
+  else
+    err = launch_quant_chunks<RQ_DIV>(hf, hm, hqi, shf, T, M, ch, chunks, st);
+  if (err != cudaSuccess) return err;
+  return launch_gemm<EPI_RESIDUAL_CHUNKED>(hqi, static_cast<const int8_t*>(w2q), shf,
+                                           static_cast<const float*>(s2),
+                                           static_cast<const float*>(b2), out, nullptr, xb,
+                                           nullptr, T, E, M, st, ch, chunks);
 }

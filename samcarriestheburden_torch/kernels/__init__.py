@@ -16,7 +16,7 @@ import torch
 #: launches of each kernel since the last :func:`reset_launches`, by name
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0, "K7-int8": 0,
             "K7-pv": 0, "K7-int8pv": 0, "K8": 0, "K9": 0, "K10": 0, "K11": 0, "K12": 0,
-            "K13": 0}
+            "K13": 0, "K14": 0, "K15": 0}
 
 
 def reset_launches() -> None:

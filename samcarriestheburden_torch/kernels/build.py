@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("mlp", "quant", "attention", "block_attention", "ccl", "cost_probe")
+SOURCES = ("mlp", "quant", "attention", "block_attention", "ccl", "cost_probe", "gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

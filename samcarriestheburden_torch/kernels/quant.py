@@ -1,5 +1,6 @@
-"""K2 and K4: the int8 variants of the encoder's LayerNorm + matrix product
-kernels, over prequantized weights (JAX ``kernels/quant.py``).
+"""K2, K4 and K15: the int8 variants of the encoder's LayerNorm + matrix
+product kernels, over prequantized weights (JAX ``kernels/quant.py``), and
+K4's experimental variants.
 
 K2 ``ln_masked_linear_int8`` is K1 (``(LN(x) * mask) @ w.T + b``) and K4
 ``ln_mlp_residual_int8`` is K3 (``s + lin2(GELU(lin1(LN(s))))``, ``s = x
@@ -16,6 +17,13 @@ K2 ``ln_masked_linear_int8`` is K1 (``(LN(x) * mask) @ w.T + b``) and K4
 The row quantization needs no clip: with ``s = absmax / 127`` the scaled
 magnitudes round to at most 127.  Weights are int8 ``(out, in)`` like
 ``nn.Linear``, their scales fp32 ``(out,)``.
+
+K15 ``ln_mlp_residual_int8_exp`` is K4 (without ``add``) with the variants
+of the JAX experiment tools (``tools/exp_int8.py:mk_chunked``, ``mk_diag``,
+``tools/exp_mlp2.py:mk``): the hidden split into column chunks, each
+requantized per (row, chunk) and its lin2 partial dequantized and summed in
+fp32; other activations; the row quantization by the reciprocal; a fixed
+hidden scale.
 
 The plain versions do the integer products in float64: K2's and K4's
 accumulants reach 127^2 * 1280 and 127^2 * 5120, beyond float32's 2^24, and
@@ -43,6 +51,11 @@ PHI_POLY = (1.0962050526e-08, -9.3423034307e-07, 3.3436889582e-05,
             3.9645120080e-01)
 
 GELU_IMPLS = ("poly", "erf")
+#: K15's activations and row quantizations, in the order of their C codes
+ACTS = ("poly", "erf", "sigmoid", "relu")
+ROW_QUANTS = ("div", "recip")
+#: K15's hidden scale with ``fixed_hscale``; a timing variant with wrong numbers
+FIXED_HSCALE = 8.0
 
 
 def _lib():
@@ -52,6 +65,9 @@ def _lib():
         lib.k2_ln_masked_linear_int8.restype = _I
         lib.k4_ln_mlp_residual_int8.argtypes = [_VP] * 16 + [_I, _I, _I, _F, _I, _VP]
         lib.k4_ln_mlp_residual_int8.restype = _I
+        lib.k15_ln_mlp_residual_int8_exp.argtypes = [_VP] * 16 + [_I, _I, _I, _F] + [_I] * 4 \
+            + [_VP]
+        lib.k15_ln_mlp_residual_int8_exp.restype = _I
         lib._typed = True
     return lib
 
@@ -74,6 +90,14 @@ def row_quant(x: torch.Tensor):
     (symmetric absmax; rounding half to even; no clip)."""
     s = x.abs().amax(dim=-1, keepdim=True).clamp(min=1e-12) / 127.0
     return torch.round(x / s), s
+
+
+def row_quant_recip(x: torch.Tensor):
+    """:func:`row_quant` by the row's reciprocal: ``rint(x * (127 / a))`` with
+    the scale ``a * fp32(1/127)``, ``a = max(absmax, 1e-12)`` (JAX
+    ``tools/exp_mlp2.py:_rq_recip``)."""
+    a = x.abs().amax(dim=-1, keepdim=True).clamp(min=1e-12)
+    return torch.round(x * (a.new_full((), 127.0) / a)), a * (1.0 / 127.0)
 
 
 def _int8_product(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -212,4 +236,100 @@ def ln_mlp_residual_int8(x, ln_weight, ln_bias, w1q, s1, b1, w2q, s2, b2,
         ptr(hq), ptr(out), t, e, m, eps, GELU_IMPLS.index(gelu), stream())
     raise_on_error("K4 ln_mlp_residual_int8", code)
     LAUNCHES["K4"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K15
+# ---------------------------------------------------------------------------
+
+
+def activation(h: torch.Tensor, act: str) -> torch.Tensor:
+    """K15's activation in fp32: K4's GELU (``'poly'``, ``'erf'``),
+    ``h * sigmoid(1.702 h)`` (``'sigmoid'``) or ``max(h, 0)`` (``'relu'``)."""
+    if act in GELU_IMPLS:
+        return gelu_phi_poly(h, act)
+    if act == "sigmoid":
+        return h * torch.sigmoid(1.702 * h)
+    if act == "relu":
+        return torch.clamp_min(h, 0.0)
+    raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+
+
+def _check_exp_flags(m: int, chunks: int, act: str, rq: str) -> int:
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+    if rq not in ROW_QUANTS:
+        raise ValueError(f"rq must be one of {ROW_QUANTS}, got {rq!r}")
+    if chunks < 1 or m % chunks:
+        raise ValueError(f"chunks must divide the hidden width {m}, got {chunks}")
+    return m // chunks
+
+
+def ln_mlp_residual_int8_exp_plain(x, ln_weight, ln_bias, w1q, s1, b1, w2q, s2, b2, *,
+                                   chunks: int = 1, act: str = "poly", rq: str = "div",
+                                   fixed_hscale: bool = False, eps: float = 1e-6):
+    """Plain version of K15.  x (T, E); w1q (M, E), w2q (E, M) int8; s1, b1
+    (M,), s2, b2 (E,) fp32.  For each chunk j of ``M // chunks`` hidden
+    columns, in order: ``h = act(int32(xq @ w1q[j].T) * (sx * s1[j]) + b1[j])``,
+    ``hq, sh = rq(h)`` (or ``sat_s8(rint(8 h))``, ``1/8`` with
+    ``fixed_hscale``), ``acc += int32(hq @ w2q[:, j].T) * (sh * s2)``; then
+    ``(x + acc) + b2`` in x's dtype.  At ``chunks=1, rq='div'``, no fixed scale
+    and a GELU it is :func:`ln_mlp_residual_int8_plain` without ``add``."""
+    ch = _check_exp_flags(w1q.shape[0], chunks, act, rq)
+    quant = row_quant if rq == "div" else row_quant_recip
+    xf = x.float()
+    xq, sx = quant(_layer_norm_f32(xf, ln_weight, ln_bias, eps))
+    acc = None
+    for j in range(chunks):
+        cols = slice(j * ch, (j + 1) * ch)
+        h = activation(_int8_product(xq, w1q[cols]) * (sx * s1[cols].float())
+                       + b1[cols].float(), act)
+        if fixed_hscale:
+            hq = torch.clamp(torch.round(h * FIXED_HSCALE), -128, 127)
+            sh = torch.full_like(sx, 1.0 / FIXED_HSCALE)
+        else:
+            hq, sh = quant(h)
+        part = _int8_product(hq, w2q[:, cols]) * (sh * s2.float())
+        acc = part if acc is None else acc + part
+    return (xf + acc + b2.float()).to(x.dtype)
+
+
+def ln_mlp_residual_int8_exp(x, ln_weight, ln_bias, w1q, s1, b1, w2q, s2, b2, *,
+                             chunks: int = 1, act: str = "poly", rq: str = "div",
+                             fixed_hscale: bool = False, eps: float = 1e-6):
+    """K15: plain version for a CPU tensor, the CUDA kernel for a CUDA tensor
+    (which needs ``M // chunks`` a multiple of 128)."""
+    ch = _check_exp_flags(w1q.shape[0], chunks, act, rq)
+    if x.device.type == "cpu":
+        return ln_mlp_residual_int8_exp_plain(x, ln_weight, ln_bias, w1q, s1, b1, w2q, s2, b2,
+                                              chunks=chunks, act=act, rq=rq,
+                                              fixed_hscale=fixed_hscale, eps=eps)
+    t, e = x.shape
+    m = w1q.shape[0]
+    check_cuda("x", x, (t, e), torch.bfloat16)
+    check_cuda("ln_weight", ln_weight, (e,), torch.float32)
+    check_cuda("ln_bias", ln_bias, (e,), torch.float32)
+    check_cuda("w1q", w1q, (m, e), torch.int8)
+    check_cuda("s1", s1, (m,), torch.float32)
+    check_cuda("b1", b1, (m,), torch.float32)
+    check_cuda("w2q", w2q, (e, m), torch.int8)
+    check_cuda("s2", s2, (e,), torch.float32)
+    check_cuda("b2", b2, (e,), torch.float32)
+    if e % 16 or ch % 128:
+        raise ValueError(f"K15 needs E divisible by 16 and M / chunks by 128, got {e}, {ch}")
+    dev = x.device
+    xq = torch.empty((t, e), dtype=torch.int8, device=dev)
+    sx = torch.empty((t,), dtype=torch.float32, device=dev)
+    hidden = torch.empty((t, m), dtype=torch.float32, device=dev)
+    hmax = torch.empty((t, chunks), dtype=torch.float32, device=dev)
+    sh = torch.empty((t, chunks), dtype=torch.float32, device=dev)
+    hq = torch.empty((t, m), dtype=torch.int8, device=dev)
+    out = torch.empty_like(x)
+    code = _lib().k15_ln_mlp_residual_int8_exp(
+        ptr(x), ptr(ln_weight), ptr(ln_bias), ptr(w1q), ptr(s1), ptr(b1), ptr(w2q), ptr(s2),
+        ptr(b2), ptr(xq), ptr(sx), ptr(hidden), ptr(hmax), ptr(sh), ptr(hq), ptr(out), t, e, m,
+        eps, chunks, ACTS.index(act), ROW_QUANTS.index(rq), int(fixed_hscale), stream())
+    raise_on_error("K15 ln_mlp_residual_int8_exp", code)
+    LAUNCHES["K15"] += 1
     return out

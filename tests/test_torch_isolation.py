@@ -120,15 +120,21 @@ def test_cuda_sources_are_registered_and_stand_alone():
         if path.suffix == ".cu":
             assert 'extern "C"' in text, path.name
     quant = (build.CSRC / "quant.cu").read_text()
-    for symbol in ("k2_ln_masked_linear_int8", "k4_ln_mlp_residual_int8", "mma_s8"):
+    for symbol in ("k2_ln_masked_linear_int8", "k4_ln_mlp_residual_int8",
+                   "k15_ln_mlp_residual_int8_exp", "gemm_s8_mainloop"):
         assert symbol in quant
+    gemm = (build.CSRC / "gemm.cu").read_text()
+    assert "k14_dot" in gemm and "gemm_bf16_mainloop" in gemm and "gemm_s8_mainloop" in gemm
+    assert "gemm_bf16_mainloop" in (build.CSRC / "mlp.cu").read_text()
     attention = (build.CSRC / "attention.cu").read_text()
     assert "k7_rel_attention_global_int8" in attention and "mma_s8" in attention
     assert "k7_rel_attention_global_pv" in attention and "v_quant_kernel" in attention
     assert "k13_cost_probe" in (build.CSRC / "cost_probe.cu").read_text()
     block = (build.CSRC / "block_attention.cu").read_text()
     assert "k12_window_block_attention" in block and "atomicAdd" in block and "mma_bf16" in block
-    assert "m16n8k32.row.col.s32.s8.s8.s32" in (build.CSRC / "common.cuh").read_text()
+    common = (build.CSRC / "common.cuh").read_text()
+    assert "m16n8k32.row.col.s32.s8.s8.s32" in common
+    assert "mma_s8(acc" in common and "mma_bf16(acc" in common   # in the shared mainloops
 
 
 #: the C entry point of every counted kernel and the registered source that holds it
@@ -146,7 +152,9 @@ ENTRY_POINTS = {"K1": ("mlp", "k1_"), "K2": ("quant", "k2_ln_masked_linear_int8"
                 "K12": ("block_attention", "k12_window_block_attention", "attention"),
                 "K7-pv": ("attention", "k7_rel_attention_global_pv"),
                 "K7-int8pv": ("attention", "k7_rel_attention_global_pv"),
-                "K13": ("cost_probe", "k13_cost_probe")}
+                "K13": ("cost_probe", "k13_cost_probe"),
+                "K14": ("gemm", "k14_dot"),
+                "K15": ("quant", "k15_ln_mlp_residual_int8_exp")}
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
