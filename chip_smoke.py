@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. builds the port's CUDA kernels (K1, K2, K3, K4, K5, K6, K7, K7-int8,
-   K7-pv, K7-int8pv, K8, K9, K10, K11, K12, K13, K14, K15) from
+   K7-pv, K7-int8pv, K8, K9, K10, K11, K12, K13, K14, K15, K16) from
    ``samcarriestheburden_torch/csrc``, one ``nvcc`` per source, all at once;
 2. drives the flat embed path once at full ViT-H width and depth with seeded
    random weights: ``make_serving_encoder(model, torch.bfloat16,
@@ -70,6 +70,16 @@
    configuration the tools run against its plain version (chunks 1, 2, 4, 8,
    each activation, both row quantizations, the fixed hidden scale), equal
    to K4 bit for bit at K4's settings, and stressed with planted faults;
+4g. drives the port's attention experiment tools at their shapes
+   (``tools/exp_attn.run``, ``exp_attn2.run``: 16 heads, 200 windows of 14 x 14
+   tokens in 200 slots, 8 grids of 64 x 64), counted: every experiment makes
+   exactly one launch of its kernel per call (K5 or K7 for the v2 form and the
+   bias split, else the K16 instance of its form); then each K16 instance (v1
+   and v3 on windows and on the grid; norel, noroll, noexp on windows) against
+   its plain form on the tools' inputs, v1 and v3 nearer their own plain form
+   than any other by the share of equal bf16 outputs, K5 and K7 as the v2
+   form against the plain v2, and each K16 instance stressed with planted
+   faults (v3 on inputs at a bf16 rounding edge of its logits);
 5. holds each kernel against its plain PyTorch version on the card, on the
    inputs each of its paths gives it (the flat rows and windows; the
    compact stream's: K1-K4 on 8416 rows, K5 on 32 windows and K6, both
@@ -151,10 +161,11 @@ ORIGINAL_HW = (1600, 1119)   # the X-ray before resizing (1600 * 0.64 = 1024)
 # 0.03174 against max |plain| 1.68 (1.9 %) and max |v| ~ 4.5.  So their
 # tolerance is K7's 1.6 % of max |plain| or PV_STEPS int8 steps of v
 # (PV_STEPS * max |v| / 127), whichever is larger.
+K16_FORMS = ("K16-v1", "K16-v3", "K16-norel", "K16-noroll", "K16-noexp")
 KERNEL_TOL = {"K1": 1.6e-2, "K3": 1.6e-2, "K5": 1.6e-2, "K6": 1.6e-2, "K7": 1.6e-2,
               "K2": 0.8e-2, "K4": 0.8e-2, "K7-int8": 1.6e-2,
               "K9": 1.6e-2, "K10": 1.6e-2, "K11": 1.6e-2, "K12": 1.6e-2,
-              "K7-pv": 1.6e-2, "K7-int8pv": 1.6e-2}
+              "K7-pv": 1.6e-2, "K7-int8pv": 1.6e-2, **dict.fromkeys(K16_FORMS, 1.6e-2)}
 K12_FP32_QK_TOL = 3.2e-2
 # The random weights leave parts of each function nearly invisible at those
 # inputs (near-uniform softmax, rel tables of std 0.02, qkv bias <= 0.03), so
@@ -205,7 +216,7 @@ K12_FP32_QK_TOL = 3.2e-2
 # and ~1300.
 STRESS_TOL = {"K1": 1e-2, "K2": 1e-2, "K3": 1e-2, "K4": 1e-2, "K5": 2e-2, "K6": 2e-2,
               "K7": 2e-2, "K7-int8": 3e-2, "K9": 2e-2, "K10": 2e-2, "K11": 2e-2, "K12": 2e-2,
-              "K7-pv": 3e-2, "K7-int8pv": 3e-2}
+              "K7-pv": 3e-2, "K7-int8pv": 3e-2, **dict.fromkeys(K16_FORMS, 2e-2)}
 PV_KERNELS = ("K7-pv", "K7-int8pv")
 PV_STEPS = 2
 FAULT_MARGIN = 4.0
@@ -232,6 +243,21 @@ K14_TOL = {"bf16->fp32": 1e-5, "bf16->bf16": 2.0 ** -7}
 # 0.36-0.53 %; the smallest fault (sigmoid's 1.702 dropped) misses by 2.06
 # against the 4x-tolerance line's 0.90.
 K15_SPREAD = 4.0
+# K16, the attention tools' softmax forms and ablations, is K5's and K7's loop
+# with one step changed: K5's tolerance against its plain form on the tools'
+# inputs (KERNEL_TOL) and stressed (STRESS_TOL).  The forms differ from each
+# other by less than that (one bf16 step at most), so on the tools' inputs the
+# share of bf16 outputs equal to each plain form's must also be largest for
+# the instance's own form.  Stressed: the tools' shapes with qkv ~ 2 N(0, 1)
+# and rel tables of std REL_STRESS x 0.02; the planted faults: the row sum over
+# the first key tile only (v1), the rel term kept (norel), the query's true
+# cell (noroll), the dead slots skipped and exp applied (noexp).  v3 against
+# v2's fp32 exp shows only where the bf16 rounding of the logits moves many
+# probabilities one way: on V3_EDGE inputs, every query row alike, one key at
+# logit 0 with v = +1 and every other key at one logit d with v = -1, d chosen
+# so that rows weigh the two sides about V3_EDGE:1 and bf16(d) lies near half
+# a bf16 step from d.
+V3_EDGE = 1.1
 # the whole 32-layer encoder, kernel path vs plain path, both bf16: the
 # per-layer differences above compound through 32 residual blocks; the
 # output is LayerNorm2d'd, so unit scale.  Run twice: with the random weights
@@ -353,11 +379,27 @@ KERNELS = {  # name: (path, source, replaced TPU kernel)
     "K13": ("bench", "samcarriestheburden_torch/csrc/cost_probe.cu", "bench.py:104"),
     "K14": ("exp-tools", "samcarriestheburden_torch/csrc/gemm.cu", "tools/exp_int8.py:97"),
     "K15": ("exp-tools", "samcarriestheburden_torch/csrc/quant.cu", "tools/exp_int8.py:163"),
+    "K16-v1": ("attn-tools", "samcarriestheburden_torch/csrc/attention_forms.cu",
+               "tools/exp_attn.py:147,217"),
+    "K16-v3": ("attn-tools", "samcarriestheburden_torch/csrc/attention_forms.cu",
+               "tools/exp_attn.py:147,217"),
+    "K16-norel": ("attn-tools", "samcarriestheburden_torch/csrc/attention_forms.cu",
+                  "tools/exp_attn2.py:228"),
+    "K16-noroll": ("attn-tools", "samcarriestheburden_torch/csrc/attention_forms.cu",
+                   "tools/exp_attn2.py:228"),
+    "K16-noexp": ("attn-tools", "samcarriestheburden_torch/csrc/attention_forms.cu",
+                  "tools/exp_attn2.py:228"),
 }
 # the TPU kernels K14 and K15 replace, by the experiment that ran them
 TOOL_KERNELS = {"pallas_dot": "tools/exp_int8.py:97", "exp_3d": "tools/exp_3d.py:61,83,104",
                 "mlp_int8_chunk": "tools/exp_int8.py:163", "diag": "tools/exp_int8.py:227",
                 "exp_mlp2": "tools/exp_mlp2.py:110"}
+# the TPU kernels of the attention tools, by group and tool: K16's instances and,
+# for the v2 form and the bias split, K5 and K7
+ATTN_TOOL_KERNELS = {("exp_attn", "win"): "tools/exp_attn.py:147",
+                     ("exp_attn", "glob"): "tools/exp_attn.py:217",
+                     ("exp_attn2", "glob"): "tools/exp_attn2.py:134",
+                     ("exp_attn2", "win"): "tools/exp_attn2.py:228"}
 
 
 # the kernel behind each field of the floating-point ``EncoderOps``
@@ -466,24 +508,35 @@ def kernel_work(name: str, args, kw) -> tuple:
     return 2 * qk + rel, 0.0, nbytes
 
 
-def sdpa_inputs(torch, qkv, tables, heads, hd, kh, kw):
-    """q, k, v (S, heads, n, hd) and the scaled rel-pos bias (S, heads, n, nkeys)
-    as ``scaled_dot_product_attention`` takes them: the library yardstick of K5/K7."""
+def sdpa_inputs(torch, qkv, tables, heads, hd, kh, kw, rel="full"):
+    """q, k, v (S, heads, ., hd) and the mask that ``scaled_dot_product_attention``
+    takes: the library yardstick of K5/K7 and of K16's forms.  The scaled
+    rel-pos bias (S, heads, n, nkeys) over the live keys, with K5's and K7's
+    cells (``rel="base0"``: every query at cell (0, 0)), built one sequence at
+    a time; ``rel="none"``: every slot's k and v with only the dead keys masked."""
     s, n, _ = qkv.shape
     nkeys = kh * kw
+    dev, dt = qkv.device, qkv.dtype
     x = qkv.view(s, n, heads, 3, hd).permute(3, 0, 2, 1, 4)
-    q, k, v = x[0].contiguous(), x[1][:, :, :nkeys].contiguous(), x[2][:, :, :nkeys].contiguous()
+    q = x[0].contiguous()
+    if rel == "none":
+        mask = (torch.arange(n, device=dev) < nkeys).view(1, 1, 1, n)
+        return q, x[1].contiguous(), x[2].contiguous(), mask
+    k, v = x[1][:, :, :nkeys].contiguous(), x[2][:, :, :nkeys].contiguous()
     scale = hd ** -0.5
-    dev = qkv.device
     tok = torch.arange(n, device=dev)
     ph, pw = (tok // kw).clamp(max=kh - 1), tok % kw
-    idx_h = ph[:, None] - torch.arange(kh, device=dev)[None] + kh - 1
-    idx_w = pw[:, None] - torch.arange(kw, device=dev)[None] + kw - 1 + 2 * kh - 1
-    g = (q.float() @ tables.float().T / scale).to(qkv.dtype).float()   # (S, h, n, R)
-    rel_h = g.gather(3, idx_h.expand(s, heads, n, kh))
-    rel_w = g.gather(3, idx_w.expand(s, heads, n, kw))
-    bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(s, heads, n, nkeys)
-    return q, k, v, (bias * scale).to(qkv.dtype)
+    if rel == "base0":
+        ph, pw = torch.zeros_like(ph), torch.zeros_like(pw)
+    idx_h = (ph[:, None] - torch.arange(kh, device=dev)[None] + kh - 1).expand(heads, n, kh)
+    idx_w = (pw[:, None] - torch.arange(kw, device=dev)[None] + kw - 1 + 2 * kh - 1
+             ).expand(heads, n, kw)
+    bias = torch.empty((s, heads, n, nkeys), dtype=dt, device=dev)
+    for i in range(s):
+        g = (q[i].float() @ tables.float().T / scale).to(dt).float()      # (heads, n, R)
+        b = g.gather(2, idx_h)[..., :, None] + g.gather(2, idx_w)[..., None, :]
+        bias[i] = (b.reshape(heads, n, nkeys) * scale).to(dt)
+    return q, k, v, bias
 
 
 def split_heads(qkv, heads, hd):
@@ -1865,6 +1918,213 @@ def phase_k15(torch, res, gen, dev) -> list:
     return rows
 
 
+def forms_work(qkv, tables, *, heads, hd, nkeys, rel, exp) -> tuple:
+    """(bf16 flops, bytes) of a K16 form's function on these inputs: q . k and
+    p . v once each (over the dead slots too without exp), the table product
+    unless there is no rel term; qkv and the tables read once, the output
+    written once."""
+    s, n, _ = qkv.shape
+    keys = nkeys if exp else n
+    flops = 4.0 * s * heads * n * keys * hd
+    nbytes = 2 * (qkv.numel() + s * n * heads * hd)
+    if rel != "none":
+        flops += 2.0 * s * heads * n * tables.shape[0] * hd
+        nbytes += 2 * tables.numel()
+    return flops, nbytes
+
+
+def forms_variant(torch, qkv, tables, *, heads, hd, side, nkeys, fault):
+    """Planted faults of K16: ``one_tile_sum``, v1 with each row's sum over its
+    first 64 keys only; ``dead_skipped``, noexp over the live keys alone (the
+    dead slots skipped, as K5 skips them)."""
+    s, n, _ = qkv.shape
+    dt, dev = qkv.dtype, qkv.device
+    scale = hd ** -0.5
+    x = qkv.reshape(s, n, heads, 3 * hd).float()
+    tab = tables.float()
+    tok = torch.arange(n, device=dev)
+    key = torch.arange(nkeys, device=dev)
+    idx_h = ((tok // side).clamp(max=side - 1)[:, None] - (key // side)[None]
+             + side - 1).expand(s, n, nkeys)
+    idx_w = ((tok % side)[:, None] - (key % side)[None] + 3 * side - 2).expand(s, n, nkeys)
+    out = torch.empty((s, n, heads, hd), dtype=dt, device=dev)
+    for h in range(heads):
+        q, k, v = x[:, :, h, :hd], x[:, :nkeys, h, hd:2 * hd], x[:, :nkeys, h, 2 * hd:]
+        g = (q @ tab.T * (1.0 / scale)).to(dt).float()
+        logits = (q @ k.transpose(1, 2) + g.gather(2, idx_h) + g.gather(2, idx_w)) * scale
+        d = logits - logits.amax(-1, keepdim=True)
+        if fault == "one_tile_sum":
+            p = torch.exp(d)
+            o = (p / p[..., :64].sum(-1, keepdim=True)).to(dt).float() @ v
+        else:
+            o = (d.to(dt).float() @ v) * (1.0 / d.sum(-1, keepdim=True))
+        out[:, :, h] = o.to(dt)
+    return out.reshape(s, n, heads * hd)
+
+
+def v3_edge_inputs(torch, shape, tables_shape, *, heads, hd, nkeys, dev):
+    """(qkv, tables) of the V3_EDGE check at ``shape``: every query q = e_0, key
+    0 at logit 0 with v = +1, keys 1.. at one logit d = bf16(b) * scale with v =
+    -1, the dead slots zero, no rel term (zero tables).  b is the bf16 value
+    whose d weighs the rows about V3_EDGE:1 and moves v3's probabilities
+    furthest from v2's (bf16(d) near half a bf16 step from d, 2 % of a step
+    clear of the midpoint, so that the kernel's and the plain version's
+    roundings agree), as each form's plain arithmetic gives it."""
+    import math
+
+    s, n, _ = shape
+    scale = torch.tensor(hd ** -0.5, dtype=torch.float32)
+    target = math.log(V3_EDGE / (nkeys - 1)) / scale.item()
+    b = torch.linspace(1.1 * target, 0.9 * target, 4001).bfloat16().unique()
+    d = b.float() * scale
+    db = d.bfloat16().float()
+    step = (d.abs().log2().floor() - 7).exp2()
+    margin = ((d - db).abs() - step / 2).abs() / step
+    p3 = torch.exp(db).bfloat16().float()
+    p2 = torch.exp(d)
+    out3 = (1 - (nkeys - 1) * p3) / (1 + (nkeys - 1) * p3)
+    out2 = (1 - (nkeys - 1) * p2.bfloat16().float()) / (1 + (nkeys - 1) * p2)
+    score = torch.where((margin > 0.02) & (out3.abs() > 0.02), (out3 - out2).abs() / out3.abs(),
+                        torch.zeros_like(out3))
+    x = torch.zeros((s, n, heads, 3, hd), dtype=torch.bfloat16, device=dev)
+    x[:, :, :, 0, 0] = 1.0
+    x[:, 1:nkeys, :, 1, 0] = b[score.argmax()].to(dev)
+    x[:, 0, :, 2] = 1.0
+    x[:, 1:nkeys, :, 2] = -1.0
+    return x.reshape(shape), torch.zeros(tables_shape, dtype=torch.bfloat16, device=dev)
+
+
+def phase_attn_tools(torch, kernels, attn_k, gen, dev) -> list:
+    """(f) The port's attention experiment tools (``tools/exp_attn``,
+    ``exp_attn2``) at their full shapes, counted: every experiment must have
+    made exactly its kernel's launches (K5, K7 or a K16 instance; one per
+    call).  Then, on each tool's inputs, each K16 instance against its plain
+    form (KERNEL_TOL), v1 and v3 nearer their own plain form than any other by
+    the share of equal bf16 outputs, K5 and K7 as the v2 form against the plain
+    v2; each K16 instance stressed with planted faults, and v3 on the V3_EDGE
+    inputs.  Returns the rows of the kernels line: one per K16 instance and
+    shape, and K5's and K7's at the tools' shapes."""
+    from samcarriestheburden_torch.tools import exp_attn, exp_attn2, timing
+
+    tools = {"exp_attn": exp_attn, "exp_attn2": exp_attn2}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = {tool: mod.run() for tool, mod in tools.items()}
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    log(f"attention tools in {time.perf_counter() - t0:.1f} s, launches {launches}")
+    calls = 1 + timing.WARMUP + timing.ITERS
+    shape = {"win": exp_attn.NP, "glob": exp_attn.GS ** 2}
+    runs = {}          # (kernel, group) -> [(tool, name, form)]
+    for tool, mod in tools.items():
+        check(list(res[tool]) == list(mod.NAMES), f"{tool} skipped a name")
+        for name, (group, form) in mod.EXPERIMENTS.items():
+            kern = attn_k.forms_kernel(shape[group], **form)
+            got = res[tool][name]["launches"]
+            check(got == {kern: calls}, f"{tool} {name} launched {got}, not {{{kern}: {calls}}}")
+            runs.setdefault((kern, group), []).append((tool, name, form))
+    check(sorted(k for k, _ in runs) == sorted(("K5", "K7") + K16_FORMS + ("K16-v1", "K16-v3")),
+          f"the tools ran {sorted(runs)}")
+    heads, hd = exp_attn.HEADS, exp_attn.HD
+    exps = {tool: mod.experiments(dev) for tool, mod in tools.items()}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for (kern, group), names in runs.items():
+        tool, name, form = names[0]
+        qkv, tables = exps[tool][name][1]
+        side = exp_attn.WS if group == "win" else exp_attn.GS
+        kw = dict(kh=side, kw=side, heads=heads, hd=hd, nkeys=side * side)
+        full = {"softmax": "v2", "rel": "full", "exp": True, **form}
+        run_k = partial(attn_k.rel_attention_forms, **kw, **form)
+        plain = partial(attn_k.rel_attention_plain, **kw, **form)
+        out_k, out_p = run_k(qkv, tables), plain(qkv, tables)
+        torch.cuda.synchronize()
+        err, scale = max_err(out_k, out_p), out_p.float().abs().max().item()
+        equal = (out_k == out_p).float().mean().item()
+        key = f"{kern} {group} {tuple(qkv.shape)}"
+        log(f"{key} ({tool} {name}, {form}): max abs err {err:.4g} vs max |plain| {scale:.4g} "
+            f"({err / scale:.3g}, tol {KERNEL_TOL[kern]}); "
+            f"{equal:.6f} of the outputs equal")
+        check(bool(torch.isfinite(out_k.float()).all()), f"{key}: non-finite output")
+        check(err <= KERNEL_TOL[kern] * scale, f"{key} disagrees with its plain form")
+        # each form's share of equal outputs (the tolerance cannot tell the forms apart)
+        if full["softmax"] != "v2":
+            shares = {f: (out_k == attn_k.rel_attention_plain(qkv, tables, **kw, softmax=f)
+                          ).float().mean().item() for f in ("v1", "v2", "v3")}
+            log(f"{key}: share of outputs equal to each plain form {shares}")
+            own = shares.pop(full["softmax"])
+            check(all(own > other for other in shares.values()),
+                  f"{key} is nearer another form than its own: {own} vs {shares}")
+        del out_k, out_p
+        ms = card_ms(torch, lambda: run_k(qkv, tables))
+        plain_ms = card_ms(torch, lambda: plain(qkv, tables), iters=3, warmup=1)
+        library_ms, library = None, "none"
+        if full["exp"]:
+            q, k, v, mask = sdpa_inputs(torch, qkv, tables, heads, hd, side, side,
+                                        rel=full["rel"])
+            library_ms = card_ms(torch, lambda: sdpa(q, k, v, attn_mask=mask))
+            library = "SDPA, dead-key mask" if full["rel"] == "none" else "SDPA, rel bias as mask"
+            del q, k, v, mask
+        flops, nbytes = forms_work(qkv, tables, heads=heads, hd=hd, nkeys=side * side,
+                                   rel=full["rel"], exp=full["exp"])
+        bound_ms, bound_by = bound(flops, nbytes)
+        log(f"{key}: {ms:.4f} ms (plain {plain_ms:.4f}, {library} {library_ms}, bound "
+            f"{bound_ms:.4f} by {bound_by}); {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+        n_launches = sum(res[t][nm]["launches"][kern] for t, nm, _ in names)
+        rows.append({"name": kern, "path": "attn-tools", "shape": list(qkv.shape),
+                     "experiments": [f"{t} {nm}" for t, nm, _ in names], "route": "cuda",
+                     "source": KERNELS[kern][1],
+                     "replaces": ",".join(sorted({ATTN_TOOL_KERNELS[t, group]
+                                                  for t, nm, _ in names})),
+                     "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                     "library": library})
+        if kern in ("K5", "K7"):
+            continue
+        # stressed, with planted faults
+        a = (torch.randn(qkv.shape, generator=gen, device=dev) * 2.0).bfloat16()
+        t = (torch.randn(tables.shape, generator=gen, device=dev) * 0.02 * REL_STRESS).bfloat16()
+        ref = plain(a, t)
+        tol = STRESS_TOL[kern] * ref.float().abs().max().item()
+        err_s = max_err(run_k(a, t), ref)
+        faults = {}
+        if kern == "K16-v1":
+            faults["row sum over the first key tile"] = forms_variant(
+                torch, a, t, heads=heads, hd=hd, side=side, nkeys=side * side,
+                fault="one_tile_sum")
+        elif kern in ("K16-norel", "K16-noroll"):
+            faults["rel term kept" if kern == "K16-norel" else "the query's true cell"] = \
+                attn_k.rel_attention_plain(a, t, **kw, softmax="v2")
+        elif kern == "K16-noexp":
+            faults["dead slots skipped"] = forms_variant(
+                torch, a, t, heads=heads, hd=hd, side=side, nkeys=side * side,
+                fault="dead_skipped")
+            faults["exp applied"] = attn_k.rel_attention_plain(a, t, **kw, softmax="v2")
+        misses = {what: max_err(f, ref) for what, f in faults.items()}
+        log(f"{key} stressed: max abs err {err_s:.4g} (tol {tol:.4g}); "
+            + ("planted faults miss by " + ", ".join(f"{what} {m:.4g}" for what, m in misses.items())
+               + f" (must be >= {FAULT_MARGIN * tol:.4g})" if misses else
+               "its fault (fp32 exp) shows on the V3_EDGE inputs below"))
+        check(err_s <= tol, f"{key} disagrees with its plain form on stressed inputs")
+        for what, m in misses.items():
+            check(m >= FAULT_MARGIN * tol, f"{key}: the stressed check cannot see '{what}'")
+        del a, t, ref, faults
+        if kern == "K16-v3":
+            a, t = v3_edge_inputs(torch, qkv.shape, tables.shape, heads=heads, hd=hd,
+                                  nkeys=side * side, dev=dev)
+            ref = plain(a, t)
+            tol = STRESS_TOL[kern] * ref.float().abs().max().item()
+            err_e = max_err(run_k(a, t), ref)
+            miss = max_err(attn_k.rel_attention_plain(a, t, **kw, softmax="v2"), ref)
+            log(f"{key} on the V3_EDGE inputs: max abs err {err_e:.4g} (tol {tol:.4g}); fp32 exp "
+                f"(v2's) misses by {miss:.4g} (must be >= {FAULT_MARGIN * tol:.4g})")
+            check(err_e <= tol, f"{key} disagrees with its plain form on the V3_EDGE inputs")
+            check(miss >= FAULT_MARGIN * tol, f"{key}: the V3_EDGE check cannot see fp32 exp")
+            del a, t, ref
+    del exps
+    return rows
+
+
 def phase_embed_int8(torch, kernels, cfg, model, make_serving_encoder, two_round_decode,
                      inputs, n_classes: int, emb_bf16, results_bf16, bf16_ips: float,
                      enhance_ips: float):
@@ -2599,6 +2859,12 @@ def main() -> int:
     _, tool_res = phase_tools(torch, kernels)
     rows += phase_k14(torch, tool_res, dev)
     rows += phase_k15(torch, tool_res, torch.Generator(device=dev).manual_seed(7), dev)
+
+    # 6d. the attention experiment tools at their shapes, counted (K5, K7 and
+    # K16's instances launch there); each K16 instance against its plain form,
+    # by the share of equal outputs and stressed; K5 and K7 as the v2 form
+    rows += phase_attn_tools(torch, kernels, attn_k, torch.Generator(device=dev).manual_seed(8),
+                             dev)
 
     # 7. the tiny config through the kernels vs the reference golden --------
     phase_golden(torch, np, sam_vit_t_config(), ImageEncoderViT, KERNEL_OPS, KERNEL_OPS_INT8,

@@ -1,5 +1,5 @@
-"""K5, K6, K7 (with K7-int8, K7-pv, K7-int8pv) and K9-K12: attention with SAM's
-decomposed relative-position bias.
+"""K5, K6, K7 (with K7-int8, K7-pv, K7-int8pv), K9-K12 and K16: attention with
+SAM's decomposed relative-position bias.
 
 K5 ``rel_attention_window`` runs one window per sequence (JAX
 ``kernels/attention.py:fused_rel_attention_window3d``); K6
@@ -95,6 +95,14 @@ and rounded once (the JAX body keeps q and k in fp32 up to the logits and
 rounds its output after every head; both differ from this only in bf16:
 ``round_qk=False`` in the plain version keeps q and k unrounded).  The
 projection's bias and the residual stay with the caller.
+
+K16 ``rel_attention_forms`` is K5's or K7's attention in a form of the JAX
+package's attention experiment tools (``tools/exp_attn.py``, ``exp_attn2.py``;
+:func:`rel_attention_plain`'s ``softmax``, ``rel`` and ``exp``): the
+normalisation before p . v (v1) or with bf16 exp (v3), no rel term, every
+query's rel terms at cell (0, 0), ``logits - max`` in place of exp.  The
+tools' v2 form is K5's and K7's own online softmax (1/sum after p . v), so
+the wrapper launches them for it.
 """
 
 from __future__ import annotations
@@ -128,6 +136,15 @@ def _lib():
         for fn in (lib.k10_rel_attention_headmajor, lib.k11_rel_attention_headmajor_global):
             fn.argtypes = [_VP] * 4 + [_I] * 6 + [_F, _F, _VP]
             fn.restype = _I
+        lib._typed = True
+    return lib
+
+
+def _forms_lib():
+    lib = build.load("attention_forms")
+    if not getattr(lib, "_typed", False):
+        lib.k16_rel_attention_forms.argtypes = [_VP] * 3 + [_I] * 8 + [_F, _F, _VP]
+        lib.k16_rel_attention_forms.restype = _I
         lib._typed = True
     return lib
 
@@ -196,33 +213,82 @@ def int8_pv_plain(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (pi @ vi) * (sv / 127.0)
 
 
+#: the softmax forms of the attention experiment tools (``tools/exp_attn.py:
+#: _softmax_av``) and the rel-term modes of ``tools/exp_attn2.py:mk_window_ablate``
+SOFTMAX_FORMS = ("v1", "v2", "v3")
+REL_MODES = ("full", "none", "base0")
+
+
+def _softmax_pv(logits, v, dt, softmax: str, exp: bool) -> torch.Tensor:
+    """One head's output from fp32 logits (S, n, m) and v (S, m, hd) in a
+    softmax form of the tools: ``v1`` exp, divide, then p . v; ``v2`` exp,
+    p . v, then x 1/sum; ``v3`` the logits rounded to bf16 before exp and the
+    probabilities to bf16 after it, summed in fp32, then as v2; ``exp=False``
+    takes ``logits - max`` itself for the probabilities (v2's order)."""
+    d = logits - logits.amax(-1, keepdim=True)
+    if not exp:
+        p = d
+    elif softmax == "v3":
+        p = torch.exp(d.to(torch.bfloat16).float()).to(torch.bfloat16).float()
+    else:
+        p = torch.exp(d)
+    denom = p.sum(-1, keepdim=True)
+    if exp and softmax == "v1":
+        return (p / denom).to(dt).float() @ v
+    return (p.to(dt).float() @ v) * (1.0 / denom)
+
+
 def rel_attention_plain(qkv, tables, *, heads: int, hd: int, kh: int, kw: int,
-                        nkeys: int, int8_qk: bool = False,
-                        int8_pv: bool = False) -> torch.Tensor:
+                        nkeys: int, int8_qk: bool = False, int8_pv: bool = False,
+                        softmax: str = "v1", rel: str = "full",
+                        exp: bool = True) -> torch.Tensor:
     """Plain version of K5, K7, (``int8_qk``) K7-int8 and (``int8_pv``)
-    K7-pv and K7-int8pv.  qkv (S, n, heads*3*hd) -> (S, n, heads*hd)."""
+    K7-pv and K7-int8pv, and of K16's forms: ``softmax`` (v1, v2, v3: the
+    tools' three placements of the normalisation), ``rel`` (``none``: no rel
+    term; ``base0``: every query's rel terms at cell (0, 0)) and ``exp=False``
+    (``logits - max`` in place of exp; the dead slots nkeys <= j < n take part
+    with their logit of -1e30 and their v rows, as the TPU kernel's).  The
+    defaults are K5's and K7's reference arithmetic.  qkv (S, n, heads*3*hd) ->
+    (S, n, heads*hd)."""
+    if softmax not in SOFTMAX_FORMS or rel not in REL_MODES:
+        raise ValueError(f"softmax {softmax!r} / rel {rel!r}: expected one of "
+                         f"{SOFTMAX_FORMS} / {REL_MODES}")
+    forms = (softmax, rel, exp) != ("v1", "full", True)
+    if forms and (int8_qk or int8_pv):
+        raise ValueError("the softmax forms and rel modes are K5's and K7's, not the int8 modes'")
     s, n, _ = qkv.shape
     dt, dev = qkv.dtype, qkv.device
     scale = hd ** -0.5
+    nk = nkeys if exp else n
     x = qkv.reshape(s, n, heads, 3 * hd).float()
     tab = tables.float()
     tok = torch.arange(n, device=dev)
     ph = (tok // kw).clamp(max=kh - 1)
     pw = tok % kw
-    key = torch.arange(nkeys, device=dev)
-    idx_h = (ph[:, None] - (key // kw)[None] + kh - 1).expand(s, n, nkeys)
-    idx_w = (pw[:, None] - (key % kw)[None] + kw - 1 + 2 * kh - 1).expand(s, n, nkeys)
+    if rel == "base0":
+        ph, pw = torch.zeros_like(ph), torch.zeros_like(pw)
+    key = torch.arange(nk, device=dev)
+    idx_h = (ph[:, None] - (key // kw).clamp(max=kh - 1)[None] + kh - 1).expand(s, n, nk)
+    idx_w = (pw[:, None] - (key % kw)[None] + kw - 1 + 2 * kh - 1).expand(s, n, nk)
     out = torch.empty((s, n, heads, hd), dtype=dt, device=dev)
     for h in range(heads):
         q = x[:, :, h, :hd]
-        k = x[:, :nkeys, h, hd:2 * hd]
-        v = x[:, :nkeys, h, 2 * hd:]
-        g = (q @ tab.T * (1.0 / scale)).to(dt).float()          # (S, n, Rh+Rw)
-        bias = g.gather(2, idx_h) + g.gather(2, idx_w)
+        k = x[:, :nk, h, hd:2 * hd]
+        v = x[:, :nk, h, 2 * hd:]
+        if rel == "none":
+            bias = 0.0
+        else:
+            g = (q @ tab.T * (1.0 / scale)).to(dt).float()          # (S, n, Rh+Rw)
+            bias = g.gather(2, idx_h) + g.gather(2, idx_w)
         qk = int8_qk_plain(q, k) if int8_qk else q @ k.transpose(1, 2)
         logits = (qk + bias) * scale
-        p = torch.softmax(logits, dim=-1)
-        out[:, :, h] = (int8_pv_plain(p, v) if int8_pv else p.to(dt).float() @ v).to(dt)
+        if not forms:
+            p = torch.softmax(logits, dim=-1)
+            out[:, :, h] = (int8_pv_plain(p, v) if int8_pv else p.to(dt).float() @ v).to(dt)
+            continue
+        if nk > nkeys:      # the dead slots: no rel term, -1e30 added (exp=False only)
+            logits[..., nkeys:] = qk[..., nkeys:] * scale - 1e30
+        out[:, :, h] = _softmax_pv(logits, v, dt, softmax, exp).to(dt)
     return out.reshape(s, n, heads * hd)
 
 
@@ -402,6 +468,65 @@ def rel_attention_global(qkv, tables, *, kh: int, kw: int, heads: int,
         1.0 / scale, stream())
     raise_on_error("K7 rel_attention_global", code)
     LAUNCHES["K7"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K16: the softmax forms and ablations of the attention experiment tools
+# ---------------------------------------------------------------------------
+
+#: (softmax, rel, exp) -> (K16's form code in ``csrc/attention_forms.cu``, its
+#: launch count); (v2, full, exp) is K5's and K7's own loop
+FORMS = {("v1", "full", True): (1, "K16-v1"), ("v3", "full", True): (3, "K16-v3"),
+         ("v2", "none", True): (4, "K16-norel"), ("v2", "base0", True): (5, "K16-noroll"),
+         ("v2", "full", False): (6, "K16-noexp")}
+#: the forms K16 runs on a window only (one block of <= 208 rows)
+WINDOW_ONLY = ("K16-norel", "K16-noroll", "K16-noexp")
+
+
+def forms_kernel(n: int, softmax: str = "v2", rel: str = "full", exp: bool = True) -> str:
+    """The counted kernel that runs a form on sequences of n rows: K5 or K7
+    for (v2, full, exp), else K16's instance."""
+    if (softmax, rel, exp) == ("v2", "full", True):
+        return "K5" if n <= 208 else "K7"
+    if (softmax, rel, exp) not in FORMS:
+        raise ValueError(f"no kernel computes softmax={softmax!r}, rel={rel!r}, exp={exp}: "
+                         f"K16's forms are {sorted(FORMS)}")
+    name = FORMS[softmax, rel, exp][1]
+    if name in WINDOW_ONLY and n > 208:
+        raise ValueError(f"{name} runs on windows of <= 208 rows, got {n}")
+    return name
+
+
+def rel_attention_forms(qkv, tables, *, kh: int, kw: int, heads: int, hd: int, nkeys: int,
+                        softmax: str = "v2", rel: str = "full", exp: bool = True) -> torch.Tensor:
+    """The attention of K5 (a window of <= 208 rows, the first ``nkeys`` of them
+    keys) or K7 (a kh x kw grid, every token a key) in a form of the attention
+    experiment tools (:func:`rel_attention_plain`'s ``softmax``, ``rel``,
+    ``exp``).  (v2, full, exp) launches K5 or K7, whose online softmax applies
+    1 / sum after p . v as v2 does; every other form launches K16's instance
+    (:data:`FORMS`).  qkv (S, n, heads*3*hd) -> (S, n, heads*hd)."""
+    if qkv.device.type == "cpu":
+        return rel_attention_plain(qkv, tables, heads=heads, hd=hd, kh=kh, kw=kw, nkeys=nkeys,
+                                   softmax=softmax, rel=rel, exp=exp)
+    name = forms_kernel(qkv.shape[1], softmax, rel, exp)
+    if name == "K5":
+        if kh != kw or nkeys != kh * kw:
+            raise ValueError(f"K5 runs square windows of ws*ws keys, got {kh}x{kw}, {nkeys}")
+        return rel_attention_window(qkv, tables, ws=kh, heads=heads, hd=hd)
+    if name == "K7":
+        return rel_attention_global(qkv, tables, kh=kh, kw=kw, heads=heads, hd=hd)
+    s, n = _check(qkv, tables, heads, hd, kh, kw)
+    if nkeys != kh * kw or n < nkeys or (n > 208 and n != nkeys):
+        raise ValueError(f"{name} expects a {kh}x{kw} grid of keys in a window of <= 208 rows "
+                         f"or in the whole sequence, got {nkeys} keys in {n} rows")
+    out = torch.empty((s, n, heads * hd), dtype=qkv.dtype, device=qkv.device)
+    scale = hd ** -0.5
+    code = _forms_lib().k16_rel_attention_forms(
+        ptr(qkv), ptr(tables), ptr(out), s, n, nkeys, heads, hd, kh, kw,
+        FORMS[softmax, rel, exp][0], scale, 1.0 / scale, stream())
+    raise_on_error(f"{name} rel_attention_forms", code)
+    LAUNCHES[name] += 1
     return out
 
 

@@ -1,6 +1,7 @@
 """Device timing shared by the port's experiment tools (``exp_int8``,
-``exp_mlp2``, ``exp_3d``): the counterpart of the JAX scripts' ``_trace_run``
-and ``timeit``, with CUDA events in place of a profiler trace.
+``exp_mlp2``, ``exp_3d``, ``exp_attn``, ``exp_attn2``): the counterpart of the
+JAX scripts' ``_trace_run`` and ``timeit``, with CUDA events in place of a
+profiler trace.
 
 Each experiment is ``(fn, args)``.  It is called once (host clock, the
 kernels' build included) and ``WARMUP`` times, then timed over ``ITERS``

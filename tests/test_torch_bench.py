@@ -16,6 +16,10 @@ from samcarriestheburden_torch import bench, config, kernels
 from samcarriestheburden_torch.kernels import cost_probe as k13
 from samcarriestheburden_tpu import config as jconfig
 
+# the tier-1 command runs six xdist workers on the machine's cores: one
+# intra-op thread each, or their thread pools oversubscribe the cores
+torch.set_num_threads(1)
+
 #: bench.py's top-level and detail keys, which the port's line keeps
 TOP_KEYS = {"metric", "value", "unit", "vs_baseline", "detail"}
 DETAIL_KEYS = {"vs_baseline_est", "vs_baseline_measured_cpu", "cpu_anchor",

@@ -14,6 +14,10 @@ from samcarriestheburden_torch.kernels import ccl as kccl
 from samcarriestheburden_torch.ops import ccl as tccl
 from samcarriestheburden_tpu.ops import ccl as jccl
 
+# the tier-1 command runs six xdist workers on the machine's cores: one
+# intra-op thread each, or their thread pools oversubscribe the cores
+torch.set_num_threads(1)
+
 H, W = 24, 40
 
 

@@ -37,6 +37,10 @@ from samcarriestheburden_tpu.models import image_encoder as jie
 from samcarriestheburden_tpu.models import quantize as jq
 from samcarriestheburden_tpu.models.sam import SamModel as JaxSamModel
 
+# the tier-1 command runs six xdist workers on the machine's cores: one
+# intra-op thread each, or their thread pools oversubscribe the cores
+torch.set_num_threads(1)
+
 ATOL = 2e-4
 INT8_MAX, INT8_MEDIAN = 5e-3, 2e-5
 CFG = sam_vit_t_config()

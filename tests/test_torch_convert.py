@@ -20,6 +20,10 @@ from samcarriestheburden_tpu.models import mask_decoder as jmd
 from samcarriestheburden_tpu.models import sam as jsam
 from samcarriestheburden_tpu.models.common import conv2d_transpose
 
+# the tier-1 command runs six xdist workers on the machine's cores: one
+# intra-op thread each, or their thread pools oversubscribe the cores
+torch.set_num_threads(1)
+
 GOLDEN = Path(__file__).parent / "golden"
 CFG = sam_vit_t_config()
 JCFG = jax_vit_t_config()

@@ -38,6 +38,10 @@ from samcarriestheburden_tpu.ops import mask_ops as jmask_ops
 from samcarriestheburden_tpu.ops import morphology as jmorph
 from samcarriestheburden_tpu.ops import resize as jresize
 
+# the tier-1 command runs six xdist workers on the machine's cores: one
+# intra-op thread each, or their thread pools oversubscribe the cores
+torch.set_num_threads(1)
+
 GOLDEN = Path(__file__).parent / "golden"
 CFG = sam_vit_t_config()
 SEG_HW = (48, 32)             # bench.py --smoke's grid

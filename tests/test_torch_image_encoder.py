@@ -18,6 +18,10 @@ from samcarriestheburden_tpu.config import sam_vit_t_config as jax_vit_t_config
 from samcarriestheburden_tpu.models import convert as jconvert
 from samcarriestheburden_tpu.models import image_encoder as jie
 
+# the tier-1 command runs six xdist workers on the machine's cores: one
+# intra-op thread each, or their thread pools oversubscribe the cores
+torch.set_num_threads(1)
+
 GOLDEN = Path(__file__).parent / "golden"
 CFG = sam_vit_t_config()
 

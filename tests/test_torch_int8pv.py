@@ -15,6 +15,10 @@ from samcarriestheburden_torch.kernels import attention as attn_k
 from samcarriestheburden_torch.kernels import build
 from samcarriestheburden_tpu.kernels import attention as jattn
 
+# the tier-1 command runs six xdist workers on the machine's cores: one
+# intra-op thread each, or their thread pools oversubscribe the cores
+torch.set_num_threads(1)
+
 KH = KW = 8
 HEADS, HD, B = 2, 16, 2
 Q_BLOCK = 32

@@ -19,6 +19,10 @@ from samcarriestheburden_torch.device import resolve_device
 from samcarriestheburden_torch.kernels import build
 from samcarriestheburden_torch.models.sam import build_sam
 
+# the tier-1 command runs six xdist workers on the machine's cores: one
+# intra-op thread each, or their thread pools oversubscribe the cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "samcarriestheburden_torch"
 CHIP_SMOKE = ROOT / "chip_smoke.py"
@@ -33,7 +37,7 @@ def _port_modules():
 def test_every_module_imports_without_jax():
     modules = _port_modules()
     for name in ("kernels.attention", "kernels.quant", "models.quantize", "kernels.cost_probe",
-                 "bench", "tools.bench_int8pv"):
+                 "bench", "tools.bench_int8pv", "tools.exp_attn", "tools.exp_attn2"):
         assert f"samcarriestheburden_torch.{name}" in modules
     code = ("import sys\n"
             + "".join(f"sys.modules[{name!r}] = None\n" for name in FORBIDDEN)
@@ -80,7 +84,8 @@ def test_the_parametrized_scan_covers_the_int8_modules():
     and ``tools/``, import JAX)."""
     scanned = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
     assert {"kernels/quant.py", "models/quantize.py", "models/convert.py", "bench.py",
-            "tools/bench_int8pv.py", "kernels/cost_probe.py"} <= scanned
+            "tools/bench_int8pv.py", "kernels/cost_probe.py", "tools/exp_attn.py",
+            "tools/exp_attn2.py"} <= scanned
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT))
@@ -111,7 +116,8 @@ def test_cuda_sources_are_registered_and_stand_alone():
     the port's ``common.cuh`` only, nothing of PyTorch or another framework."""
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     assert sources == sorted(build.SOURCES) and "quant" in sources
-    allowed = {"common.cuh", "cuda_bf16.h", "cuda_runtime.h", "cooperative_groups.h",
+    allowed = {"common.cuh", "rel_attention.cuh", "cuda_bf16.h", "cuda_runtime.h",
+               "cooperative_groups.h",
                "stdint.h", "math.h"}
     for path in sorted(build.CSRC.glob("*.cu*")):
         text = path.read_text()
@@ -127,8 +133,16 @@ def test_cuda_sources_are_registered_and_stand_alone():
     assert "k14_dot" in gemm and "gemm_bf16_mainloop" in gemm and "gemm_s8_mainloop" in gemm
     assert "gemm_bf16_mainloop" in (build.CSRC / "mlp.cu").read_text()
     attention = (build.CSRC / "attention.cu").read_text()
-    assert "k7_rel_attention_global_int8" in attention and "mma_s8" in attention
-    assert "k7_rel_attention_global_pv" in attention and "v_quant_kernel" in attention
+    assert "k7_rel_attention_global_int8" in attention and "k7_rel_attention_global_pv" in attention
+    # the kernel template of K5-K7, K9-K11 and K16, shared with attention_forms.cu
+    rel = (build.CSRC / "rel_attention.cuh").read_text()
+    assert "mma_s8" in rel and "v_quant_kernel" in rel and "rel_attention_kernel" in rel
+    for flag in ("SM_V1", "SM_V3", "SM_NOEXP", "REL_NONE", "REL_BASE0"):
+        assert flag in rel
+    forms = (build.CSRC / "attention_forms.cu").read_text()
+    assert "k16_rel_attention_forms" in forms
+    for text in (attention, forms):
+        assert '#include "rel_attention.cuh"' in text
     assert "k13_cost_probe" in (build.CSRC / "cost_probe.cu").read_text()
     block = (build.CSRC / "block_attention.cu").read_text()
     assert "k12_window_block_attention" in block and "atomicAdd" in block and "mma_bf16" in block
@@ -154,7 +168,9 @@ ENTRY_POINTS = {"K1": ("mlp", "k1_"), "K2": ("quant", "k2_ln_masked_linear_int8"
                 "K7-int8pv": ("attention", "k7_rel_attention_global_pv"),
                 "K13": ("cost_probe", "k13_cost_probe"),
                 "K14": ("gemm", "k14_dot"),
-                "K15": ("quant", "k15_ln_mlp_residual_int8_exp")}
+                "K15": ("quant", "k15_ln_mlp_residual_int8_exp"),
+                **{name: ("attention_forms", "k16_rel_attention_forms", "attention")
+                   for name in ("K16-v1", "K16-v3", "K16-norel", "K16-noroll", "K16-noexp")}}
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -177,7 +193,9 @@ def test_every_counted_kernel_has_a_c_entry_point_in_a_registered_source(name):
     binding = (PORT / "kernels" / f"{(module or [source])[0]}.py").read_text()
     assert f'build.load("{source}")' in binding
     assert all(f"lib.{e}" in binding or f".{e}(" in binding for e in bound), (name, bound)
-    assert f'LAUNCHES["{name}"] += 1' in binding
+    # K16's instances share one launch, counted under the name its form maps to
+    assert f'LAUNCHES["{name}"] += 1' in binding or (
+        f'"{name}")' in binding and "LAUNCHES[name] += 1" in binding), name
 
 
 def test_the_int8_wrappers_never_reach_the_compiler_on_cpu(monkeypatch):

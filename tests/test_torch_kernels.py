@@ -18,6 +18,10 @@ from samcarriestheburden_torch.kernels import mlp as mlp_k
 from samcarriestheburden_tpu.kernels import attention as jattn
 from samcarriestheburden_tpu.kernels import mlp as jmlp
 
+# the tier-1 command runs six xdist workers on the machine's cores: one
+# intra-op thread each, or their thread pools oversubscribe the cores
+torch.set_num_threads(1)
+
 ATOL = 2e-4
 CFG = sam_vit_t_config().image_encoder
 HEADS, HD = CFG.num_heads, CFG.head_dim

@@ -40,6 +40,10 @@ from samcarriestheburden_tpu.models import convert as jconvert
 from samcarriestheburden_tpu.models import image_encoder as jie
 from samcarriestheburden_tpu.models import quantize as jq
 
+# the tier-1 command runs six xdist workers on the machine's cores: one
+# intra-op thread each, or their thread pools oversubscribe the cores
+torch.set_num_threads(1)
+
 STEP_TOL = 2e-3        # x max |JAX|: one flipped rounding tie
 MEDIAN_TOL = 1e-5      # x max |JAX|: the typical entry agrees to fp32 rounding
 QUANT_TOL = 0.06       # x max |fp|: the quantization error itself (JAX tests: 0.05-0.06)

@@ -29,6 +29,10 @@ from samcarriestheburden_tpu.engine.refinement import SegEnhance as JaxEnhance
 from samcarriestheburden_tpu.models import convert as jconvert
 from samcarriestheburden_tpu.ops import ccl as jccl
 
+# the tier-1 command runs six xdist workers on the machine's cores: one
+# intra-op thread each, or their thread pools oversubscribe the cores
+torch.set_num_threads(1)
+
 CFG = jax_vit_t_config()
 SEG_HW = (48, 32)
 SIZES = {"img_a": ((256, 150), (128, 75)), "img_b": ((200, 256), (100, 128)),

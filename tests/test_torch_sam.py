@@ -24,6 +24,10 @@ from samcarriestheburden_tpu.models.sam import SamModel as JaxSamModel
 from samcarriestheburden_tpu.models.sam import postprocess_masks as jax_postprocess
 from samcarriestheburden_tpu.ops import resize as jresize
 
+# the tier-1 command runs six xdist workers on the machine's cores: one
+# intra-op thread each, or their thread pools oversubscribe the cores
+torch.set_num_threads(1)
+
 GOLDEN = Path(__file__).parent / "golden"
 CFG = sam_vit_t_config()
 JCFG = jax_vit_t_config()

@@ -49,6 +49,10 @@ from samcarriestheburden_torch.kernels import gemm as gemm_k
 from samcarriestheburden_torch.kernels import quant as quant_k
 from samcarriestheburden_torch.tools import exp_3d, exp_int8, exp_mlp2
 
+# the tier-1 command runs six xdist workers on the machine's cores: one
+# intra-op thread each, or their thread pools oversubscribe the cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 INT8_SIZE = dict(T=512, E=128, M=512)
 MLP2_SIZE = dict(T=1024, E=128, M=512)

@@ -34,6 +34,10 @@ from samcarriestheburden_tpu.models import convert as jconvert
 from samcarriestheburden_tpu.models import image_encoder as jie
 from samcarriestheburden_tpu.models.common import layer_norm as jax_layer_norm
 
+# the tier-1 command runs six xdist workers on the machine's cores: one
+# intra-op thread each, or their thread pools oversubscribe the cores
+torch.set_num_threads(1)
+
 KERNEL_ATOL = 2e-5
 MODULE_ATOL = 2e-4
 ENCODER_ATOL = 5e-4
