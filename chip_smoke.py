@@ -5,7 +5,10 @@
 
 1. builds the port's CUDA kernels (K1, K2, K3, K4, K5, K6, K7, K7-int8,
    K7-pv, K7-int8pv, K8, K9, K10, K11, K12, K13, K14, K15, K16) from
-   ``samcarriestheburden_torch/csrc``, one ``nvcc`` per source, all at once;
+   ``samcarriestheburden_torch/csrc``, one ``nvcc`` per source, all at once,
+   and prints each instance of the global attention kernel
+   (``csrc/global_attention.cuh``) with its registers and spills as ``-Xptxas
+   -v`` reports them and the shared memory its launch asks for;
 2. drives the flat embed path once at full ViT-H width and depth with seeded
    random weights: ``make_serving_encoder(model, torch.bfloat16,
    compact_windows=False)`` on two padded 1024x1024 uint8 images (input size
@@ -80,6 +83,11 @@
    than any other by the share of equal bf16 outputs, K5 and K7 as the v2
    form against the plain v2, and each K16 instance stressed with planted
    faults (v3 on inputs at a bf16 rounding edge of its logits);
+4h. holds the global kernel's instances (K7, K7-int8, K11, K16 v1 and v3,
+   and K9 on a sequence longer than one block) at every shape class it takes
+   (``GLOBAL_SHAPES``: the path's 2 grids of 64 x 64 at head dim 80, vit_t's
+   8 x 8 at 16, 40 x 56 at 64, 2 x 64 at 32) against their plain versions
+   and stressed with the planted faults of phase 5;
 5. holds each kernel against its plain PyTorch version on the card, on the
    inputs each of its paths gives it (the flat rows and windows; the
    compact stream's: K1-K4 on 8416 rows, K5 on 32 windows and K6, both
@@ -1052,7 +1060,7 @@ def gpu_identity() -> str:
     return nvidia_smi("name,power.limit")
 
 
-def phase_build(build) -> None:
+def phase_build(build) -> dict:
     t0 = time.perf_counter()
     logs = build.build(verbose=True)
     log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
@@ -1060,6 +1068,7 @@ def phase_build(build) -> None:
         for line in text.splitlines():
             if any(word in line for word in ("entry function", "registers", "spill")):
                 log(f"  ptxas {name}: {line.strip()}")
+    return logs
 
 
 def phase_profile(torch, fn, what: str, top: int = 12):
@@ -2125,6 +2134,99 @@ def phase_attn_tools(torch, kernels, attn_k, gen, dev) -> list:
     return rows
 
 
+# The shape classes of the global kernel (csrc/global_attention.cuh) beside the
+# path's: (name, kh, kw, hd, heads, sequences).  vit_t's 8x8 grid of head dim
+# 16 (64 rows: one block, its second warpgroup idle), a 40x56 grid of head dim
+# 64 (2240 rows: not a multiple of the 128-row block or of the 64-key tile, and
+# not 64 wide: the rel terms from the shared table), a 2x64 grid of head dim 32
+# (64 wide: rw in registers, kh = 2).  16 heads, as on the path, and enough
+# sequences that every planted fault of K7-int8 shows: its faults move single
+# outputs, so the largest miss grows with the outputs compared.  At 2 heads of
+# 2 sequences the 8x8 grid's "one q scale per tensor" missed by 0.41 against
+# the 4x-tolerance line's 0.69, at 16 heads of 32 sequences its "rel bias from
+# the quantized q" by 0.875 against 1.01 (H100).  In the plain arithmetic the
+# faults are made of (CPU), the smallest miss at these counts is 1.64x the
+# line over five seeds (8x8), 1.43x over four seeds at 32 sequences of 2x64
+# (here 128) and 2.95x in one draw (40x56).  K16's
+# forms on a sequence of at most 208 rows run the window template, as K9 does:
+# at 8x8 and 2x64 they are held there.
+GLOBAL_SHAPES = (("path", 64, 64, 80, 16, 2), ("8x8", 8, 8, 16, 16, 512),
+                 ("40x56", 40, 56, 64, 16, 2), ("2x64", 2, 64, 32, 16, 128))
+
+
+def log_global_instances(logs: dict, attn_k) -> None:
+    """Each instance of the global kernel as ``-Xptxas -v`` reported it in the
+    build (registers, spills), with the dynamic shared memory its launch asks
+    for at the path's 64 x 64 grid."""
+    import re
+
+    names = {(0, 0, 0): "K7", (1, 0, 0): "K7-int8", (0, 1, 0): "K9 global, K11",
+             (0, 0, 1): "K16-v1", (0, 0, 3): "K16-v3"}
+    seen = {}
+    for source, text in logs.items():
+        current = None
+        for line in text.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: |$)",
+                          line)
+            if m:
+                current = m.group(1)
+                continue
+            k = re.search(r"global_attention_kernelILi(\d+)ELb([01])ELb([01])ELi(\d+)E",
+                          current or "")
+            if k and ("registers" in line or "spill" in line):
+                seen.setdefault((source, *map(int, k.groups())), []).append(line.strip())
+    check(seen, "the build reported no instance of the global kernel")
+    for (source, hd, int8, pre, sm), lines in sorted(seen.items()):
+        smem = attn_k.global_smem_bytes(hd, bool(int8), 64, 64)
+        log(f"  global_attention_kernel<hd {hd}, int8 {int8}, pre {pre}, form {sm}> "
+            f"({names[int8, pre, sm]}, {source}.cu): {'; '.join(lines)}; "
+            f"{smem} bytes of shared memory at 64x64")
+
+
+def phase_global_shapes(torch, attn_k, gen, dev) -> None:
+    """The global kernel's instances K7, K7-int8, K11, K16-v1 and K16-v3 (and
+    K9 on a sequence longer than one block) at every shape class it takes
+    (GLOBAL_SHAPES): against their plain versions on seeded inputs
+    (KERNEL_TOL), then stressed with the planted faults of phase 5 (STRESS_TOL,
+    FAULT_MARGIN), as the path's own calls are held."""
+    for what, kh, kw, hd, heads, s in GLOBAL_SHAPES:
+        n = kh * kw
+        qkv = (torch.randn((s, n, heads * 3 * hd), generator=gen, device=dev)).bfloat16()
+        tables = (torch.randn((2 * kh - 1 + 2 * kw - 1, hd), generator=gen, device=dev)
+                  * 0.02).bfloat16()
+        rel = [(torch.randn((heads, s, n, k), generator=gen, device=dev) * 0.3).bfloat16()
+               for k in (kh, kw)]
+        grid = dict(kh=kh, kw=kw, heads=heads, hd=hd)
+        forms = dict(grid, nkeys=n)
+        cases = {
+            "K7": (attn_k.rel_attention_global, attn_k.rel_attention_global_plain,
+                   (qkv, tables), grid),
+            "K7-int8": (partial(attn_k.rel_attention_global, int8_qk=True),
+                        partial(attn_k.rel_attention_global_plain, int8_qk=True),
+                        (qkv, tables), grid),
+            "K11": (attn_k.rel_attention_headmajor_global, attn_k.rel_attention_headmajor_plain,
+                    (qkv, *rel), grid),
+            "K16-v1": (partial(attn_k.rel_attention_forms, softmax="v1"),
+                       partial(attn_k.rel_attention_plain, softmax="v1"), (qkv, tables), forms),
+            "K16-v3": (partial(attn_k.rel_attention_forms, softmax="v3"),
+                       partial(attn_k.rel_attention_plain, softmax="v3"), (qkv, tables), forms)}
+        if n > 208:     # K9's global instance (a sequence of at most 208 rows is a window)
+            cases["K9"] = (attn_k.rel_attention_pre, attn_k.rel_attention_pre_plain,
+                           (*split_heads(qkv, heads, hd),
+                            *(r.reshape(heads * s, n, -1) for r in rel)), dict(kh=kh, kw=kw))
+        for name, (kern, plain, args, kw_) in cases.items():
+            key = f"{name} {what} {kh}x{kw} hd {hd}"
+            out_k, out_p = kern(*args, **kw_), plain(*args, **kw_)
+            torch.cuda.synchronize()
+            err, ref = max_err(out_k, out_p), out_p.float().abs().max().item()
+            log(f"{key}: max abs err {err:.4g} vs max |plain| {ref:.4g} "
+                f"({err / ref:.3g}, tol {KERNEL_TOL[name]})")
+            check(bool(torch.isfinite(out_k.float()).all()), f"{key}: non-finite output")
+            check(err <= KERNEL_TOL[name] * ref, f"{key} disagrees with its plain version")
+            phase_stress(torch, key, kern, plain, args, kw_, gen)
+            del out_k, out_p
+
+
 def phase_embed_int8(torch, kernels, cfg, model, make_serving_encoder, two_round_decode,
                      inputs, n_classes: int, emb_bf16, results_bf16, bf16_ips: float,
                      enhance_ips: float):
@@ -2580,7 +2682,7 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 1. build -------------------------------------------------------------
-    phase_build(build)
+    log_global_instances(phase_build(build), attn_k)
 
     # 2. the model and the inputs -------------------------------------------
     cfg = sam_vit_h_config()
@@ -2865,6 +2967,10 @@ def main() -> int:
     # by the share of equal outputs and stressed; K5 and K7 as the v2 form
     rows += phase_attn_tools(torch, kernels, attn_k, torch.Generator(device=dev).manual_seed(8),
                              dev)
+
+    # 6e. the global kernel at every shape class it takes, against its plain
+    # versions and stressed
+    phase_global_shapes(torch, attn_k, torch.Generator(device=dev).manual_seed(9), dev)
 
     # 7. the tiny config through the kernels vs the reference golden --------
     phase_golden(torch, np, sam_vit_t_config(), ImageEncoderViT, KERNEL_OPS, KERNEL_OPS_INT8,

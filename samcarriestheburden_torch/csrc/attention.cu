@@ -23,17 +23,24 @@
 // per (image, head) on 1.3 MB of q/k/v, so tensor-core throughput bounds it.
 // K5's 14x14 windows do ~110 operations per byte of qkv read and output
 // written, below the card's ~295 ops/byte ridge, so memory bounds it: each
-// window's q/k/v must be read once.  The design is a flash-attention loop on
-// mma.sync: a block owns NW x 16 query rows of one (sequence, head), keeps
-// its q fragments in registers, streams 64-key K/V tiles through a two-stage
-// cp.async ring and keeps an online softmax, so no logit row ever leaves the
-// registers (a 4096-wide fp32 row per query would not fit in shared memory).
-// The rel-pos terms are one small product of q against the packed tables at
-// block start, scattered to a per-row (KH + KW)-entry table in shared memory;
-// the TPU kernel's lane rolls and reversed key index were a TPU layout device
-// and are not carried over.
-// K5 runs 13 warps so one block holds all 200 rows of a window and reads its
-// q/k/v once; K7 runs 8 warps per 128-row query tile.
+// window's q/k/v must be read once.  Two kernels, both flash-attention loops
+// that keep an online softmax, so no logit row ever leaves the registers (a
+// 4096-wide fp32 row per query would not fit in shared memory):
+//   * the windows (K5, K6, K9 on windows, K10) and K7's int8 p . v pair run
+//     rel_attention_kernel (rel_attention.cuh) on mma.sync: a block owns NW x
+//     16 query rows of one (sequence, head), keeps its q fragments in
+//     registers and streams 64-key K/V tiles through a two-stage cp.async
+//     ring.  K5 runs 13 warps so one block holds all 200 rows of a window and
+//     reads its q/k/v once.
+//   * the global grid (K7, K7-int8, K9 on a sequence longer than 208 rows,
+//     K11) runs global_attention_kernel (global_attention.cuh): 128 query rows
+//     per block in two warpgroups, K/V tiles by TMA through an mbarrier ring,
+//     both products on wgmma.
+// In both the rel-pos terms are one small product of q against the packed
+// tables at block start, scattered to a per-row (KH + KW)-entry table in
+// shared memory, padded so that no rel-term load is a bank conflict; the TPU
+// kernel's lane rolls and reversed key index were a TPU layout device and are
+// not carried over.
 //
 // K6 is the same kernel with a query grid of (QH, QW) inside the key grid of
 // (KH, KW): carried slot t sits at window cell (min(t / QW, QH - 1), t % QW),
@@ -48,7 +55,7 @@
 // whole 112-slot window (14x8 or 8x14).  Its bound is bytes, ~3 us per group
 // of the compact ViT-H layout: launch latency, not the bound, sets its time.
 //
-// K7-int8 computes q . k on the int8 tensor cores (mma.sync m16n8k32):
+// K7-int8 computes q . k on the int8 tensor cores (wgmma m64n64k32 s8):
 //    sk[c]  = absmax_j |k[j, c]| / 127 + 1e-12       per (sequence, head, channel)
 //    ki     = rint(k / sk)                            int8
 //    qs     = q * sk;  sq[i] = absmax_c |qs[i, c]| / 127 + 1e-12;  qi = rint(qs / sq)
@@ -97,29 +104,16 @@
 // default body, by plain 2-byte loads (a 14-entry row is 28 bytes, which
 // cp.async's 16-byte alignment does not take), step 2 is skipped, and the
 // flash loop is K5's and K7's.  q, k and v come through a base pointer each
-// and a common row stride, so one kernel reads three (G, N, HD) tensors (K9:
-// stride HD, one "head" per sequence) or one head-grouped tensor (K10, K11:
-// stride heads * 3 * HD).  Bounds: K9 on windows and K10 move ~100 operations
-// per byte (q, k, v, the rel terms, the output) and are bound by bytes; K9 on
-// the global grid and K11 are K7's work without its table product and are
-// bound by the tensor cores.  13 warps hold a sequence of up to 208 rows (K10;
-// K9 on windows), 8 warps run 128 queries of a longer one (K11; K9 global).
+// and a common row stride (a tensor map each, on the global kernel), so one
+// kernel reads three (G, N, HD) tensors (K9: stride HD, one "head" per
+// sequence) or one head-grouped tensor (K10, K11: stride heads * 3 * HD).
+// Bounds: K9 on windows and K10 move ~100 operations per byte (q, k, v, the
+// rel terms, the output) and are bound by bytes; K9 on the global grid and K11
+// are K7's work without its table product and are bound by the tensor cores.
+// 13 warps hold a sequence of up to 208 rows (K10; K9 on windows); the global
+// kernel runs a longer one (K9) and K11 on any grid.
+#include "global_attention.cuh"
 #include "rel_attention.cuh"
-
-namespace {
-
-// K9-K11: a sequence of up to 208 rows in one block of 13 warps, a longer one
-// 128 queries per block of 8 warps.
-int dispatch_pre(int hd, const Operands& op, void* out, int nseq, int nrows, int heads, int kh,
-                 int kw, float scale, float inv_scale, void* stream, bool one_block) {
-  if (one_block)
-    return dispatch<13, false, false, true>(hd, op, out, nseq, nrows, nrows, heads, kh, kw, kh,
-                                            kw, scale, inv_scale, stream);
-  return dispatch<8, false, false, true>(hd, op, out, nseq, nrows, nrows, heads, kh, kw, kh, kw,
-                                         scale, inv_scale, stream);
-}
-
-}  // namespace
 
 // qkv (nseq, nrows, heads*3*hd) bf16; tab (2*kh-1 + 2*kw-1, hd) bf16 rows [Rh; Rw];
 // out (nseq, nrows, heads, hd) bf16.  hd in {16, 32, 64, 80}.
@@ -151,8 +145,8 @@ extern "C" int k7_rel_attention_global(const void* qkv, const void* tab, void* o
                                        float inv_scale, void* stream) {
   Operands op = grouped(qkv, nrows, heads, hd);
   op.tab = static_cast<const bf16*>(tab);
-  return dispatch<8, false, false, false>(hd, op, out, nseq, nrows, nrows, heads, kh, kw, kh, kw,
-                                          scale, inv_scale, stream);
+  return dispatch_global<false, false>(hd, op, out, nseq, nrows, heads, kh, kw, scale, inv_scale,
+                                       stream);
 }
 
 // As K7, with the q . k product in int8.  Scratch: kq (nseq, nrows-major per
@@ -166,8 +160,8 @@ extern "C" int k7_rel_attention_global_int8(const void* qkv, const void* tab, vo
   op.tab = static_cast<const bf16*>(tab);
   op.kq = static_cast<int8_t*>(kq);
   op.kmax = static_cast<float*>(kmax);
-  return dispatch<8, true, false, false>(hd, op, out, nseq, nrows, nrows, heads, kh, kw, kh, kw,
-                                         scale, inv_scale, stream);
+  return dispatch_global<true, false>(hd, op, out, nseq, nrows, heads, kh, kw, scale, inv_scale,
+                                      stream);
 }
 
 // K7-pv (int8_qk = 0) and K7-int8pv (int8_qk = 1): K7 and K7-int8 with the
@@ -205,8 +199,11 @@ extern "C" int k9_rel_attention_pre(const void* q, const void* k, const void* v,
   op.seq_stride = (size_t)nrows * hd;
   op.rel_h = static_cast<const bf16*>(rel_h);
   op.rel_w = static_cast<const bf16*>(rel_w);
-  return dispatch_pre(hd, op, out, nseq, nrows, 1, kh, kw, scale, inv_scale, stream,
-                      nrows <= 13 * 16);
+  if (nrows > 13 * 16)  // the global grid
+    return dispatch_global<false, true>(hd, op, out, nseq, nrows, 1, kh, kw, scale, inv_scale,
+                                        stream);
+  return dispatch<13, false, false, true>(hd, op, out, nseq, nrows, nrows, 1, kh, kw, kh, kw,
+                                          scale, inv_scale, stream);
 }
 
 // K10: qkv (nseq, nrows, heads*3*hd) bf16 grouped per head, nrows = kh * kw <=
@@ -220,10 +217,11 @@ extern "C" int k10_rel_attention_headmajor(const void* qkv, const void* rel_h, c
   Operands op = grouped(qkv, nrows, heads, hd);
   op.rel_h = static_cast<const bf16*>(rel_h);
   op.rel_w = static_cast<const bf16*>(rel_w);
-  return dispatch_pre(hd, op, out, nseq, nrows, heads, kh, kw, scale, inv_scale, stream, true);
+  return dispatch<13, false, false, true>(hd, op, out, nseq, nrows, nrows, heads, kh, kw, kh, kw,
+                                          scale, inv_scale, stream);
 }
 
-// K11: as K10 for any nrows = kh * kw, 128 queries per block.
+// K11: as K10 for any nrows = kh * kw, on the global kernel.
 extern "C" int k11_rel_attention_headmajor_global(const void* qkv, const void* rel_h,
                                                   const void* rel_w, void* out, int nseq,
                                                   int nrows, int heads, int hd, int kh, int kw,
@@ -231,5 +229,27 @@ extern "C" int k11_rel_attention_headmajor_global(const void* qkv, const void* r
   Operands op = grouped(qkv, nrows, heads, hd);
   op.rel_h = static_cast<const bf16*>(rel_h);
   op.rel_w = static_cast<const bf16*>(rel_w);
-  return dispatch_pre(hd, op, out, nseq, nrows, heads, kh, kw, scale, inv_scale, stream, false);
+  return dispatch_global<false, true>(hd, op, out, nseq, nrows, heads, kh, kw, scale, inv_scale,
+                                      stream);
+}
+
+// The dynamic shared memory (bytes) of the global kernel's launch at head dim
+// hd, with K7-int8's int8 q . k or without, on a kh x kw grid; -1 for a head
+// dim it has no instance of.
+extern "C" int global_attention_smem(int hd, int int8_qk, int kh, int kw) {
+  switch (hd) {
+    case 16:
+      return (int)(int8_qk ? global_launch_smem<16, true>(kh, kw)
+                           : global_launch_smem<16, false>(kh, kw));
+    case 32:
+      return (int)(int8_qk ? global_launch_smem<32, true>(kh, kw)
+                           : global_launch_smem<32, false>(kh, kw));
+    case 64:
+      return (int)(int8_qk ? global_launch_smem<64, true>(kh, kw)
+                           : global_launch_smem<64, false>(kh, kw));
+    case 80:
+      return (int)(int8_qk ? global_launch_smem<80, true>(kh, kw)
+                           : global_launch_smem<80, false>(kh, kw));
+    default: return -1;
+  }
 }

@@ -9,8 +9,10 @@
 // summed in another order), which the port runs on K5 and K7.
 //
 // Each is rel_attention_kernel (rel_attention.cuh; the design is attention.cu's)
-// with one compile-time form.  With scale = hd^-0.5, the rel terms as K5's and
-// m, l the row's final max and sum, per head and query i:
+// with one compile-time form on windows, and v1 and v3 on the grid are
+// global_attention_kernel (global_attention.cuh) with theirs.  With scale =
+// hd^-0.5, the rel terms as K5's and m, l the row's final max and sum, per
+// head and query i:
 //    v1      p = bf16(exp(logit - m) / l);                 out = p . v
 //    v3      p = bf16(exp(bf16(logit - m))), l = sum p;    out = (p . v) / l
 //    norel   logit = scale * q . k, no rel term;           out as K5 (v2)
@@ -29,6 +31,7 @@
 // write its output, ~110 operations per byte, so bytes bound them as they
 // bound K5; the global ones do K7's products and are bound by the tensor
 // cores (the second pass's q . k product is the two-pass forms' overhead).
+#include "global_attention.cuh"
 #include "rel_attention.cuh"
 
 namespace {
@@ -43,12 +46,24 @@ int dispatch_form(int hd, const Operands& op, void* out, int nseq, int nrows, in
       hd, op, out, nseq, nrows, nkeys, heads, kh, kw, kh, kw, scale, inv_scale, stream);
 }
 
+// v1 and v3 on a whole grid (every row a key): the global kernel's two passes
+template <int SM>
+int dispatch_global_form(int hd, const void* qkv, const void* tab, void* out, int nseq, int nrows,
+                         int nkeys, int heads, int kh, int kw, float scale, float inv_scale,
+                         void* stream) {
+  if (nkeys != nrows) return cudaErrorInvalidValue;
+  Operands op = grouped(qkv, nrows, heads, hd);
+  op.tab = static_cast<const bf16*>(tab);
+  return dispatch_global<false, false, SM>(hd, op, out, nseq, nrows, heads, kh, kw, scale,
+                                           inv_scale, stream);
+}
+
 }  // namespace
 
 // qkv (nseq, nrows, heads*3*hd) bf16 grouped per head; tab (2*kh-1 + 2*kw-1,
 // hd) bf16 rows [Rh; Rw] (not read by norel); out (nseq, nrows, heads, hd)
 // bf16.  A sequence of up to 208 rows (a window) runs in one block of 13
-// warps, a longer one 128 queries per block of 8 warps (v1 and v3 only).
+// warps, a longer one on the global kernel (v1 and v3 only).
 extern "C" int k16_rel_attention_forms(const void* qkv, const void* tab, void* out, int nseq,
                                        int nrows, int nkeys, int heads, int hd, int kh, int kw,
                                        int form, float scale, float inv_scale, void* stream) {
@@ -59,13 +74,13 @@ extern "C" int k16_rel_attention_forms(const void* qkv, const void* tab, void* o
     case FORM_V1:
       return window ? dispatch_form<13, SM_V1, REL_FULL>(hd, op, out, nseq, nrows, nkeys, heads,
                                                          kh, kw, scale, inv_scale, stream)
-                    : dispatch_form<8, SM_V1, REL_FULL>(hd, op, out, nseq, nrows, nkeys, heads,
-                                                        kh, kw, scale, inv_scale, stream);
+                    : dispatch_global_form<SM_V1>(hd, qkv, tab, out, nseq, nrows, nkeys, heads,
+                                                  kh, kw, scale, inv_scale, stream);
     case FORM_V3:
       return window ? dispatch_form<13, SM_V3, REL_FULL>(hd, op, out, nseq, nrows, nkeys, heads,
                                                          kh, kw, scale, inv_scale, stream)
-                    : dispatch_form<8, SM_V3, REL_FULL>(hd, op, out, nseq, nrows, nkeys, heads,
-                                                        kh, kw, scale, inv_scale, stream);
+                    : dispatch_global_form<SM_V3>(hd, qkv, tab, out, nseq, nrows, nkeys, heads,
+                                                  kh, kw, scale, inv_scale, stream);
     case FORM_NOREL:
       if (!window) return cudaErrorInvalidValue;
       return dispatch_form<13, SM_ONLINE, REL_NONE>(hd, op, out, nseq, nrows, nkeys, heads, kh,

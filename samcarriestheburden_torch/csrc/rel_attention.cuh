@@ -1,7 +1,9 @@
-// rel_attention_kernel, the attention kernel template of K5-K7, K9-K11 and
-// K16, with K7-int8's and K7-pv's pre-passes and the launchers: shared by
-// attention.cu (K5-K7, K9-K11) and attention_forms.cu (K16), so that each
-// source compiles only its own instances.  The design is attention.cu's.
+// rel_attention_kernel, the mma.sync attention kernel template of the
+// windows (K5, K6, K9 on windows, K10, K16 on windows) and of K7's int8 p . v
+// pair (K7-pv, K7-int8pv), with K7-int8's and K7-pv's pre-passes and the
+// launchers: shared by attention.cu and attention_forms.cu, so that each
+// source compiles only its own instances.  The design is attention.cu's.  The
+// global grid's other instances run global_attention.cuh.
 #pragma once
 
 #include <math.h>
@@ -13,7 +15,7 @@ namespace {
 constexpr int BKV = 64;  // keys per tile
 
 // The softmax forms (SM) and rel terms (REL) of the attention experiment tools
-// (K16; K5-K7 and K9-K11 run SM_ONLINE with REL_FULL).  With m and l the row's
+// (K16; the other instances run SM_ONLINE with REL_FULL).  With m and l the row's
 // final max and sum:
 //   SM_ONLINE  the flash loop's online softmax, 1 / l after p . v (the tools' v2)
 //   SM_V1      p = bf16(exp(logit - m) / l) before p . v
@@ -24,9 +26,21 @@ constexpr int BKV = 64;  // keys per tile
 enum : int { SM_ONLINE = 0, SM_V1 = 1, SM_V3 = 3, SM_NOEXP = 4 };
 enum : int { REL_FULL = 0, REL_NONE = 1, REL_BASE0 = 2 };
 
+// The row stride, in bf16, of the per-row rel table sRel (kh + kw entries):
+// 4 x an odd number of 4-byte words.  The eight rows a warp's lanes hold then
+// start in eight distinct groups of four banks, so a rel-term load, in which
+// a quad's four lanes read one word (rh) or four consecutive words (rw) of
+// their row, is free of bank conflicts on every grid.  (An odd word stride
+// would leave the rw loads two-way conflicted: rows that start one bank
+// apart overlap in their four words.)
+__host__ __device__ constexpr int rel_stride(int kr) {
+  return 2 * (((kr + 1) / 2 + 3) / 8 * 8 + 4);
+}
+
 template <int HD, int NW>
 constexpr size_t attn_smem_bytes(int kh, int kw) {
-  return (size_t)(NW * 16 * (HD + 8) + 4 * BKV * (HD + 8) + NW * 16 * (kh + kw)) * sizeof(bf16);
+  return (size_t)(NW * 16 * (HD + 8) + 4 * BKV * (HD + 8) + NW * 16 * rel_stride(kh + kw)) *
+         sizeof(bf16);
 }
 
 // four int8 values in one register, the first in the low byte
@@ -197,8 +211,9 @@ rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);  // [BQ][LD]
   bf16* sKV = sQ + BQ * LD;                  // [2 stages][K | V][BKV][..]; tables first
-  bf16* sRel = sKV + 4 * BKV * LD;           // [BQ][KH + KW]
-  int8_t* sQi = reinterpret_cast<int8_t*>(sRel + BQ * (KH + KW));  // [BQ][LDK]    (INT8)
+  const int SR = rel_stride(KH + KW);
+  bf16* sRel = sKV + 4 * BKV * LD;           // [BQ][SR]: KH + KW entries a row
+  int8_t* sQi = reinterpret_cast<int8_t*>(sRel + BQ * SR);  // [BQ][LDK]    (INT8)
   float* sSq = reinterpret_cast<float*>(sQi + (INT8 ? BQ * LDK : 0));  // [BQ] row scales
   float* sSk = sSq + (INT8 ? BQ : 0);       // [HD] key channel scales    (INT8)
   float* sSv = sSk + (INT8 ? HD : 0);       // [HD] value dequant scales  (PV)
@@ -233,7 +248,7 @@ rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
       if (q0 + r < nrows)
         v = __bfloat162float(slot < KH ? rel_h[(row0 + r) * KH + slot]
                                        : rel_w[(row0 + r) * KW + slot - KH]);
-      sRel[r * KR + slot] = __float2bfloat16(v * inv_scale);
+      sRel[r * SR + slot] = __float2bfloat16(v * inv_scale);
     }
   }
   if (INT8)
@@ -315,7 +330,7 @@ rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
           const int k = pw[i] + KW - 1 - (r - RH);
           if (k >= 0 && k < KW) slot = KH + k;
         }
-        if (slot >= 0) sRel[rl[i] * KR + slot] = __float2bfloat16(g[t][e] * inv_scale);
+        if (slot >= 0) sRel[rl[i] * SR + slot] = __float2bfloat16(g[t][e] * inv_scale);
       }
   }
   __syncthreads();  // the tables' space becomes the K/V ring
@@ -371,8 +386,11 @@ rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, linv[2] = {0.f, 0.f};
   constexpr float LOG2E = 1.4426950408889634f;
   const float inv_qw = 1.f / QW;
-  const bf16* rel0 = sRel + rl[0] * KR;
-  const bf16* rel1 = sRel + rl[1] * KR;
+  const bf16* rel0 = sRel + rl[0] * SR;
+  const bf16* rel1 = sRel + rl[1] * SR;
+  // a 64-key tile that is one grid row (QW % 64 == 0) has one kh: its rh is
+  // one load per row per tile, and kw needs no division
+  const bool row_tiles = QW % BKV == 0;
 
   for (int pass = 0; pass < NPASS; ++pass) {
     const bool stats = NPASS == 2 && pass == 0;  // the row max and sum, no product
@@ -408,7 +426,7 @@ rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
 #pragma unroll
         for (int t = 0; t < 8; ++t)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) sc[t][e] = (float)si[t][e] * sq[e >> 1];
+          for (int e = 0; e < 4; ++e) sc[t][e] = (float)si[t][e];  // * sq below, fused
       } else {
 #pragma unroll
         for (int t = 0; t < 8; ++t)
@@ -426,22 +444,39 @@ rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
           }
       }
 
+      const int kh_t = row_tiles ? kt * BKV / QW : 0;
+      const int kw_t = kt * BKV - kh_t * QW;
+      float rh_t[2] = {0.f, 0.f};
+      if (row_tiles && REL != REL_NONE) {
+        rh_t[0] = __bfloat162float(rel0[kh_t]);
+        rh_t[1] = __bfloat162float(rel1[kh_t]);
+      }
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int t = 0; t < 8; ++t)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int j = kt * BKV + t * 8 + (lane & 3) * 2 + (e & 1);
+          const int c = t * 8 + (lane & 3) * 2 + (e & 1);
+          const int j = kt * BKV + c;
           float v = -INFINITY;
           if (j < nkeys) {
             if (REL == REL_NONE) {
               v = sc[t][e] * scale;
             } else {
-              const int kh = __float2int_rz((j + 0.5f) * inv_qw);
-              const int kw = j - kh * QW;
               const bf16* rel = (e >> 1) ? rel1 : rel0;
-              const float rh = __bfloat162float(rel[kh]), rw = __bfloat162float(rel[KH + kw]);
-              v = INT8 ? (sc[t][e] + (rh + rw)) * scale : (sc[t][e] + rh + rw) * scale;
+              float rh, rw;
+              if (row_tiles) {
+                rh = rh_t[e >> 1];
+                rw = __bfloat162float(rel[KH + kw_t + c]);
+              } else {
+                const int kh = __float2int_rz((j + 0.5f) * inv_qw);
+                const int kw = j - kh * QW;
+                rh = __bfloat162float(rel[kh]);
+                rw = __bfloat162float(rel[KH + kw]);
+              }
+              // int8: the row scale and the rel terms in one fused multiply-add
+              v = INT8 ? __fmaf_rn(sc[t][e], sq[e >> 1], rh + rw) * scale
+                       : (sc[t][e] + rh + rw) * scale;
             }
           } else if (SM == SM_NOEXP && j < nrows) {
             v = -1e30f;  // a dead slot: the reference adds -1e30, which absorbs q . k

@@ -103,6 +103,14 @@ normalisation before p . v (v1) or with bf16 exp (v3), no rel term, every
 query's rel terms at cell (0, 0), ``logits - max`` in place of exp.  The
 tools' v2 form is K5's and K7's own online softmax (1/sum after p . v), so
 the wrapper launches them for it.
+
+On the card two kernels compute all of these.  The global attentions (K7,
+K7-int8, K9 on a sequence longer than 208 rows, K11, and K16's v1 and v3 on
+the grid) run ``csrc/global_attention.cuh``: TMA copies and mbarriers feed
+wgmma for both products (:func:`global_smem_bytes`; what it takes:
+:func:`_check_global`).  The windows (K5, K6, K9 on windows, K10, K16 on
+windows) and K7's int8 p.v pair run the ``mma.sync`` template of
+``csrc/rel_attention.cuh``.
 """
 
 from __future__ import annotations
@@ -136,6 +144,8 @@ def _lib():
         for fn in (lib.k10_rel_attention_headmajor, lib.k11_rel_attention_headmajor_global):
             fn.argtypes = [_VP] * 4 + [_I] * 6 + [_F, _F, _VP]
             fn.restype = _I
+        lib.global_attention_smem.argtypes = [_I] * 4
+        lib.global_attention_smem.restype = _I
         lib._typed = True
     return lib
 
@@ -362,6 +372,28 @@ def _check_hd(hd: int) -> None:
         raise ValueError(f"head dim {hd} has no kernel instance (16, 32, 64, 80)")
 
 
+def _check_global(kh: int, kw: int, **operands) -> None:
+    """What the global kernel (``csrc/global_attention.cuh``: K7, K7-int8, K9 on
+    a sequence longer than one block, K11, K16's v1 and v3 on the grid) takes
+    beyond the head dims: a kh x kw grid whose stacked tables (2kh-1 + 2kw-1
+    rows) fit its 256-row table product, and operands whose base and row pitch
+    its TMA copies can address (16 bytes)."""
+    if kh < 1 or kw < 1 or (2 * kh - 1) + (2 * kw - 1) > 256:
+        raise ValueError(f"the global kernel takes grids with (2kh-1) + (2kw-1) <= 256, "
+                         f"got {kh}x{kw}")
+    for name, t in operands.items():
+        if t.data_ptr() % 16 or t.shape[-1] * t.element_size() % 16:
+            raise ValueError(f"{name}: the global kernel's TMA copies need a 16-byte aligned "
+                             f"base and row pitch")
+
+
+def global_smem_bytes(hd: int, int8_qk: bool, kh: int, kw: int) -> int:
+    """The dynamic shared memory of the global kernel's launch at head dim hd
+    on a kh x kw grid (with K7-int8's int8 q . k or without)."""
+    _check_hd(hd)
+    return _lib().global_attention_smem(hd, int(int8_qk), kh, kw)
+
+
 def _check(qkv, tables, heads, hd, kh, kw):
     s, n, c = qkv.shape
     check_cuda("qkv", qkv, (s, n, heads * 3 * hd), torch.bfloat16)
@@ -434,6 +466,7 @@ def rel_attention_global(qkv, tables, *, kh: int, kw: int, heads: int,
     s, n = _check(qkv, tables, heads, hd, kh, kw)
     if n != kh * kw:
         raise ValueError(f"K7 expects {kh}x{kw} tokens, got {n}")
+    _check_global(kh, kw, qkv=qkv)
     dev = qkv.device
     out = torch.empty((s, n, heads * hd), dtype=qkv.dtype, device=dev)
     scale = hd ** -0.5
@@ -520,6 +553,8 @@ def rel_attention_forms(qkv, tables, *, kh: int, kw: int, heads: int, hd: int, n
     if nkeys != kh * kw or n < nkeys or (n > 208 and n != nkeys):
         raise ValueError(f"{name} expects a {kh}x{kw} grid of keys in a window of <= 208 rows "
                          f"or in the whole sequence, got {nkeys} keys in {n} rows")
+    if n > 208:
+        _check_global(kh, kw, qkv=qkv)
     out = torch.empty((s, n, heads * hd), dtype=qkv.dtype, device=qkv.device)
     scale = hd ** -0.5
     code = _forms_lib().k16_rel_attention_forms(
@@ -581,6 +616,8 @@ def rel_attention_pre(q, k, v, rel_h, rel_w, *, kh: int, kw: int) -> torch.Tenso
     _check_hd(hd)
     if n != kh * kw:
         raise ValueError(f"K9 expects {kh}x{kw} tokens, got {n}")
+    if n > 208:
+        _check_global(kh, kw, q=q, k=k, v=v)
     out = torch.empty_like(q)
     scale = hd ** -0.5
     code = _lib().k9_rel_attention_pre(
@@ -630,6 +667,7 @@ def rel_attention_headmajor_global(qkv, rel_h, rel_w, *, kh: int, kw: int, heads
         return rel_attention_headmajor_plain(qkv, rel_h, rel_w, kh=kh, kw=kw, heads=heads,
                                              hd=hd)
     s, n = _check_headmajor(qkv, rel_h, rel_w, kh, kw, heads, hd)
+    _check_global(kh, kw, qkv=qkv)
     out = torch.empty((s, n, heads * hd), dtype=qkv.dtype, device=qkv.device)
     scale = hd ** -0.5
     code = _lib().k11_rel_attention_headmajor_global(

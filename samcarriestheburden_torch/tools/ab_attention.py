@@ -1,22 +1,34 @@
-"""K5 and K7 of two checkouts of the repository on one card, in turns.
+"""The attention kernels of two checkouts of the repository on one card, in turns.
 
     python -m samcarriestheburden_torch.tools.ab_attention PARENT [CHANGE]
 
 ``PARENT`` and ``CHANGE`` (default: this checkout) are repository roots.
 Each turn runs in a process of its own (the two packages share a name), in
 the order parent, change, change, parent: it builds that checkout's
-``attention`` source, times ``rel_attention_window`` (K5) on 50 windows and
-``rel_attention_global`` (K7) on 2 grids at the ViT-H encoder's shapes
-(16 heads of 80, seeded inputs of std 1, tables of std 0.02) by CUDA events
-over ``ITERS`` calls after 3 warm-ups, and prints one JSON line of
-milliseconds per call.
+``attention`` and ``attention_forms`` sources and times, by CUDA events over
+``ITERS`` calls after 3 warm-ups, at the ViT-H encoder's shapes (16 heads of
+80; seeded inputs of std 1, tables of std 0.02):
+
+- K5 (``rel_attention_window``) on 50 windows of 14 x 14 tokens in 200 slots;
+- on 2 grids of 64 x 64 tokens: K7, K7-int8, K7-pv and K7-int8pv
+  (``rel_attention_global`` and its ``int8_qk``, ``int8_pv`` flags), K11
+  (``rel_attention_headmajor_global``), K9 (``rel_attention_pre`` on the same
+  q, k, v split per head) and K16's v1 and v3 (``rel_attention_forms``).
+
+Each turn prints one JSON line: per kernel its milliseconds per call, a
+digest of its output (the sum of the output's raw 16-bit patterns, as int64)
+and the max |difference| from the first turn's output, which the first turn
+saves in the temporary directory (and the last turn removes).  Equal digests
+and a difference of 0 mean the two checkouts' kernels give the same bits.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 from samcarriestheburden_torch.device import resolve_device
@@ -24,24 +36,46 @@ from samcarriestheburden_torch.device import resolve_device
 ITERS = 50
 
 TURN = r'''
-import json, sys
+import json, os, sys
 sys.path.insert(0, sys.argv[1])
 import torch
 from samcarriestheburden_torch.kernels import attention as A, build
-build.build(["attention"])
+build.build(["attention", "attention_forms"])
 dev = torch.device("cuda")
 g = torch.Generator(device=dev).manual_seed(0)
-iters = int(sys.argv[2])
-res = {}
-for name, s, n, side in (("K5", 50, 200, 14), ("K7", 2, 4096, 64)):
-    qkv = torch.randn((s, n, 3840), generator=g, device=dev).bfloat16()
-    tab = (torch.randn((2 * (2 * side - 1), 80), generator=g, device=dev) * 0.02).bfloat16()
-    if name == "K5":
-        def fn():
-            return A.rel_attention_window(qkv, tab, ws=side, heads=16, hd=80)
-    else:
-        def fn():
-            return A.rel_attention_global(qkv, tab, kh=side, kw=side, heads=16, hd=80)
+iters, saved = int(sys.argv[2]), sys.argv[3]
+heads, hd, side = 16, 80, 64
+
+
+def randn(*shape, std=1.0):
+    return (torch.randn(shape, generator=g, device=dev) * std).bfloat16()
+
+
+qkv_w, tab_w = randn(50, 200, 3 * heads * hd), randn(2 * (2 * 14 - 1), hd, std=0.02)
+qkv, tab = randn(2, side * side, 3 * heads * hd), randn(2 * (2 * side - 1), hd, std=0.02)
+rel_h, rel_w = randn(heads, 2, side * side, side), randn(heads, 2, side * side, side)
+x = qkv.view(2, side * side, heads, 3, hd).permute(3, 2, 0, 1, 4).reshape(3, -1, side * side, hd)
+q, k, v = (t.contiguous() for t in x)
+grid = dict(kh=side, kw=side, heads=heads, hd=hd)
+cases = {
+    "K5": lambda: A.rel_attention_window(qkv_w, tab_w, ws=14, heads=heads, hd=hd),
+    "K7": lambda: A.rel_attention_global(qkv, tab, **grid),
+    "K7-int8": lambda: A.rel_attention_global(qkv, tab, **grid, int8_qk=True),
+    "K7-pv": lambda: A.rel_attention_global(qkv, tab, **grid, int8_pv=True),
+    "K7-int8pv": lambda: A.rel_attention_global(qkv, tab, **grid, int8_qk=True, int8_pv=True),
+    "K11": lambda: A.rel_attention_headmajor_global(qkv, rel_h, rel_w, **grid),
+    "K9": lambda: A.rel_attention_pre(q, k, v, rel_h.reshape(-1, side * side, side),
+                                      rel_w.reshape(-1, side * side, side), kh=side, kw=side),
+    "K16-v1": lambda: A.rel_attention_forms(qkv, tab, **grid, nkeys=side * side, softmax="v1"),
+    "K16-v3": lambda: A.rel_attention_forms(qkv, tab, **grid, nkeys=side * side, softmax="v3"),
+}
+first = torch.load(saved) if os.path.exists(saved) else None
+outs, res = {}, {}
+for name, fn in cases.items():
+    out = fn()
+    torch.cuda.synchronize()
+    outs[name] = out.cpu()
+    diff = None if first is None else (out.float().cpu() - first[name].float()).abs().max().item()
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -51,23 +85,31 @@ for name, s, n, side in (("K5", 50, 200, 14), ("K7", 2, 4096, 64)):
         fn()
     end.record()
     torch.cuda.synchronize()
-    res[name] = start.elapsed_time(end) / iters
+    res[name] = {"ms": start.elapsed_time(end) / iters,
+                 "digest": int(out.view(torch.int16).long().sum()), "max_diff": diff}
+if first is None:
+    torch.save(outs, saved)
 print(json.dumps(res))
 '''
 
 
 def run(parent: str, change: str = str(Path(__file__).resolve().parents[2])):
-    """``[(checkout, {"K5": ms, "K7": ms}), ...]`` for the four turns; raises
-    without a card or when a turn fails."""
+    """``[(checkout, {kernel: {"ms", "digest", "max_diff"}}), ...]`` for the
+    four turns; raises without a card or when a turn fails."""
     resolve_device(None)
+    saved = os.path.join(tempfile.gettempdir(), f"ab_attention_{os.getpid()}.pt")
     results = []
-    for tree in (parent, change, change, parent):
-        proc = subprocess.run([sys.executable, "-c", TURN, tree, str(ITERS)],
-                              capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"the turn in {tree} failed:\n{proc.stderr[-4000:]}")
-        results.append((tree, json.loads(proc.stdout.strip().splitlines()[-1])))
-        print(tree, json.dumps(results[-1][1]), flush=True)
+    try:
+        for tree in (parent, change, change, parent):
+            proc = subprocess.run([sys.executable, "-c", TURN, tree, str(ITERS), saved],
+                                  capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"the turn in {tree} failed:\n{proc.stderr[-4000:]}")
+            results.append((tree, json.loads(proc.stdout.strip().splitlines()[-1])))
+            print(tree, json.dumps(results[-1][1]), flush=True)
+    finally:
+        if os.path.exists(saved):
+            os.remove(saved)
     return results
 
 

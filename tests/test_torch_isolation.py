@@ -116,8 +116,8 @@ def test_cuda_sources_are_registered_and_stand_alone():
     the port's ``common.cuh`` only, nothing of PyTorch or another framework."""
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     assert sources == sorted(build.SOURCES) and "quant" in sources
-    allowed = {"common.cuh", "rel_attention.cuh", "cuda_bf16.h", "cuda_runtime.h",
-               "cooperative_groups.h",
+    allowed = {"common.cuh", "rel_attention.cuh", "global_attention.cuh", "cuda_bf16.h",
+               "cuda_runtime.h", "cuda.h", "cooperative_groups.h",
                "stdint.h", "math.h"}
     for path in sorted(build.CSRC.glob("*.cu*")):
         text = path.read_text()
@@ -149,6 +149,35 @@ def test_cuda_sources_are_registered_and_stand_alone():
     common = (build.CSRC / "common.cuh").read_text()
     assert "m16n8k32.row.col.s32.s8.s8.s32" in common
     assert "mma_s8(acc" in common and "mma_bf16(acc" in common   # in the shared mainloops
+
+
+def _c_function(text: str, name: str) -> str:
+    """The body of the ``extern "C"`` function ``name`` in a source's text."""
+    start = text.index(f'extern "C" int {name}(')
+    return text[start:text.index("\n}\n", start)]
+
+
+def test_the_global_instances_run_the_hopper_kernel():
+    """K7, K7-int8, K9 on the global grid, K11 and K16's v1 and v3 on the grid
+    launch ``global_attention_kernel`` (``csrc/global_attention.cuh``: TMA,
+    mbarriers, wgmma for both products), never the 8-warp ``mma.sync``
+    instances of ``rel_attention.cuh``, which only K7's int8 p.v pair keeps."""
+    header = (build.CSRC / "global_attention.cuh").read_text()
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier", "m64n64k32.s32.s8.s8",
+                "cuTensorMapEncodeTiled", "global_attention_kernel"):
+        assert ptx in header, ptx
+    attention = (build.CSRC / "attention.cu").read_text()
+    forms = (build.CSRC / "attention_forms.cu").read_text()
+    for text in (attention, forms):
+        assert '#include "global_attention.cuh"' in text
+    for name in ("k7_rel_attention_global", "k7_rel_attention_global_int8",
+                 "k9_rel_attention_pre", "k11_rel_attention_headmajor_global"):
+        body = _c_function(attention, name)
+        assert "dispatch<8" not in body and "dispatch_global<" in body, name
+    assert "dispatch<8" in _c_function(attention, "k7_rel_attention_global_pv")
+    assert "dispatch<8" not in forms and "dispatch_form<8" not in forms
+    assert "dispatch_global_form<SM_V1>" in forms and "dispatch_global_form<SM_V3>" in forms
+    assert "dispatch_global<" in forms
 
 
 #: the C entry point of every counted kernel and the registered source that holds it

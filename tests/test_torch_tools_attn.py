@@ -301,8 +301,9 @@ def test_the_tools_run_on_the_card_only(monkeypatch, tool):
 
 
 def test_the_checkout_ab_runs_on_the_card_only(monkeypatch):
-    """``tools/ab_attention`` (K5 and K7 of two checkouts, in turns) raises
-    before it starts a turn when there is no card."""
+    """``tools/ab_attention`` (K5 and the global family of two checkouts, in
+    turns, with the digests of their outputs) raises before it starts a turn
+    when there is no card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(ab_attention.subprocess, "run", None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
