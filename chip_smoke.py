@@ -88,6 +88,15 @@
    (``GLOBAL_SHAPES``: the path's 2 grids of 64 x 64 at head dim 80, vit_t's
    8 x 8 at 16, 40 x 56 at 64, 2 x 64 at 32) against their plain versions
    and stressed with the planted faults of phase 5;
+4i. holds the window kernel's instances (K5, K6, K9 on windows, K10, the K16
+   window forms) at every shape class it takes (``WINDOW_SHAPES``: windows of
+   14, 7 and 5, K6's 14 x 8, 8 x 14, 5 x 3 and 3 x 5 rectangles, head dims
+   16, 32, 64 and 80), each at item counts below, at and above the card's
+   persistent grid and at one that is not a multiple of it, against their
+   plain versions, then stressed with planted faults (rel_w dropped, one
+   selector column shifted by one key, K6's b_v dropped) and v1 on inputs at
+   a bf16 rounding edge of its normalised probabilities (the normalisation
+   moved after p . v);
 5. holds each kernel against its plain PyTorch version on the card, on the
    inputs each of its paths gives it (the flat rows and windows; the
    compact stream's: K1-K4 on 8416 rows, K5 on 32 windows and K6, both
@@ -362,9 +371,9 @@ KERNELS = {  # name: (path, source, replaced TPU kernel)
            "samcarriestheburden_tpu/kernels/mlp.py:75"),
     "K4": ("embed-int8", "samcarriestheburden_torch/csrc/quant.cu",
            "samcarriestheburden_tpu/kernels/quant.py:106"),
-    "K5": ("embed", "samcarriestheburden_torch/csrc/attention.cu",
+    "K5": ("embed", "samcarriestheburden_torch/csrc/window_attention.cuh",
            "samcarriestheburden_tpu/kernels/attention.py:492"),
-    "K6": ("embed-compact", "samcarriestheburden_torch/csrc/attention.cu",
+    "K6": ("embed-compact", "samcarriestheburden_torch/csrc/window_attention.cuh",
            "samcarriestheburden_tpu/kernels/attention.py:769"),
     "K7": ("embed", "samcarriestheburden_torch/csrc/attention.cu",
            "samcarriestheburden_tpu/kernels/attention.py:639"),
@@ -374,7 +383,7 @@ KERNELS = {  # name: (path, source, replaced TPU kernel)
            "samcarriestheburden_tpu/ops/ccl.py:211"),
     "K9": ("embed-v1", "samcarriestheburden_torch/csrc/attention.cu",
            "samcarriestheburden_tpu/kernels/attention.py:156"),
-    "K10": ("block-v3", "samcarriestheburden_torch/csrc/attention.cu",
+    "K10": ("block-v3", "samcarriestheburden_torch/csrc/window_attention.cuh",
             "samcarriestheburden_tpu/kernels/attention.py:282"),
     "K11": ("block-v3", "samcarriestheburden_torch/csrc/attention.cu",
             "samcarriestheburden_tpu/kernels/attention.py:357"),
@@ -391,13 +400,26 @@ KERNELS = {  # name: (path, source, replaced TPU kernel)
                "tools/exp_attn.py:147,217"),
     "K16-v3": ("attn-tools", "samcarriestheburden_torch/csrc/attention_forms.cu",
                "tools/exp_attn.py:147,217"),
-    "K16-norel": ("attn-tools", "samcarriestheburden_torch/csrc/attention_forms.cu",
+    "K16-norel": ("attn-tools", "samcarriestheburden_torch/csrc/window_attention.cuh",
                   "tools/exp_attn2.py:228"),
-    "K16-noroll": ("attn-tools", "samcarriestheburden_torch/csrc/attention_forms.cu",
+    "K16-noroll": ("attn-tools", "samcarriestheburden_torch/csrc/window_attention.cuh",
                    "tools/exp_attn2.py:228"),
-    "K16-noexp": ("attn-tools", "samcarriestheburden_torch/csrc/attention_forms.cu",
+    "K16-noexp": ("attn-tools", "samcarriestheburden_torch/csrc/window_attention.cuh",
                   "tools/exp_attn2.py:228"),
 }
+# the window kernel's source: K9, K16-v1 and K16-v3 run it on a sequence of at
+# most WINDOW_ROWS rows (their KERNELS source is the longer sequences')
+WINDOW_SOURCE = "samcarriestheburden_torch/csrc/window_attention.cuh"
+WINDOW_ROWS = 208
+
+
+def source_of(name: str, n: int) -> str:
+    """The source of the kernel that runs ``name`` on sequences of n rows."""
+    if name in ("K9", "K16-v1", "K16-v3") and n <= WINDOW_ROWS:
+        return WINDOW_SOURCE
+    return KERNELS[name][1]
+
+
 # the TPU kernels K14 and K15 replace, by the experiment that ran them
 TOOL_KERNELS = {"pallas_dot": "tools/exp_int8.py:97", "exp_3d": "tools/exp_3d.py:61,83,104",
                 "mlp_int8_chunk": "tools/exp_int8.py:163", "diag": "tools/exp_int8.py:227",
@@ -740,7 +762,8 @@ def k6_variant(torch, attn_k, qkv, tables, qkv_bias, *, ws, rh, rw, heads, hd, f
     ``no_pad``: the pad keys dropped; ``pad_no_rel``: their rel terms dropped;
     ``query_ws``: query cells taken as (t // ws, t % ws); ``transposed``: the
     carried rectangle taken as rw x rh; ``no_bv``: the pad weights' product
-    with b_v dropped."""
+    with b_v dropped; ``shift``: carried key nreal // 2 at its neighbour's cell
+    (one selector column shifted by one key)."""
     s, n, _ = qkv.shape
     dt, dev = qkv.dtype, qkv.device
     scale = hd ** -0.5
@@ -756,6 +779,9 @@ def k6_variant(torch, attn_k, qkv, tables, qkv_bias, *, ws, rh, rw, heads, hd, f
     pad = torch.tensor(attn_k.rect_pad_cells(ws, rh, rw), device=dev).reshape(-1, 2)
     key_h = torch.cat([tok[:nreal] // rw, pad[:, 0]])
     key_w = torch.cat([tok[:nreal] % rw, pad[:, 1]])
+    if fault == "shift":    # carried key nreal // 2 takes its neighbour's cell
+        j0 = nreal // 2
+        key_h[j0], key_w[j0] = key_h[j0 + 1], key_w[j0 + 1]
     nk = key_h.numel()
     idx_h = (ph[:, None] - key_h[None] + ws - 1).clamp(0, 2 * ws - 2).expand(s, n, nk)
     idx_w = (pw[:, None] - key_w[None] + ws - 1).clamp(0, 2 * ws - 2).expand(s, n, nk) \
@@ -2082,7 +2108,7 @@ def phase_attn_tools(torch, kernels, attn_k, gen, dev) -> list:
         n_launches = sum(res[t][nm]["launches"][kern] for t, nm, _ in names)
         rows.append({"name": kern, "path": "attn-tools", "shape": list(qkv.shape),
                      "experiments": [f"{t} {nm}" for t, nm, _ in names], "route": "cuda",
-                     "source": KERNELS[kern][1],
+                     "source": source_of(kern, qkv.shape[1]),
                      "replaces": ",".join(sorted({ATTN_TOOL_KERNELS[t, group]
                                                   for t, nm, _ in names})),
                      "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -2225,6 +2251,278 @@ def phase_global_shapes(torch, attn_k, gen, dev) -> None:
             check(err <= KERNEL_TOL[name] * ref, f"{key} disagrees with its plain version")
             phase_stress(torch, key, kern, plain, args, kw_, gen)
             del out_k, out_p
+
+
+# The shape classes of the window kernel (csrc/window_attention.cuh): (kernel,
+# window side ws or K6's (ws, rh, rw), head dim).  ViT-H's 14 x 14 windows (196
+# keys in 200 slots; K9 and K10 carry no dead slot), a 7 x 7 window (49 keys in
+# 56 slots), vit_t's 5 x 5 (25 keys in 32 slots), K6's ViT-H and vit_t edge
+# rectangles, head dims 16, 32, 64 and 80, and the K16 window forms at ws 14.
+# Each runs at item counts (sequence x head) below, at and above the card's
+# persistent grid G (blocks per SM x SMs): G // 3, G, 2 G and 2 G + 7, which is
+# no multiple of it.
+WINDOW_SHAPES = (("K5", 14, 80), ("K5", 7, 64), ("K5", 5, 16), ("K5", 5, 32),
+                 ("K9", 14, 80), ("K9", 7, 32), ("K9", 5, 64),
+                 ("K10", 14, 64), ("K10", 7, 80), ("K10", 5, 16),
+                 ("K6", (14, 14, 8), 80), ("K6", (14, 8, 14), 64), ("K6", (5, 5, 3), 32),
+                 ("K6", (5, 3, 5), 16),
+                 *((name, 14, 80) for name in K16_FORMS))
+# the K16 window forms' (softmax, rel, exp), as kernels/attention.py:FORMS has them
+K16_FORM_ARGS = {"K16-v1": dict(softmax="v1"), "K16-v3": dict(softmax="v3"),
+                 "K16-norel": dict(softmax="v2", rel="none"),
+                 "K16-noroll": dict(softmax="v2", rel="base0"),
+                 "K16-noexp": dict(softmax="v2", exp=False)}
+
+
+def log_window_instances(logs: dict, attn_k) -> None:
+    """Each instance of the window kernel as ``-Xptxas -v`` reported it in the
+    build (registers, spills), with the dynamic shared memory of its launch on
+    ViT-H's 14 x 14 windows (200 slots; K9 and K10: 196 rows, rel terms given)."""
+    import re
+
+    seen = {}
+    for source, text in logs.items():
+        current = None
+        for line in text.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: |$)",
+                          line)
+            if m:
+                current = m.group(1)
+                continue
+            k = re.search(r"window_attention_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])ELb([01])",
+                          current or "")
+            if k and ("registers" in line or "spill" in line):
+                seen.setdefault((source, *map(int, k.groups())), []).append(line.strip())
+    check(seen, "the build reported no instance of the window kernel")
+    for (source, hd, sm, rel, rect, pre), lines in sorted(seen.items()):
+        smem = attn_k.window_smem_bytes(hd, 196 if pre else 200, 14, 14, tables=not pre)
+        log(f"  window_attention_kernel<hd {hd}, form {sm}, rel {rel}, rect {rect}, pre {pre}> "
+            f"({source}.cu): {'; '.join(lines)}; {smem} bytes of shared memory at 14x14")
+
+
+def shifted_window_plain(torch, attn_k, qkv, tables, *, kh, kw, heads, hd, nkeys, j0,
+                         softmax="v1", rel="full", exp=True):
+    """Planted fault of the window kernel: ``rel_attention_plain`` with key
+    column j0's selector shifted by one key (its rel terms those of key j0 + 1's
+    cell).  ``softmax``, ``rel``, ``exp`` as the plain version takes them."""
+    s, n, _ = qkv.shape
+    dt, dev = qkv.dtype, qkv.device
+    scale = hd ** -0.5
+    nk = nkeys if exp else n
+    x = qkv.reshape(s, n, heads, 3 * hd).float()
+    tok = torch.arange(n, device=dev)
+    ph, pw = (tok // kw).clamp(max=kh - 1), tok % kw
+    if rel == "base0":
+        ph, pw = torch.zeros_like(ph), torch.zeros_like(pw)
+    cell = torch.arange(nk, device=dev)
+    cell[j0] = j0 + 1
+    idx_h = (ph[:, None] - (cell // kw).clamp(max=kh - 1)[None] + kh - 1).expand(s, n, nk)
+    idx_w = (pw[:, None] - (cell % kw)[None] + kw - 1 + 2 * kh - 1).expand(s, n, nk)
+    out = torch.empty((s, n, heads, hd), dtype=dt, device=dev)
+    forms = (softmax, rel, exp) != ("v1", "full", True)
+    for h in range(heads):
+        q, k, v = x[:, :, h, :hd], x[:, :nk, h, hd:2 * hd], x[:, :nk, h, 2 * hd:]
+        g = (q @ tables.float().T * (1.0 / scale)).to(dt).float()
+        qk = q @ k.transpose(1, 2)
+        logits = (qk + g.gather(2, idx_h) + g.gather(2, idx_w)) * scale
+        if not forms:
+            out[:, :, h] = (torch.softmax(logits, dim=-1).to(dt).float() @ v).to(dt)
+            continue
+        if nk > nkeys:
+            logits[..., nkeys:] = qk[..., nkeys:] * scale - 1e30
+        out[:, :, h] = attn_k._softmax_pv(logits, v, dt, softmax, exp).to(dt)
+    return out.reshape(s, n, heads * hd)
+
+
+def shifted_pre_plain(torch, q, k, v, rel_h, rel_w, *, kh, kw, j0):
+    """Planted fault of K9 and K10: ``rel_attention_pre_plain`` with key column
+    j0's rel terms those of key j0 + 1's cell."""
+    dt = q.dtype
+    n, hd = q.shape[1:]
+    scale = hd ** -0.5
+    cell = torch.arange(n, device=q.device)
+    cell[j0] = j0 + 1
+    rh = (rel_h.float() / scale).to(dt).float()
+    rw = (rel_w.float() / scale).to(dt).float()
+    bias = rh[..., cell // kw] + rw[..., cell % kw]
+    logits = (q.float() @ k.float().transpose(1, 2) + bias) * scale
+    return (torch.softmax(logits, dim=-1).to(dt).float() @ v.float()).to(dt)
+
+
+def v1_edge_inputs(torch, shape, tables_shape, *, heads, hd, nkeys, dev):
+    """(qkv, tables) at ``shape`` where v1's normalisation before p . v and
+    v2's after it part by far more than K16-v1's tolerance: every query q = e_0,
+    key 0 at logit 0 with v = +1, keys 1.. at one logit d = bf16(b) * scale with
+    v = -1, the dead slots zero, no rel term (zero tables).  b is the bf16 value
+    whose rows weigh the two sides nearly alike (the output is small beside
+    each term) and whose rounding of 1 / l and e^d / l to bf16 (v1) moves the
+    output furthest from v2's (bf16(e^d), then / l), each rounded value 2 % of a
+    bf16 step clear of its midpoint, so that the kernel's and the plain
+    version's roundings agree."""
+    import math
+
+    s, n, _ = shape
+    scale = torch.tensor(hd ** -0.5, dtype=torch.float32)
+    target = math.log(1.0 / (nkeys - 1)) / scale.item()
+    b = torch.linspace(1.05 * target, 0.95 * target, 4001).bfloat16().unique()
+    p1 = torch.exp(b.float() * scale)
+    inv_l = 1.0 / (1.0 + (nkeys - 1) * p1)
+
+    def margin(x):
+        step = (x.abs().log2().floor() - 7).exp2()
+        return ((x - x.bfloat16().float()).abs() - step / 2).abs() / step
+
+    out1 = inv_l.bfloat16().float() - (nkeys - 1) * (p1 * inv_l).bfloat16().float()
+    out2 = (1.0 - (nkeys - 1) * p1.bfloat16().float()) * inv_l
+    ok = (margin(inv_l) > 0.02) & (margin(p1 * inv_l) > 0.02) & (margin(p1) > 0.02) \
+        & (out1.abs() > 0.01)
+    score = torch.where(ok, (out1 - out2).abs() / out1.abs(), torch.zeros_like(out1))
+    x = torch.zeros((s, n, heads, 3, hd), dtype=torch.bfloat16, device=dev)
+    x[:, :, :, 0, 0] = 1.0
+    x[:, 1:nkeys, :, 1, 0] = b[score.argmax()].to(dev)
+    x[:, 0, :, 2] = 1.0
+    x[:, 1:nkeys, :, 2] = -1.0
+    return x.reshape(shape), torch.zeros(tables_shape, dtype=torch.bfloat16, device=dev)
+
+
+def window_case(torch, attn_k, name, geom, hd, count, gen, dev):
+    """(kern, plain, args, kw) of one window-kernel instance over ``count``
+    (sequence, head) items of the shape class ``geom``, on seeded inputs (the
+    path's scales: qkv of std 1, rel tables of std 0.02, rel terms of std 0.3,
+    a qkv bias of mean 0.5 for K6 so that its pad keys carry weight)."""
+    ws, rh, rw = geom if name == "K6" else (geom, geom, geom)
+    n = ws * ws if name in ("K9", "K10") else -(-(rh * rw) // 8) * 8
+    heads = 1 if name == "K9" or count % 2 else 2
+    nseq = count // heads
+
+    def randn(*shape, std=1.0, mean=0.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * std + mean).to(dtype)
+
+    tables = randn(4 * ws - 2, hd, std=0.02)
+    if name == "K9":
+        return (attn_k.rel_attention_pre, attn_k.rel_attention_pre_plain,
+                (randn(count, n, hd), randn(count, n, hd), randn(count, n, hd),
+                 randn(count, n, ws, std=0.3), randn(count, n, ws, std=0.3)), dict(kh=ws, kw=ws))
+    qkv = randn(nseq, n, heads * 3 * hd)
+    if name == "K10":
+        return (attn_k.rel_attention_headmajor, attn_k.rel_attention_headmajor_plain,
+                (qkv, randn(heads, nseq, n, ws, std=0.3), randn(heads, nseq, n, ws, std=0.3)),
+                dict(kh=ws, kw=ws, heads=heads, hd=hd))
+    if name == "K6":
+        return (attn_k.rel_attention_window_rect, attn_k.rel_attention_window_rect_plain,
+                (qkv, tables, randn(heads * 3 * hd, std=0.5, mean=0.5, dtype=torch.float32)),
+                dict(ws=ws, rh=rh, rw=rw, heads=heads, hd=hd))
+    if name == "K5":
+        return (attn_k.rel_attention_window, attn_k.rel_attention_window_plain, (qkv, tables),
+                dict(ws=ws, heads=heads, hd=hd))
+    form = dict(kh=ws, kw=ws, heads=heads, hd=hd, nkeys=ws * ws, **K16_FORM_ARGS[name])
+    return (attn_k.rel_attention_forms, attn_k.rel_attention_plain, (qkv, tables), form)
+
+
+def window_faults(torch, attn_k, name, a, kw, gen):
+    """The planted faults of the window-shapes phase on stressed inputs ``a``:
+    {what: function}, beside (for K5, K6, K9, K10) phase 5's own: rel_w
+    dropped, one selector column shifted by one key; K16-norel's rel term kept;
+    K16-noexp's own, the tools' (its dead slots' -1e30 logits carry almost all
+    of each row, so no rel term shows)."""
+    if name in ("K9", "K10"):
+        q, k, v, rel_h, rel_w = pre_operands(name, a, kw)
+        j0 = q.shape[1] // 2
+
+        def shifted():
+            out = shifted_pre_plain(torch, q, k, v, rel_h, rel_w, kh=kw["kh"], kw=kw["kw"], j0=j0)
+            return out if name == "K9" else merge_heads(out, a[0].shape[0], kw["heads"])
+        return {"one selector column shifted by one key": shifted}
+    qkv, tables = a[:2]
+    ws = kw["ws"] if name in ("K5", "K6") else kw["kh"]
+    no_rw = torch.cat([tables[:2 * ws - 1], torch.zeros_like(tables[2 * ws - 1:])])
+    plain = {"K5": attn_k.rel_attention_window_plain,
+             "K6": attn_k.rel_attention_window_rect_plain}.get(name, attn_k.rel_attention_plain)
+    faults = {}
+    if name == "K16-noexp":     # its dead slots swamp the rel terms (the tools' faults)
+        return {"dead slots skipped": lambda: forms_variant(
+                    torch, qkv, tables, heads=kw["heads"], hd=kw["hd"], side=ws, nkeys=ws * ws,
+                    fault="dead_skipped"),
+                "exp applied": lambda: attn_k.rel_attention_plain(qkv, tables,
+                                                                  **dict(kw, exp=True))}
+    if name != "K16-norel":
+        faults["rel_w dropped"] = lambda: plain(qkv, no_rw, *a[2:], **kw)
+    if name == "K6":
+        faults["one selector column shifted by one key"] = lambda: k6_variant(
+            torch, attn_k, *a, **kw, fault="shift")
+    elif name != "K16-norel":
+        form = {k: v for k, v in kw.items() if k in ("softmax", "rel", "exp")}
+        faults["one selector column shifted by one key"] = lambda: shifted_window_plain(
+            torch, attn_k, qkv, tables, kh=ws, kw=ws, heads=kw["heads"], hd=kw["hd"],
+            nkeys=ws * ws, j0=ws * ws // 2, **form)
+    if name == "K16-norel":
+        faults["rel term kept"] = lambda: attn_k.rel_attention_plain(
+            qkv, tables, **{k: v for k, v in kw.items() if k != "rel"})
+    return faults
+
+
+def phase_window_shapes(torch, attn_k, gen, dev) -> None:
+    """The window kernel's instances at every shape class it takes
+    (WINDOW_SHAPES), each at item counts below, at and above the persistent
+    grid and at one that is not a multiple of it, against their plain versions
+    (KERNEL_TOL); then, at the largest count, stressed (qkv of std 2, rel
+    tables of std 0.3 or rel terms of std 2, K6's bias of mean 0.5) with planted
+    faults that must miss by FAULT_MARGIN x STRESS_TOL; K16-v1 also on the
+    V1_EDGE inputs, where v2's placement of the normalisation must miss."""
+    for name, geom, hd in WINDOW_SHAPES:
+        ws = geom[0] if name == "K6" else geom
+        n = ws * ws if name in ("K9", "K10") else -(-(geom[1] * geom[2] if name == "K6"
+                                                     else ws * ws) // 8) * 8
+        grid = attn_k.window_grid(hd, n, ws, ws, tables=name not in ("K9", "K10"))
+        key = f"{name} {'x'.join(map(str, geom[1:])) if name == 'K6' else f'{ws}x{ws}'} hd {hd}"
+        readings = []
+        for count in (max(1, grid // 3), grid, 2 * grid, 2 * grid + 7):
+            kern, plain, args, kw = window_case(torch, attn_k, name, geom, hd, count, gen, dev)
+            out_k, out_p = kern(*args, **kw), plain(*args, **kw)
+            torch.cuda.synchronize()
+            err, ref = max_err(out_k, out_p), out_p.float().abs().max().item()
+            check(bool(torch.isfinite(out_k.float()).all()), f"{key}, {count} items: non-finite")
+            check(err <= KERNEL_TOL[name] * ref,
+                  f"{key}, {count} items: max abs err {err:.4g} vs max |plain| {ref:.4g}")
+            readings.append(f"{count} items {err / ref:.3g}")
+            del out_k, out_p
+        log(f"{key} (grid {grid}): max abs err / max |plain| at " + ", ".join(readings)
+            + f" (tol {KERNEL_TOL[name]})")
+        # stressed, with planted faults, at the largest count
+        if name in ("K5", "K6", "K9", "K10"):
+            a, k, faults = stressed(torch, name, args, kw, gen)
+            faults = {what: (f if callable(f) else partial(plain, *f[0], **f[1]))
+                      for what, f in faults.items()}
+        else:
+            a = ((torch.randn(args[0].shape, generator=gen, device=dev) * 2.0).bfloat16(),
+                 (torch.randn(args[1].shape, generator=gen, device=dev) * 0.3).bfloat16())
+            k, faults = kw, {}
+        faults.update(window_faults(torch, attn_k, name, a, k, gen))
+        out_p = plain(*a, **k)
+        tol = STRESS_TOL[name] * out_p.float().abs().max().item()
+        err = max_err(kern(*a, **k), out_p)
+        misses = {what: max_err(f(), out_p) for what, f in faults.items()}
+        log(f"{key} stressed: max abs err {err:.4g} (tol {tol:.4g}); planted faults miss by "
+            + ", ".join(f"{what} {m:.4g}" for what, m in misses.items())
+            + f" (must be >= {FAULT_MARGIN * tol:.4g})")
+        check(err <= tol, f"{key} disagrees with its plain version on stressed inputs")
+        for what, m in misses.items():
+            check(m >= FAULT_MARGIN * tol, f"{key}: the stressed check cannot see '{what}'")
+        del a, out_p, faults
+        if name == "K16-v1":
+            a, t = v1_edge_inputs(torch, args[0].shape, args[1].shape, heads=kw["heads"],
+                                  hd=hd, nkeys=ws * ws, dev=dev)
+            ref = plain(a, t, **kw)
+            tol = STRESS_TOL[name] * ref.float().abs().max().item()
+            err_e = max_err(kern(a, t, **kw), ref)
+            miss = max_err(attn_k.rel_attention_plain(a, t, **dict(kw, softmax="v2")), ref)
+            log(f"{key} on the V1_EDGE inputs: max abs err {err_e:.4g} (tol {tol:.4g}); the "
+                f"normalisation after p . v (v2's) misses by {miss:.4g} (must be >= "
+                f"{FAULT_MARGIN * tol:.4g})")
+            check(err_e <= tol, f"{key} disagrees with its plain form on the V1_EDGE inputs")
+            check(miss >= FAULT_MARGIN * tol,
+                  f"{key}: the V1_EDGE check cannot see the normalisation moved after p . v")
+        del args
 
 
 def phase_embed_int8(torch, kernels, cfg, model, make_serving_encoder, two_round_decode,
@@ -2682,7 +2980,9 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 1. build -------------------------------------------------------------
-    log_global_instances(phase_build(build), attn_k)
+    logs = phase_build(build)
+    log_global_instances(logs, attn_k)
+    log_window_instances(logs, attn_k)
 
     # 2. the model and the inputs -------------------------------------------
     cfg = sam_vit_h_config()
@@ -2889,7 +3189,8 @@ def main() -> int:
 
     def row_of(key, path, n_launches, args, kw):
         name = key.split()[0]
-        return {"name": name, "path": path, "route": "cuda", "source": KERNELS[name][1],
+        return {"name": name, "path": path, "route": "cuda",
+                "source": source_of(name, args[0].shape[1]),
                 "replaces": KERNELS[name][2], "launches": n_launches,
                 **phase_kernel(torch, attn_k, key, *pairs[name], args, kw, stress_gen)}
 
@@ -2971,6 +3272,10 @@ def main() -> int:
     # 6e. the global kernel at every shape class it takes, against its plain
     # versions and stressed
     phase_global_shapes(torch, attn_k, torch.Generator(device=dev).manual_seed(9), dev)
+
+    # 6f. the window kernel at every shape class and item count it takes,
+    # against its plain versions and stressed
+    phase_window_shapes(torch, attn_k, torch.Generator(device=dev).manual_seed(10), dev)
 
     # 7. the tiny config through the kernels vs the reference golden --------
     phase_golden(torch, np, sam_vit_t_config(), ImageEncoderViT, KERNEL_OPS, KERNEL_OPS_INT8,

@@ -7,8 +7,8 @@
 // global shape (K9), fused_rel_attention_headmajor_global (K11), and the v1
 // and v3 forms of tools/exp_attn.py:mk_global (K16).
 //
-// It computes rel_attention_kernel's function (rel_attention.cuh; the
-// formulas are attention.cu's) with the same rounding points: the rel terms
+// It computes the function of attention.cu's header with the rounding points
+// of the mma.sync kernels it replaced: the rel terms
 // bf16 at 1 / scale, (s + rh + rw) * scale (int8: fma(s, sq, rh + rw) * scale),
 // P rounded to bf16 before p . v, 1 / l after p . v (v1: p / l before,
 // correctly rounded), fp32 accumulation.  Only the order of the fp32 sums inside the tensor-core
@@ -706,17 +706,17 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A 3-D map over (seqs, rows, cols) elements of `elem` bytes, rows `cols`
-// elements apart, boxes of box_cols x 64 rows, 32-byte swizzled; rows past
+// elements apart, boxes of box_cols x box_rows, 32-byte swizzled; rows past
 // `rows` read zeros.  False where TMA cannot take the operand (a base or a
 // row pitch not 16-byte aligned).
 bool encode_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem, int cols,
-                int rows, int seqs, int box_cols) {
+                int rows, int seqs, int box_cols, int box_rows = 64) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr || reinterpret_cast<uintptr_t>(base) % 16 || (size_t)cols * elem % 16)
     return false;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)seqs};
   const cuuint64_t strides[2] = {(cuuint64_t)cols * elem, (cuuint64_t)cols * elem * rows};
-  const cuuint32_t box[3] = {(cuuint32_t)box_cols, 64, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t estride[3] = {1, 1, 1};
   return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, estride,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
@@ -730,7 +730,7 @@ size_t global_launch_smem(int kh, int kw) {
   return global_smem<HD, INT8>(kh, kw).bytes + 1024;
 }
 
-// op as rel_attention_kernel's launch reads it (rel_attention.cuh), a sequence
+// op (Operands, rel_attention.cuh), a sequence
 // seq_stride = nrows * stride elements long: q, k and v each become a 3-D
 // tensor map of (nseq, nrows, stride) elements from its own base.
 template <int HD, bool INT8, bool PRE, int SM>

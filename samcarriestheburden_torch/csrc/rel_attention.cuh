@@ -1,9 +1,11 @@
-// rel_attention_kernel, the mma.sync attention kernel template of the
-// windows (K5, K6, K9 on windows, K10, K16 on windows) and of K7's int8 p . v
-// pair (K7-pv, K7-int8pv), with K7-int8's and K7-pv's pre-passes and the
-// launchers: shared by attention.cu and attention_forms.cu, so that each
-// source compiles only its own instances.  The design is attention.cu's.  The
-// global grid's other instances run global_attention.cuh.
+// rel_attention_kernel, the mma.sync kernel of K7's int8 p . v pair (K7-pv,
+// K7-int8pv), and what the attention kernels share: the softmax forms and rel
+// modes, the padded per-row rel table, the operands of a launch, and K7-int8's
+// and K7-pv's pre-passes (column absmax, int8 keys and values).  Included by
+// global_attention.cuh (K7, K7-int8, K9 on the grid, K11, K16 v1 and v3 on the
+// grid), which window_attention.cuh (K5, K6, K9 on windows, K10, K16 on
+// windows) includes in turn.  The design of the int8 p . v pair is
+// attention.cu's.
 #pragma once
 
 #include <math.h>
@@ -15,9 +17,9 @@ namespace {
 constexpr int BKV = 64;  // keys per tile
 
 // The softmax forms (SM) and rel terms (REL) of the attention experiment tools
-// (K16; the other instances run SM_ONLINE with REL_FULL).  With m and l the row's
-// final max and sum:
-//   SM_ONLINE  the flash loop's online softmax, 1 / l after p . v (the tools' v2)
+// (K16; the other instances run SM_ONLINE with REL_FULL), as the global and
+// window kernels take them.  With m and l the row's final max and sum:
+//   SM_ONLINE  1 / l after p . v (the flash loop's online softmax; the tools' v2)
 //   SM_V1      p = bf16(exp(logit - m) / l) before p . v
 //   SM_V3      p = bf16(exp(bf16(logit - m))), l = sum of those p, 1 / l after p . v
 //   SM_NOEXP   p = logit - m in place of exp, 1 / l after p . v; the dead slots
@@ -37,11 +39,8 @@ __host__ __device__ constexpr int rel_stride(int kr) {
   return 2 * (((kr + 1) / 2 + 3) / 8 * 8 + 4);
 }
 
-template <int HD, int NW>
-constexpr size_t attn_smem_bytes(int kh, int kw) {
-  return (size_t)(NW * 16 * (HD + 8) + 4 * BKV * (HD + 8) + NW * 16 * rel_stride(kh + kw)) *
-         sizeof(bf16);
-}
+constexpr int PV_NW = 8;  // warps of rel_attention_kernel: 128 query rows
+
 
 // four int8 values in one register, the first in the low byte
 __device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
@@ -56,13 +55,15 @@ __host__ __device__ constexpr int padded_hd(int hd) { return (hd + 31) / 32 * 32
 // the int8 v tiles of K7-pv: HD channel rows of BKV keys, padded by 16 bytes
 constexpr int LDV8 = BKV + 16;
 
-// int8 q . k adds the int8 q rows and the row and key-channel scales; int8 p . v
-// the value-channel scales
-template <int HD, int NW, bool INT8, bool PV>
+// q rows, four 64-key tiles (the tables, then the K/V ring), the per-row rel
+// table; int8 q . k adds the int8 q rows and the row and key-channel scales;
+// int8 p . v the value-channel scales
+template <int HD, bool INT8>
 constexpr size_t attn_smem_total(int kh, int kw) {
-  return attn_smem_bytes<HD, NW>(kh, kw) +
-         (INT8 ? NW * 16 * (padded_hd(HD) + 16) + (NW * 16 + HD) * sizeof(float) : 0) +
-         (PV ? HD * sizeof(float) : 0);
+  return (size_t)(PV_NW * 16 * (HD + 8) + 4 * BKV * (HD + 8) +
+                  PV_NW * 16 * rel_stride(kh + kw)) * sizeof(bf16) +
+         (INT8 ? PV_NW * 16 * (padded_hd(HD) + 16) + (PV_NW * 16 + HD) * sizeof(float) : 0) +
+         HD * sizeof(float);
 }
 
 // kmax[s, h, c] = max_j |x[s, j, h, col + c]| of the keys (col = HD) or values
@@ -172,60 +173,45 @@ v_quant_kernel(const bf16* __restrict__ qkv, const float* __restrict__ vmax,
   }
 }
 
-// QH x QW is the grid the carried slots are laid out on, as queries and as
-// keys: the key grid KH x KW itself except for K6 (RECT), whose pad keys take
-// their k and v from qkv_bias (heads * 3 * HD, fp32).
-// q, k, v point at row 0 of (sequence 0, head 0); a row is `stride` elements
-// from the next, a head `head_stride`, a sequence `seq_stride`.  PRE: the rel
-// terms come from rel_h (heads, nseq, nrows, KH) and rel_w (.., KW), not from tab.
-// PV: p . v in int8 over vq (nseq, heads, HD, nkp) with the value scales vmax.
-// SM and REL (K16, attention_forms.cu): the softmax form and the rel term.
-template <int HD, int NW, bool INT8, bool RECT, bool PRE, bool PV, int SM = SM_ONLINE,
-          int REL = REL_FULL>
-__global__ void __launch_bounds__(NW * 32)
-rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
-                     const bf16* __restrict__ vp, int stride, size_t seq_stride,
-                     int head_stride, const bf16* __restrict__ tab,
-                     const bf16* __restrict__ rel_h, const bf16* __restrict__ rel_w,
+// K7-pv (INT8 false) and K7-int8pv (INT8 true) over a KH x KW grid, every
+// row a key.  q, k, v point at row 0 of (sequence 0, head 0); a row is
+// `stride` elements from the next, a head `head_stride`, a sequence
+// `seq_stride`.  p . v runs in int8 over vq (nseq, heads, HD, nkp) with the
+// value scales vmax; with INT8 q . k too, over kq and kmax.  Two passes over
+// the keys: pass 0 the row max and sum (the online softmax), pass 1 the
+// normalised int8 probabilities and their product with vq.
+template <int HD, bool INT8>
+__global__ void __launch_bounds__(PV_NW * 32)
+rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp, int stride,
+                     size_t seq_stride, int head_stride, const bf16* __restrict__ tab,
                      const int8_t* __restrict__ kq, const float* __restrict__ kmax,
                      const int8_t* __restrict__ vq, const float* __restrict__ vmax,
-                     const float* __restrict__ qkv_bias, bf16* __restrict__ out, int nrows,
-                     int nkeys, int heads, int KH, int KW, int QH, int QW, float scale,
+                     bf16* __restrict__ out, int nrows, int heads, int KH, int KW, float scale,
                      float inv_scale) {
-  constexpr int BQ = NW * 16, LD = HD + 8, KSTEPS = HD / 16, DT = HD / 8, CH = HD / 8;
+  constexpr int BQ = PV_NW * 16, LD = HD + 8, KSTEPS = HD / 16, DT = HD / 8, CH = HD / 8;
   constexpr int HDP = padded_hd(HD), LDK = HDP + 16, KSTEPS8 = HDP / 32, CHK = HDP / 16;
-  constexpr int NTHREADS = NW * 32;
-  // the ring's stage: a K tile (bf16, or int8 rows) and a V tile (bf16, or int8
-  // channel rows)
+  constexpr int NTHREADS = PV_NW * 32;
+  // the ring's stage: a K tile (bf16, or int8 rows) and an int8 V tile of
+  // channel rows
   constexpr int K_BYTES = INT8 ? BKV * LDK : BKV * LD * 2;
-  constexpr int STAGE_BYTES = K_BYTES + (PV ? HD * LDV8 : BKV * LD * 2);
+  constexpr int STAGE_BYTES = K_BYTES + HD * LDV8;
   static_assert(2 * STAGE_BYTES <= 4 * BKV * LD * 2, "the ring outgrows the tables' space");
-  static_assert(!PV || (!RECT && !PRE), "int8 p . v is K7's only");
-  static_assert((SM == SM_ONLINE && REL == REL_FULL) || (!INT8 && !RECT && !PRE && !PV),
-                "the softmax forms and rel modes are K5's and K7's");
-  // a form that needs each row's final max (and, for v1, sum) before its first
-  // probability makes two passes over the keys, as int8 p . v does
-  constexpr bool ONLINE = SM == SM_ONLINE;
-  constexpr int NPASS = (PV || !ONLINE) ? 2 : 1;
-  constexpr bool TABLES = !PRE && REL != REL_NONE;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);  // [BQ][LD]
-  bf16* sKV = sQ + BQ * LD;                  // [2 stages][K | V][BKV][..]; tables first
+  bf16* sKV = sQ + BQ * LD;                  // [2 stages][K | V][..]; tables first
   const int SR = rel_stride(KH + KW);
   bf16* sRel = sKV + 4 * BKV * LD;           // [BQ][SR]: KH + KW entries a row
   int8_t* sQi = reinterpret_cast<int8_t*>(sRel + BQ * SR);  // [BQ][LDK]    (INT8)
   float* sSq = reinterpret_cast<float*>(sQi + (INT8 ? BQ * LDK : 0));  // [BQ] row scales
   float* sSk = sSq + (INT8 ? BQ : 0);       // [HD] key channel scales    (INT8)
-  float* sSv = sSk + (INT8 ? HD : 0);       // [HD] value dequant scales  (PV)
+  float* sSv = sSk + (INT8 ? HD : 0);       // [HD] value dequant scales
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, s = blockIdx.z;
   const size_t seq_off = (size_t)s * seq_stride + (size_t)h * head_stride;
   const bf16* qb = qp + seq_off;
   const bf16* kb = kp + seq_off;
-  const bf16* vb = vp + seq_off;
   const int RH = 2 * KH - 1, NT = RH + 2 * KW - 1, NTP = (NT + 15) / 16 * 16;
-  const int KR = KH + KW;
 
   // 1. this block's q rows and the stacked rel tables [Rh; Rw] into shared memory
   for (int c = tid; c < BQ * CH; c += NTHREADS) {
@@ -233,30 +219,17 @@ rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
     const bool ok = q0 + r < nrows;
     cp_async16(sQ + r * LD + cc, ok ? qb + (size_t)(q0 + r) * stride + cc : qb, ok ? 16 : 0);
   }
-  if (TABLES)
-    for (int c = tid; c < NTP * CH; c += NTHREADS) {
-      const int r = c / CH, cc = (c % CH) * 8;
-      const bool ok = r < NT;
-      cp_async16(sKV + r * LD + cc, ok ? tab + (size_t)r * HD + cc : tab, ok ? 16 : 0);
-    }
-  cp_async_commit();
-  if (PRE) {  // the caller's rel terms, rounded at 1/scale as the TPU kernel's body rounds them
-    const size_t row0 = ((size_t)h * gridDim.z + s) * nrows + q0;
-    for (int c = tid; c < BQ * KR; c += NTHREADS) {
-      const int r = c / KR, slot = c - r * KR;
-      float v = 0.f;
-      if (q0 + r < nrows)
-        v = __bfloat162float(slot < KH ? rel_h[(row0 + r) * KH + slot]
-                                       : rel_w[(row0 + r) * KW + slot - KH]);
-      sRel[r * SR + slot] = __float2bfloat16(v * inv_scale);
-    }
+  for (int c = tid; c < NTP * CH; c += NTHREADS) {
+    const int r = c / CH, cc = (c % CH) * 8;
+    const bool ok = r < NT;
+    cp_async16(sKV + r * LD + cc, ok ? tab + (size_t)r * HD + cc : tab, ok ? 16 : 0);
   }
+  cp_async_commit();
   if (INT8)
     for (int c = tid; c < HD; c += NTHREADS)
       sSk[c] = kmax[(size_t)(s * heads + h) * HD + c] / 127.f + 1e-12f;
-  if (PV)
-    for (int c = tid; c < HD; c += NTHREADS)
-      sSv[c] = (vmax[(size_t)(s * heads + h) * HD + c] / 127.f + 1e-12f) / 127.f;
+  for (int c = tid; c < HD; c += NTHREADS)
+    sSv[c] = (vmax[(size_t)(s * heads + h) * HD + c] / 127.f + 1e-12f) / 127.f;
   cp_async_wait<0>();
   __syncthreads();
 
@@ -266,9 +239,8 @@ rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
   for (int i = 0; i < 2; ++i) {
     rl[i] = warp * 16 + (lane >> 2) + i * 8;
     const int t = q0 + rl[i];
-    // dead slots clamp, as the reference does; REL_BASE0 puts every row at (0, 0)
-    ph[i] = REL == REL_BASE0 ? 0 : min(t / QW, QH - 1);
-    pw[i] = REL == REL_BASE0 ? 0 : t % QW;
+    ph[i] = min(t / KW, KH - 1);  // dead rows clamp, as the reference does
+    pw[i] = t % KW;
   }
   uint32_t qf[KSTEPS][4];
 #pragma unroll
@@ -306,7 +278,7 @@ rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
 
   // 2. rel terms: g = q . table_row, scattered to the (row, kh) and
   //    (row, KH + kw) entries each table row serves for this query
-  for (int np = 0; TABLES && np < NTP / 16; ++np) {
+  for (int np = 0; np < NTP / 16; ++np) {
     float g[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
@@ -335,38 +307,33 @@ rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
   }
   __syncthreads();  // the tables' space becomes the K/V ring
 
-  // 3. flash loop over 64-key tiles (PV and the two-pass forms: pass 0 takes
-  //    each row's max and sum, pass 1 the p . v product).  SM_NOEXP also loops
-  //    over the dead slots nkeys <= j < nrows.
-  const int nk = SM == SM_NOEXP ? nrows : nkeys;
-  const int NKT = (nk + BKV - 1) / BKV;
+  // 3. two passes over 64-key tiles: pass 0 takes each row's max and sum,
+  //    pass 1 the int8 p . v product
+  const int NKT = (nrows + BKV - 1) / BKV;
   const int nkp = NKT * BKV;
   unsigned char* ring = reinterpret_cast<unsigned char*>(sKV);
   const int8_t* kq_base = INT8 ? kq + (size_t)(s * heads + h) * nrows * HDP : nullptr;
-  const int8_t* vq_base = PV ? vq + (size_t)(s * heads + h) * HD * nkp : nullptr;
+  const int8_t* vq_base = vq + (size_t)(s * heads + h) * HD * nkp;
   auto stage_k = [&](int stage) { return ring + stage * STAGE_BYTES; };
-  auto stage_v = [&](int stage) { return reinterpret_cast<bf16*>(stage_k(stage) + K_BYTES); };
   auto load_kv = [&](int stage, int kt, bool with_v) {
-    bf16* sK = reinterpret_cast<bf16*>(stage_k(stage));
-    bf16* sV = stage_v(stage);
-    if (!INT8 || !PV)
+    if (!INT8) {
+      bf16* sK = reinterpret_cast<bf16*>(stage_k(stage));
       for (int c = tid; c < BKV * CH; c += NTHREADS) {
         const int r = c / CH, cc = (c % CH) * 8;
         const int j = kt * BKV + r;
-        const bool ok = j < nk;
-        const size_t off = (size_t)j * stride + cc;
-        if (!INT8) cp_async16(sK + r * LD + cc, ok ? kb + off : kb, ok ? 16 : 0);
-        if (!PV && with_v) cp_async16(sV + r * LD + cc, ok ? vb + off : vb, ok ? 16 : 0);
+        const bool ok = j < nrows;
+        cp_async16(sK + r * LD + cc, ok ? kb + (size_t)j * stride + cc : kb, ok ? 16 : 0);
       }
-    if (INT8)
+    } else {
       for (int c = tid; c < BKV * CHK; c += NTHREADS) {
         const int r = c / CHK, cc = (c % CHK) * 16;
         const int j = kt * BKV + r;
-        const bool ok = j < nkeys;
+        const bool ok = j < nrows;
         cp_async16(stage_k(stage) + r * LDK + cc, ok ? kq_base + (size_t)j * HDP + cc : kq_base,
                    ok ? 16 : 0);
       }
-    if (PV && with_v)
+    }
+    if (with_v)
       for (int c = tid; c < HD * (BKV / 16); c += NTHREADS) {
         const int r = c / (BKV / 16), cc = (c % (BKV / 16)) * 16;
         cp_async16(stage_k(stage) + K_BYTES + r * LDV8 + cc,
@@ -374,27 +341,22 @@ rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
       }
   };
 
-  float o[DT][4];
   int acc[DT][4];
 #pragma unroll
   for (int d = 0; d < DT; ++d)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      o[d][e] = 0.f;
-      acc[d][e] = 0;
-    }
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, linv[2] = {0.f, 0.f};
   constexpr float LOG2E = 1.4426950408889634f;
-  const float inv_qw = 1.f / QW;
+  const float inv_qw = 1.f / KW;
   const bf16* rel0 = sRel + rl[0] * SR;
   const bf16* rel1 = sRel + rl[1] * SR;
-  // a 64-key tile that is one grid row (QW % 64 == 0) has one kh: its rh is
+  // a 64-key tile that is one grid row (KW % 64 == 0) has one kh: its rh is
   // one load per row per tile, and kw needs no division
-  const bool row_tiles = QW % BKV == 0;
+  const bool row_tiles = KW % BKV == 0;
 
-  for (int pass = 0; pass < NPASS; ++pass) {
-    const bool stats = NPASS == 2 && pass == 0;  // the row max and sum, no product
-    const bool pv_pass = PV && pass == 1;
+  for (int pass = 0; pass < 2; ++pass) {
+    const bool stats = pass == 0;  // the row max and sum, no product
     load_kv(0, 0, !stats);
     cp_async_commit();
     for (int kt = 0; kt < NKT; ++kt) {
@@ -403,7 +365,6 @@ rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
       cp_async_wait<1>();
       __syncthreads();
       const bf16* sK = reinterpret_cast<const bf16*>(stage_k(kt & 1));
-      const bf16* sV = stage_v(kt & 1);
 
       float sc[8][4];
       if (INT8) {
@@ -444,10 +405,10 @@ rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
           }
       }
 
-      const int kh_t = row_tiles ? kt * BKV / QW : 0;
-      const int kw_t = kt * BKV - kh_t * QW;
+      const int kh_t = row_tiles ? kt * BKV / KW : 0;
+      const int kw_t = kt * BKV - kh_t * KW;
       float rh_t[2] = {0.f, 0.f};
-      if (row_tiles && REL != REL_NONE) {
+      if (row_tiles) {
         rh_t[0] = __bfloat162float(rel0[kh_t]);
         rh_t[1] = __bfloat162float(rel1[kh_t]);
       }
@@ -459,33 +420,27 @@ rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
           const int c = t * 8 + (lane & 3) * 2 + (e & 1);
           const int j = kt * BKV + c;
           float v = -INFINITY;
-          if (j < nkeys) {
-            if (REL == REL_NONE) {
-              v = sc[t][e] * scale;
+          if (j < nrows) {
+            const bf16* rel = (e >> 1) ? rel1 : rel0;
+            float rh, rw;
+            if (row_tiles) {
+              rh = rh_t[e >> 1];
+              rw = __bfloat162float(rel[KH + kw_t + c]);
             } else {
-              const bf16* rel = (e >> 1) ? rel1 : rel0;
-              float rh, rw;
-              if (row_tiles) {
-                rh = rh_t[e >> 1];
-                rw = __bfloat162float(rel[KH + kw_t + c]);
-              } else {
-                const int kh = __float2int_rz((j + 0.5f) * inv_qw);
-                const int kw = j - kh * QW;
-                rh = __bfloat162float(rel[kh]);
-                rw = __bfloat162float(rel[KH + kw]);
-              }
-              // int8: the row scale and the rel terms in one fused multiply-add
-              v = INT8 ? __fmaf_rn(sc[t][e], sq[e >> 1], rh + rw) * scale
-                       : (sc[t][e] + rh + rw) * scale;
+              const int kh = __float2int_rz((j + 0.5f) * inv_qw);
+              const int kw = j - kh * KW;
+              rh = __bfloat162float(rel[kh]);
+              rw = __bfloat162float(rel[KH + kw]);
             }
-          } else if (SM == SM_NOEXP && j < nrows) {
-            v = -1e30f;  // a dead slot: the reference adds -1e30, which absorbs q . k
+            // int8: the row scale and the rel terms in one fused multiply-add
+            v = INT8 ? __fmaf_rn(sc[t][e], sq[e >> 1], rh + rw) * scale
+                     : (sc[t][e] + rh + rw) * scale;
           }
           sc[t][e] = v;
           mx[e >> 1] = fmaxf(mx[e >> 1], v);
         }
 
-      if (pv_pass) {
+      if (!stats) {
         // the normalised probabilities at the fixed scale 127, four keys of a
         // row per A register (the order vq's chunks were written in)
         int pq[8][4];
@@ -511,13 +466,8 @@ rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
             mma_s8(acc[2 * nj + 1], a, r[2], r[3]);
           }
         }
-        __syncthreads();  // this stage is reloaded two tiles on
-        continue;
-      }
-
-      float ls[2] = {0.f, 0.f};
-      if (ONLINE || stats) {  // the online softmax: running max, rescaled sum
-        float alpha[2];
+      } else {  // the online softmax: running max, rescaled sum
+        float ls[2] = {0.f, 0.f}, alpha[2];
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
@@ -529,60 +479,9 @@ rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
 #pragma unroll
         for (int t = 0; t < 8; ++t)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float p = exp2f((sc[t][e] - m[e >> 1]) * LOG2E);
-            sc[t][e] = p;
-            ls[e >> 1] += p;
-          }
+          for (int e = 0; e < 4; ++e) ls[e >> 1] += exp2f((sc[t][e] - m[e >> 1]) * LOG2E);
 #pragma unroll
         for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + ls[i];
-        if (NPASS == 1)
-#pragma unroll
-          for (int d = 0; d < DT; ++d) {
-            o[d][0] *= alpha[0];
-            o[d][1] *= alpha[0];
-            o[d][2] *= alpha[1];
-            o[d][3] *= alpha[1];
-          }
-      } else {  // the product pass of a two-pass form: m (and, for v1, l) are final
-#pragma unroll
-        for (int t = 0; t < 8; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = e >> 1;
-            float p;
-            if (SM == SM_V1) {
-              p = exp2f((sc[t][e] - m[i]) * LOG2E) / l[i];
-            } else if (SM == SM_V3) {
-              p = __bfloat162float(__float2bfloat16(
-                  expf(__bfloat162float(__float2bfloat16(sc[t][e] - m[i])))));
-            } else {  // SM_NOEXP; a key beyond the sequence takes no part
-              p = sc[t][e] == -INFINITY ? 0.f : sc[t][e] - m[i];
-            }
-            sc[t][e] = p;
-            ls[i] += p;
-          }
-        if (SM != SM_V1)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) l[i] += ls[i];
-      }
-
-      if (!stats) {
-#pragma unroll
-        for (int kk = 0; kk < BKV / 16; ++kk) {
-          uint32_t a[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                           pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                           pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                           pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-#pragma unroll
-          for (int dn = 0; dn < HD / 16; ++dn) {
-            uint32_t r[4];
-            ldmatrix_x4_trans(r, sV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                     dn * 16 + (lane >> 4) * 8);
-            mma_bf16(o[2 * dn], a, r[0], r[1]);
-            mma_bf16(o[2 * dn + 1], a, r[2], r[3]);
-          }
-        }
       }
       __syncthreads();  // this stage is reloaded two tiles on
     }
@@ -592,121 +491,29 @@ rel_attention_kernel(const bf16* __restrict__ qp, const bf16* __restrict__ kp,
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
         linv[i] = 1.f / l[i];
-        if (SM == SM_V3 || SM == SM_NOEXP) l[i] = 0.f;  // summed again over the p used
       }
   }
 
-  if (PV) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + rl[i];
-      if (row >= nrows) continue;
-      bf16* dst = out + ((size_t)(s * nrows + row) * heads + h) * HD + (lane & 3) * 2;
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        const int c = d * 8 + (lane & 3) * 2;
-        *reinterpret_cast<__nv_bfloat162*>(dst + d * 8) = __floats2bfloat162_rn(
-            (float)acc[d][2 * i] * sSv[c], (float)acc[d][2 * i + 1] * sSv[c + 1]);
-      }
-    }
-    return;
-  }
-
-  // K6: the pad keys, the window's cells outside the carried rectangle, all
-  // with k = b_k and v = b_v.  A quad shares a row: its four threads split the
-  // channels of q . b_k and the cells, and fold them into the online softmax.
-  if (RECT) {
-    const float* bh = qkv_bias + h * 3 * HD;
-    float qbk[2] = {0.f, 0.f};
-    for (int c = lane & 3; c < HD; c += 4) {
-      const float bk = __bfloat162float(__float2bfloat16(bh[HD + c]));
-      qbk[0] += __bfloat162float(sQ[rl[0] * LD + c]) * bk;
-      qbk[1] += __bfloat162float(sQ[rl[1] * LD + c]) * bk;
-    }
-    const int ncells = KH * KW;
-    float pm[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      qbk[i] += __shfl_xor_sync(0xffffffffu, qbk[i], 1);
-      qbk[i] += __shfl_xor_sync(0xffffffffu, qbk[i], 2);
-    }
-    for (int c = lane & 3; c < ncells; c += 4) {
-      const int pp = c / KW, qq = c - pp * KW;
-      if (pp < QH && qq < QW) continue;
-      pm[0] = fmaxf(pm[0], (qbk[0] + __bfloat162float(rel0[pp]) +
-                            __bfloat162float(rel0[KH + qq])) * scale);
-      pm[1] = fmaxf(pm[1], (qbk[1] + __bfloat162float(rel1[pp]) +
-                            __bfloat162float(rel1[KH + qq])) * scale);
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      pm[i] = fmaxf(pm[i], __shfl_xor_sync(0xffffffffu, pm[i], 1));
-      pm[i] = fmaxf(pm[i], __shfl_xor_sync(0xffffffffu, pm[i], 2));
-      const float mn = fmaxf(m[i], pm[i]);  // a pad logit may be the row's largest
-      alpha[i] = exp2f((m[i] - mn) * LOG2E);
-      m[i] = mn;
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      o[d][0] *= alpha[0];
-      o[d][1] *= alpha[0];
-      o[d][2] *= alpha[1];
-      o[d][3] *= alpha[1];
-    }
-    float sp[2] = {0.f, 0.f};
-    for (int c = lane & 3; c < ncells; c += 4) {
-      const int pp = c / KW, qq = c - pp * KW;
-      if (pp < QH && qq < QW) continue;
-      sp[0] += exp2f(((qbk[0] + __bfloat162float(rel0[pp]) + __bfloat162float(rel0[KH + qq])) *
-                          scale - m[0]) * LOG2E);
-      sp[1] += exp2f(((qbk[1] + __bfloat162float(rel1[pp]) + __bfloat162float(rel1[KH + qq])) *
-                          scale - m[1]) * LOG2E);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] += sp[i];  // this thread's share, summed over the quad below
-      sp[i] += __shfl_xor_sync(0xffffffffu, sp[i], 1);
-      sp[i] += __shfl_xor_sync(0xffffffffu, sp[i], 2);
-    }
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      const int c = 2 * HD + d * 8 + (lane & 3) * 2;
-      const float bv0 = __bfloat162float(__float2bfloat16(bh[c]));
-      const float bv1 = __bfloat162float(__float2bfloat16(bh[c + 1]));
-      o[d][0] += sp[0] * bv0;
-      o[d][1] += sp[0] * bv1;
-      o[d][2] += sp[1] * bv0;
-      o[d][3] += sp[1] * bv1;
-    }
-  }
-
-  if (SM != SM_V1)  // v1's probabilities are normalised already
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + rl[i];
     if (row >= nrows) continue;
-    const float inv = SM == SM_V1 ? 1.f : 1.f / l[i];
     bf16* dst = out + ((size_t)(s * nrows + row) * heads + h) * HD + (lane & 3) * 2;
 #pragma unroll
-    for (int d = 0; d < DT; ++d)
-      *reinterpret_cast<__nv_bfloat162*>(dst + d * 8) =
-          __floats2bfloat162_rn(o[d][2 * i] * inv, o[d][2 * i + 1] * inv);
+    for (int d = 0; d < DT; ++d) {
+      const int c = d * 8 + (lane & 3) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(dst + d * 8) = __floats2bfloat162_rn(
+          (float)acc[d][2 * i] * sSv[c], (float)acc[d][2 * i + 1] * sSv[c + 1]);
+    }
   }
 }
 
-// What a launch reads: q, k, v with their strides (in elements), the rel-pos
-// tables (tab) or the caller's rel terms (rel_h, rel_w: PRE), the int8 path's
-// scratch (kq (nseq, heads, nrows, padded hd) int8 and kmax (nseq, heads, hd)
-// fp32; null for bf16), the int8 p . v scratch (vq (nseq, heads, hd, keys
-// padded to 64) int8 and vmax (nseq, heads, hd) fp32; null otherwise) and K6's
-// qkv bias (null otherwise).
+// What a launch of the attention kernels reads: q, k, v with their strides
+// (in elements), the rel-pos tables (tab) or the caller's rel terms (rel_h,
+// rel_w: K9-K11), the int8 path's scratch (kq (nseq, heads, nrows, padded hd)
+// int8 and kmax (nseq, heads, hd) fp32; null for bf16), the int8 p . v scratch
+// (vq (nseq, heads, hd, keys padded to 64) int8 and vmax (nseq, heads, hd)
+// fp32; null otherwise) and the qkv bias of K6's pad cells (null otherwise).
 struct Operands {
   const bf16 *q, *k, *v;
   int stride;
@@ -746,19 +553,14 @@ cudaError_t column_absmax(const bf16* qkv, float* kmax, int nseq, int nrows, int
   return cudaGetLastError();
 }
 
-// qh x qw is the carried grid (kh x kw unless RECT).
-template <int HD, int NW, bool INT8, bool RECT, bool PRE, bool PV, int SM, int REL>
-cudaError_t launch(const Operands& op, bf16* out, int nseq, int nrows, int nkeys, int heads,
-                   int kh, int kw, int qh, int qw, float scale, float inv_scale,
-                   cudaStream_t stream) {
+// K7-pv and K7-int8pv (INT8) on a kh x kw grid of nrows = kh * kw tokens.
+template <int HD, bool INT8>
+cudaError_t launch_pv(const Operands& op, bf16* out, int nseq, int nrows, int heads, int kh,
+                      int kw, float scale, float inv_scale, cudaStream_t stream) {
   const int nt = 2 * kh - 1 + 2 * kw - 1;
-  if ((nt + 15) / 16 * 16 > 4 * BKV || nkeys < 1 || nkeys > nrows) return cudaErrorInvalidValue;
-  if (RECT ? (qh < 1 || qw < 1 || qh > kh || qw > kw || nkeys != qh * qw || op.bias == nullptr)
-           : (qh != kh || qw != kw))
+  if ((nt + 15) / 16 * 16 > 4 * BKV || nrows < 1 || nrows != kh * kw || op.tab == nullptr ||
+      op.vq == nullptr || op.vmax == nullptr || (INT8 && (op.kq == nullptr || op.kmax == nullptr)))
     return cudaErrorInvalidValue;
-  if (PRE && (op.rel_h == nullptr || op.rel_w == nullptr || nkeys != kh * kw))
-    return cudaErrorInvalidValue;
-  if ((INT8 || PV) && nkeys != nrows) return cudaErrorInvalidValue;
   cudaError_t err;
   if (INT8) {
     err = column_absmax<HD>(op.q, op.kmax, nseq, nrows, heads, HD, stream);
@@ -769,47 +571,38 @@ cudaError_t launch(const Operands& op, bf16* out, int nseq, int nrows, int nkeys
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  if (PV) {
-    if (op.vq == nullptr || op.vmax == nullptr) return cudaErrorInvalidValue;
-    err = column_absmax<HD>(op.q, op.vmax, nseq, nrows, heads, 2 * HD, stream);
-    if (err != cudaSuccess) return err;
-    const int tiles = (nkeys + BKV - 1) / BKV;
-    v_quant_kernel<HD><<<dim3(tiles, heads, nseq), 256, 0, stream>>>(op.q, op.vmax, op.vq, nrows,
-                                                                    tiles * BKV, heads);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  const size_t smem = attn_smem_total<HD, NW, INT8, PV>(kh, kw);
-  err = cudaFuncSetAttribute(rel_attention_kernel<HD, NW, INT8, RECT, PRE, PV, SM, REL>,
+  err = column_absmax<HD>(op.q, op.vmax, nseq, nrows, heads, 2 * HD, stream);
+  if (err != cudaSuccess) return err;
+  const int tiles = (nrows + BKV - 1) / BKV;
+  v_quant_kernel<HD><<<dim3(tiles, heads, nseq), 256, 0, stream>>>(op.q, op.vmax, op.vq, nrows,
+                                                                  tiles * BKV, heads);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = attn_smem_total<HD, INT8>(kh, kw);
+  err = cudaFuncSetAttribute(rel_attention_kernel<HD, INT8>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((nrows + NW * 16 - 1) / (NW * 16), heads, nseq);
-  rel_attention_kernel<HD, NW, INT8, RECT, PRE, PV, SM, REL><<<grid, NW * 32, smem, stream>>>(
-      op.q, op.k, op.v, op.stride, op.seq_stride, op.head_stride, op.tab, op.rel_h, op.rel_w,
-      op.kq, op.kmax, op.vq, op.vmax, op.bias, out, nrows, nkeys, heads, kh, kw, qh, qw, scale,
-      inv_scale);
+  const dim3 grid((nrows + PV_NW * 16 - 1) / (PV_NW * 16), heads, nseq);
+  rel_attention_kernel<HD, INT8><<<grid, PV_NW * 32, smem, stream>>>(
+      op.q, op.k, op.stride, op.seq_stride, op.head_stride, op.tab, op.kq, op.kmax, op.vq,
+      op.vmax, out, nrows, heads, kh, kw, scale, inv_scale);
   return cudaGetLastError();
 }
 
-template <int NW, bool INT8, bool RECT, bool PRE, bool PV = false, int SM = SM_ONLINE,
-          int REL = REL_FULL>
-int dispatch(int hd, const Operands& op, void* out, int nseq, int nrows, int nkeys, int heads,
-             int kh, int kw, int qh, int qw, float scale, float inv_scale, void* stream) {
+template <bool INT8>
+int dispatch_pv(int hd, const Operands& op, void* out, int nseq, int nrows, int heads, int kh,
+                int kw, float scale, float inv_scale, void* stream) {
   bf16* o = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 16:
-      return launch<16, NW, INT8, RECT, PRE, PV, SM, REL>(op, o, nseq, nrows, nkeys, heads, kh, kw,
-                                                           qh, qw, scale, inv_scale, s);
+      return launch_pv<16, INT8>(op, o, nseq, nrows, heads, kh, kw, scale, inv_scale, s);
     case 32:
-      return launch<32, NW, INT8, RECT, PRE, PV, SM, REL>(op, o, nseq, nrows, nkeys, heads, kh, kw,
-                                                           qh, qw, scale, inv_scale, s);
+      return launch_pv<32, INT8>(op, o, nseq, nrows, heads, kh, kw, scale, inv_scale, s);
     case 64:
-      return launch<64, NW, INT8, RECT, PRE, PV, SM, REL>(op, o, nseq, nrows, nkeys, heads, kh, kw,
-                                                           qh, qw, scale, inv_scale, s);
+      return launch_pv<64, INT8>(op, o, nseq, nrows, heads, kh, kw, scale, inv_scale, s);
     case 80:
-      return launch<80, NW, INT8, RECT, PRE, PV, SM, REL>(op, o, nseq, nrows, nkeys, heads, kh, kw,
-                                                           qh, qw, scale, inv_scale, s);
+      return launch_pv<80, INT8>(op, o, nseq, nrows, heads, kh, kw, scale, inv_scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

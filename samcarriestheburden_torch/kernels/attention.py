@@ -104,12 +104,17 @@ query's rel terms at cell (0, 0), ``logits - max`` in place of exp.  The
 tools' v2 form is K5's and K7's own online softmax (1/sum after p . v), so
 the wrapper launches them for it.
 
-On the card two kernels compute all of these.  The global attentions (K7,
-K7-int8, K9 on a sequence longer than 208 rows, K11, and K16's v1 and v3 on
+On the card three kernels compute all of these.  The windows (K5, K6, K9 on a
+sequence of at most 208 rows, K10, K16 on windows) run
+``csrc/window_attention.cuh``: persistent blocks walk the (sequence, head)
+items (:func:`window_items`), TMA feeds a ring of item stages, and one wgmma
+product per 64-row slab gives whole rows of logits in the TPU kernel's own
+selector form, ``q . k + R . E^T`` (:func:`window_selectors`,
+:func:`window_rel_terms`), so every softmax form takes one pass.  The global
+attentions (K7, K7-int8, K9 on a longer sequence, K11, and K16's v1 and v3 on
 the grid) run ``csrc/global_attention.cuh``: TMA copies and mbarriers feed
 wgmma for both products (:func:`global_smem_bytes`; what it takes:
-:func:`_check_global`).  The windows (K5, K6, K9 on windows, K10, K16 on
-windows) and K7's int8 p.v pair run the ``mma.sync`` template of
+:func:`_check_global`).  K7's int8 p.v pair runs the ``mma.sync`` kernel of
 ``csrc/rel_attention.cuh``.
 """
 
@@ -146,6 +151,9 @@ def _lib():
             fn.restype = _I
         lib.global_attention_smem.argtypes = [_I] * 4
         lib.global_attention_smem.restype = _I
+        for fn in (lib.window_attention_smem, lib.window_attention_grid):
+            fn.argtypes = [_I] * 5
+            fn.restype = _I
         lib._typed = True
     return lib
 
@@ -394,6 +402,87 @@ def global_smem_bytes(hd: int, int8_qk: bool, kh: int, kw: int) -> int:
     return _lib().global_attention_smem(hd, int(int8_qk), kh, kw)
 
 
+#: key columns of the window kernel's one S product (its wgmma N): a window's
+#: slots, and K6's pad cells after them, must fit
+W_NK = 208
+
+
+def window_selectors(kh: int, kw: int, *, nslots: int, nkeys: Optional[int] = None,
+                     qh: Optional[int] = None, qw: Optional[int] = None):
+    """The window kernel's key selectors, as ``csrc/window_attention.cuh``
+    builds them in shared memory: ``(E, live)`` with E (columns, kh + kw)
+    float32, key column j's ones at slot kh(j) and kh + kw(j) of its window
+    cell, and ``live`` (columns,) bool, the columns that are keys.
+
+    K5 and K16 (``qh``, ``qw`` None): the first ``nkeys`` (default kh*kw) of
+    ``nslots`` slots, column j at cell (j // kw, j % kw).  K6 (a qh x qw
+    rectangle carried of the kh x kw window): the carried slots, column t <
+    qh*qw at (t // qw, t % qw), dead slots up to ``nslots``, then the window's
+    other cells row-major (:func:`rect_pad_cells`), the TPU kernel's ``coords``
+    order (JAX ``fused_rel_attention_window_rect``).  JAX's ``ehT``/``ewT`` and
+    ``sel`` hold the same ones with each zone's columns reversed."""
+    rect = qh is not None
+    qh, qw = (qh, qw) if rect else (kh, kw)
+    nreal = qh * qw if rect else (kh * kw if nkeys is None else nkeys)
+    cells = [(t // qw, t % qw) if t < nreal else None for t in range(nslots)]
+    if rect:
+        cells += rect_pad_cells(kh, qh, qw)
+    e = torch.zeros((len(cells), kh + kw), dtype=torch.float32)
+    live = torch.zeros(len(cells), dtype=torch.bool)
+    for j, cell in enumerate(cells):
+        if cell is not None:
+            e[j, cell[0]] = 1.0
+            e[j, kh + cell[1]] = 1.0
+            live[j] = True
+    return e, live
+
+
+def window_rel_terms(q: torch.Tensor, tables: torch.Tensor, *, kh: int, kw: int,
+                     qh: Optional[int] = None, qw: Optional[int] = None,
+                     rel: str = "full") -> torch.Tensor:
+    """The window kernel's R: each query row's kh + kw rel terms, q (..., n,
+    hd) against the stacked tables, shifted to the row's cell (clamped for dead
+    rows; ``rel="base0"``: every row at (0, 0)) and rounded to q's type at
+    1 / scale, (..., n, kh + kw).  ``q . k + R . E^T`` (:func:`window_selectors`)
+    is the gather form of the plain versions, summed in another order."""
+    n, hd = q.shape[-2:]
+    qh, qw = (kh, kw) if qh is None else (qh, qw)
+    scale = hd ** -0.5
+    g = (q.float() @ tables.float().T * (1.0 / scale)).to(q.dtype).float()
+    tok = torch.arange(n, device=q.device)
+    ph, pw = (tok // qw).clamp(max=qh - 1), tok % qw
+    if rel == "base0":
+        ph, pw = torch.zeros_like(ph), torch.zeros_like(pw)
+    idx_h = ph[:, None] + kh - 1 - torch.arange(kh, device=q.device)[None]
+    idx_w = pw[:, None] + kw - 1 - torch.arange(kw, device=q.device)[None] + 2 * kh - 1
+    idx = torch.cat([idx_h, idx_w], 1).expand(*g.shape[:-1], kh + kw)
+    return g.gather(-1, idx)
+
+
+def window_items(nitems: int, grid: int):
+    """The (sequence, head) items each persistent block of the window kernel
+    walks: block b takes b, b + grid, b + 2 grid, ... of ``nitems``, on
+    ``min(grid, nitems)`` blocks (:func:`window_grid` gives the card's grid)."""
+    return [list(range(b, nitems, grid)) for b in range(min(grid, nitems))]
+
+
+def window_smem_bytes(hd: int, nrows: int, kh: int, kw: int, tables: bool = True) -> int:
+    """The dynamic shared memory of the window kernel's launch at head dim hd
+    over nrows rows of a kh x kw grid, with the table product (K5, K6, K16) or
+    the caller's rel terms (``tables=False``: K9, K10)."""
+    _check_hd(hd)
+    return _lib().window_attention_smem(hd, nrows, kh, kw, int(tables))
+
+
+def window_grid(hd: int, nrows: int, kh: int, kw: int, tables: bool = True) -> int:
+    """The window kernel's persistent grid on this card (blocks per SM x SMs)
+    for K5's (``tables``) or K10's instance at these shapes."""
+    _check_hd(hd)
+    grid = _lib().window_attention_grid(hd, nrows, kh, kw, int(tables))
+    raise_on_error("window_attention_grid", max(0, -grid))
+    return grid
+
+
 def _check(qkv, tables, heads, hd, kh, kw):
     s, n, c = qkv.shape
     check_cuda("qkv", qkv, (s, n, heads * 3 * hd), torch.bfloat16)
@@ -419,8 +508,8 @@ def rel_attention_window(qkv, tables, *, ws: int, heads: int, hd: int,
     if qkv.device.type == "cpu":
         return rel_attention_window_plain(qkv, tables, ws=ws, heads=heads, hd=hd, out=out)
     s, n = _check(qkv, tables, heads, hd, ws, ws)
-    if n < nkeys or n > 208:
-        raise ValueError(f"K5 holds one window of <= 208 slots per block, got {n}")
+    if n < nkeys or n > W_NK:
+        raise ValueError(f"K5 takes one window of <= {W_NK} slots per sequence, got {n}")
     out = _out(out, qkv, s, n, heads * hd)
     scale = hd ** -0.5
     code = _lib().k5_rel_attention_window(
@@ -442,9 +531,9 @@ def rel_attention_window_rect(qkv, tables, qkv_bias, *, ws: int, rh: int, rw: in
                                                heads=heads, hd=hd, out=out)
     s, n = _check(qkv, tables, heads, hd, ws, ws)
     check_cuda("qkv_bias", qkv_bias, (heads * 3 * hd,), torch.float32)
-    if not (1 <= rh <= ws and 1 <= rw <= ws) or n < rh * rw:
+    if not (1 <= rh <= ws and 1 <= rw <= ws) or n < rh * rw or n + ws * ws - rh * rw > W_NK:
         raise ValueError(f"K6 expects {rh}x{rw} carried cells of a {ws}x{ws} window in "
-                         f">= {rh * rw} slots, got {n}")
+                         f">= {rh * rw} slots, with the pad cells <= {W_NK} keys, got {n}")
     out = _out(out, qkv, s, n, heads * hd)
     scale = hd ** -0.5
     code = _lib().k6_rel_attention_window_rect(
@@ -513,7 +602,7 @@ def rel_attention_global(qkv, tables, *, kh: int, kw: int, heads: int,
 FORMS = {("v1", "full", True): (1, "K16-v1"), ("v3", "full", True): (3, "K16-v3"),
          ("v2", "none", True): (4, "K16-norel"), ("v2", "base0", True): (5, "K16-noroll"),
          ("v2", "full", False): (6, "K16-noexp")}
-#: the forms K16 runs on a window only (one block of <= 208 rows)
+#: the forms K16 runs on a window only (a sequence of <= 208 rows)
 WINDOW_ONLY = ("K16-norel", "K16-noroll", "K16-noexp")
 
 
@@ -603,8 +692,8 @@ def rel_attention_headmajor_plain(qkv, rel_h, rel_w, *, kh: int, kw: int, heads:
 
 def rel_attention_pre(q, k, v, rel_h, rel_w, *, kh: int, kw: int) -> torch.Tensor:
     """K9 over G = batch * heads sequences of N = kh*kw tokens, every token a
-    key: one block holds a sequence of up to 208 tokens (a window), longer
-    ones (the global grid) run 128 queries per block over all keys."""
+    key: a sequence of up to 208 tokens (a window) is one item of the window
+    kernel, a longer one (the global grid) runs 128 queries per block."""
     if q.device.type == "cpu":
         return rel_attention_pre_plain(q, k, v, rel_h, rel_w, kh=kh, kw=kw)
     g, n, hd = q.shape
@@ -643,13 +732,13 @@ def _check_headmajor(qkv, rel_h, rel_w, kh, kw, heads, hd):
 def rel_attention_headmajor(qkv, rel_h, rel_w, *, kh: int, kw: int, heads: int,
                             hd: int) -> torch.Tensor:
     """K10 over (Wb, kh*kw, heads*3*hd) windows of at most 208 tokens, one
-    block per (window, head)."""
+    item of the window kernel per (window, head)."""
     if qkv.device.type == "cpu":
         return rel_attention_headmajor_plain(qkv, rel_h, rel_w, kh=kh, kw=kw, heads=heads,
                                              hd=hd)
     s, n = _check_headmajor(qkv, rel_h, rel_w, kh, kw, heads, hd)
-    if n > 208:
-        raise ValueError(f"K10 holds one window of <= 208 tokens per block, got {n}")
+    if n > W_NK:
+        raise ValueError(f"K10 takes one window of <= {W_NK} tokens per sequence, got {n}")
     out = torch.empty((s, n, heads * hd), dtype=qkv.dtype, device=qkv.device)
     scale = hd ** -0.5
     code = _lib().k10_rel_attention_headmajor(

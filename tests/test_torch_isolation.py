@@ -116,7 +116,8 @@ def test_cuda_sources_are_registered_and_stand_alone():
     the port's ``common.cuh`` only, nothing of PyTorch or another framework."""
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     assert sources == sorted(build.SOURCES) and "quant" in sources
-    allowed = {"common.cuh", "rel_attention.cuh", "global_attention.cuh", "cuda_bf16.h",
+    allowed = {"common.cuh", "rel_attention.cuh", "global_attention.cuh",
+               "window_attention.cuh", "cuda_bf16.h",
                "cuda_runtime.h", "cuda.h", "cooperative_groups.h",
                "stdint.h", "math.h"}
     for path in sorted(build.CSRC.glob("*.cu*")):
@@ -174,10 +175,36 @@ def test_the_global_instances_run_the_hopper_kernel():
                  "k9_rel_attention_pre", "k11_rel_attention_headmajor_global"):
         body = _c_function(attention, name)
         assert "dispatch<8" not in body and "dispatch_global<" in body, name
-    assert "dispatch<8" in _c_function(attention, "k7_rel_attention_global_pv")
+    assert "dispatch_pv<" in _c_function(attention, "k7_rel_attention_global_pv")
     assert "dispatch<8" not in forms and "dispatch_form<8" not in forms
     assert "dispatch_global_form<SM_V1>" in forms and "dispatch_global_form<SM_V3>" in forms
     assert "dispatch_global<" in forms
+
+
+def test_the_window_instances_run_the_hopper_kernel():
+    """K5, K6, K9 on a window, K10 and K16's window forms launch
+    ``window_attention_kernel`` (``csrc/window_attention.cuh``: persistent
+    blocks, TMA, mbarriers, one wgmma product of 208 key columns with the rel
+    terms as the selector product), never ``rel_attention_kernel``, which keeps
+    only K7's int8 p.v pair: its window, rect, caller's-rel-terms and form
+    paths are gone."""
+    header = (build.CSRC / "window_attention.cuh").read_text()
+    for ptx in ("wgmma.mma_async", "m64n208k16", "tma_load(", "mbar_wait(", "encode_map(",
+                "window_attention_kernel", "persistent_grid"):
+        assert ptx in header, ptx
+    attention = (build.CSRC / "attention.cu").read_text()
+    forms = (build.CSRC / "attention_forms.cu").read_text()
+    for text in (attention, forms):
+        assert '#include "window_attention.cuh"' in text
+    for name in ("k5_rel_attention_window", "k6_rel_attention_window_rect",
+                 "k9_rel_attention_pre", "k10_rel_attention_headmajor"):
+        body = _c_function(attention, name)
+        assert "dispatch_window<" in body and "dispatch<" not in body, name
+    assert "dispatch_window<" in forms and "dispatch<" not in forms
+    rel = (build.CSRC / "rel_attention.cuh").read_text()
+    kernel = rel[rel.index("rel_attention_kernel("):rel.index("struct Operands")]
+    for gone in ("RECT", "PRE", "SM_V1", "SM_V3", "SM_NOEXP", "REL_BASE0", "qkv_bias"):
+        assert gone not in kernel, gone
 
 
 #: the C entry point of every counted kernel and the registered source that holds it
