@@ -8,7 +8,11 @@
    ``samcarriestheburden_torch/csrc``, one ``nvcc`` per source, all at once,
    and prints each instance of the global attention kernel
    (``csrc/global_attention.cuh``) with its registers and spills as ``-Xptxas
-   -v`` reports them and the shared memory its launch asks for;
+   -v`` reports them and the shared memory its launch asks for; the GEMM
+   sources (``gemm``, ``quant``: the TMA + wgmma mainloop of
+   ``csrc/gemm_sm90.cuh``) must build without a spill and without ptxas
+   serializing their wgmma (warning C7520), and each of their GEMM kernels'
+   SASS must hold HGMMA or IGMMA (``cuobjdump``);
 2. drives the flat embed path once at full ViT-H width and depth with seeded
    random weights: ``make_serving_encoder(model, torch.bfloat16,
    compact_windows=False)`` on two padded 1024x1024 uint8 images (input size
@@ -73,6 +77,10 @@
    configuration the tools run against its plain version (chunks 1, 2, 4, 8,
    each activation, both row quantizations, the fixed hidden scale), equal
    to K4 bit for bit at K4's settings, and stressed with planted faults;
+   then the GEMM mainloop at ragged shapes (``GEMM_M`` x ``GEMM_N``, K through
+   ``GEMM_K``; K4 on ``GEMM_K4``): K14's three modes (int8 equal), K2 and K4
+   against their plain versions, each with the planted faults a mainloop or
+   an epilogue could make (the last k-tile dropped, a column tile shifted);
 4g. drives the port's attention experiment tools at their shapes
    (``tools/exp_attn.run``, ``exp_attn2.run``: 16 heads, 200 windows of 14 x 14
    tokens in 200 slots, 8 grids of 64 x 64), counted: every experiment makes
@@ -101,7 +109,9 @@
    inputs each of its paths gives it (the flat rows and windows; the
    compact stream's: K1-K4 on 8416 rows, K5 on 32 windows and K6, both
    writing into an ``out=`` view of a larger buffer as the path has them do;
-   and every call shape of the v1, v2 and v3 runs)
+   and every call shape of the v1, v2 and v3 runs; K12 also against itself,
+   three calls giving the same bits; K2 and K4 with ``torch._int_mm``'s time
+   for their products alone beside them)
    and on stressed inputs of the same shapes (with planted faults that the
    check must be able to see), the whole
    kernel-path encoder against the plain-path encoder (bf16 and int8, flat
@@ -162,8 +172,9 @@ ORIGINAL_HW = (1600, 1119)   # the X-ray before resizing (1600 * 0.64 = 1024)
 # K1 0.48 %, K2 0.24 %, K3 and K4 0.38 %, K5 0.53 %, K7 and K7-int8 0.63 %.
 # K9-K11 are K5's and K7's loop with the rel terms read, not made: the same
 # tolerance.  K12 adds two projections with fp32 accumulation and one bf16
-# rounding each, and a sum over heads whose fp32 order changes from run to run:
-# the same tolerance against its plain version, which rounds q and k to bf16 as
+# rounding each, and a sum over heads in fp32 (in head order, as its plain
+# version sums them): the same tolerance against its plain version, which
+# rounds q and k to bf16 as
 # the kernel does; against the plain version that keeps q and k in fp32 up to
 # the logits (the TPU kernel's arithmetic) it is held to K12_FP32_QK_TOL.
 # Readings on the H100 (first build-and-compare call, synthetic inputs of the
@@ -246,6 +257,23 @@ FAULT_MARGIN = 4.0
 # six times that), bf16 -> bf16 3.76e-3 (0.9993 of the entries equal; one step
 # in the largest binade is the tolerance).
 K14_TOL = {"bf16->fp32": 1e-5, "bf16->bf16": 2.0 ** -7}
+# The TMA + wgmma mainloop (csrc/gemm_sm90.cuh) of K14, K2 and K4 at ragged
+# shapes: every M of GEMM_M with every N of GEMM_N, K taking each value of
+# GEMM_K in turn (K14, K2); K4 on GEMM_K4 (rows, E, hidden).  Tiles are 128 rows
+# by 256 columns and a stage is 128 bytes of the contraction, so these hold the
+# row tails (19600 = 153 x 128 + 16, 8416 = 65 x 128 + 96), the column tails
+# (8, 24, and 1280 = 5 x 256), and K below one stage (16, 48) and not a multiple
+# of it in bf16 (48).  Each case is held to K14_TOL (the int8 product equal) or
+# K2's and K4's KERNEL_TOL, and each has planted faults that the check must see
+# by FAULT_MARGIN x the tolerance (the int8 product: by any difference): the last
+# k-tile of the contraction dropped, and where there is more than one column tile
+# the second one given the first one's columns.
+GEMM_M = (1, 16, 8416, 19600)
+GEMM_N = (8, 24, 1280, 3840, 5120)
+GEMM_K = (16, 48, 1280, 5120)
+GEMM_K4 = ((1, 16, 1280), (16, 48, 3840), (8416, 1280, 5120), (19600, 5120, 1280),
+           (8416, 48, 1280))
+GEMM_BN = 256
 # K15, K4 with the tools' flags, shares K4's arithmetic and is held to K4's
 # tolerances on the tools' inputs (KERNEL_TOL) and stressed (STRESS_TOL); at
 # K4's settings it must equal K4 bit for bit.  Its stressed inputs are K4's
@@ -296,15 +324,14 @@ V3_TOL_MAX, V3_TOL_MEAN = 3e-2, 1.5e-3
 # so they lie further apart than a kernel path from its plain path.  v1 is the
 # same in every call and holds the encoder tolerance: over three input seeds,
 # rel tables as they are and scaled, it read max 0.0759-0.0892, mean <= 0.01279
-# on the H100.  So does v2's mean (0.01166-0.01248).  But K12's fp32 sum over
-# heads arrives in an order that changes from run to run, so v2's max over the
-# two million values differs between calls on the same inputs: over 144 calls
-# (the same three seeds and two table scales, 12 calls each, twice) it read
-# 0.0729-0.0994.  v2's max alone has a tolerance of its own, 1.5 x the largest
-# reading; a dropped rel bias (max 2.456) still misses it by more than
-# FAULT_MARGIN.  The v2 phase repeats its call V2_REPEATS times at each table
+# on the H100.  So does v2's mean (0.01166-0.01248).  v2's max had a tolerance
+# of its own, 0.15, while K12 summed its heads with fp32 atomics in an order
+# that changed from run to run (0.0729-0.0994 over 144 calls: three seeds, two
+# table scales, 12 calls each, twice).  K12 now sums the heads in a fixed order
+# (the same bits on every call, held in phase 6), and v2 holds the encoder's
+# tolerance.  The v2 phase repeats its call V2_REPEATS times at each table
 # scale and logs the least and the largest max it read.
-V2_TOL_MAX = 0.15
+V2_TOL_MAX = 0.1
 V2_REPEATS = 6
 # the same for the int8 path (K2, K4, K5, K7-int8 vs their plain versions).
 # On identical inputs K2 and K4 agree with their plain versions almost bit for
@@ -1087,13 +1114,36 @@ def gpu_identity() -> str:
 
 
 def phase_build(build) -> dict:
+    """Every source built at once, ``-Xptxas -v``'s report printed; the GEMM
+    sources (``gemm``, ``quant``) must build with no spill and without ptxas
+    serializing their wgmma (warning C7520), and every GEMM kernel's SASS
+    must hold wgmma (HGMMA, IGMMA)."""
     t0 = time.perf_counter()
     logs = build.build(verbose=True)
     log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if any(word in line for word in ("entry function", "registers", "spill")):
+            if "C7520" in line or ("C751" not in line and any(
+                    word in line for word in ("entry function", "registers", "spill"))):
                 log(f"  ptxas {name}: {line.strip()}")
+    for name in ("gemm", "quant"):
+        lines = logs[name].splitlines()
+        check(not any("C7520" in line for line in lines),
+              f"ptxas serializes the wgmma of {name}.cu (C7520)")
+        spills = [line.strip() for line in lines if "spill" in line
+                  and "0 bytes spill stores, 0 bytes spill loads" not in line]
+        check(not spills, f"{name}.cu spills: {spills}")
+    # the SASS of every GEMM kernel holds Hopper's wgmma: HGMMA (bf16), IGMMA (int8)
+    cuobjdump = str(Path(build.nvcc()).with_name("cuobjdump"))
+    for name, kernel in (("gemm", "dot_kernel"), ("quant", "gemm_s8_kernel")):
+        sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=300).stdout
+        functions = [f for f in sass.split("Function : ")[1:] if kernel in f.split("\n")[0]]
+        gmma = [("HGMMA" in f) + ("IGMMA" in f) for f in functions]
+        log(f"SASS of {name}.cu: {len(functions)} {kernel} instances, "
+            f"{sum(f.count('HGMMA.') for f in functions)} HGMMA and "
+            f"{sum(f.count('IGMMA.') for f in functions)} IGMMA instructions")
+        check(functions and all(gmma), f"a {kernel} instance of {name}.cu runs no wgmma")
     return logs
 
 
@@ -1951,6 +2001,98 @@ def phase_k15(torch, res, gen, dev) -> list:
             check(d >= FAULT_MARGIN * tol, f"K15's stressed check cannot see '{f}'")
         del a, ref
     return rows
+
+
+def last_ktile_dropped(w, stage_bytes: int = 128):
+    """A planted fault of the GEMM mainloop: ``w`` (N, K) with the columns of
+    the contraction's last k-tile (a stage of ``stage_bytes``) zeroed."""
+    bk = stage_bytes // w.element_size()
+    w = w.clone()
+    w[:, (w.shape[1] - 1) // bk * bk:] = 0
+    return w
+
+
+def second_tile_shifted(out):
+    """A planted fault of the GEMM epilogue: the output's second column tile
+    holding the first one's columns."""
+    out = out.clone()
+    n = min(2 * GEMM_BN, out.shape[1]) - GEMM_BN
+    out[:, GEMM_BN:GEMM_BN + n] = out[:, :n]
+    return out
+
+
+def phase_gemm_shapes(torch, gen, dev) -> None:
+    """K14 in its three modes, K2 and K4 at the ragged shapes of GEMM_M,
+    GEMM_N, GEMM_K (K4: GEMM_K4) against their plain versions, each with its
+    planted faults (``last_ktile_dropped``, ``second_tile_shifted``)."""
+    from samcarriestheburden_torch.kernels import gemm as gemm_k
+    from samcarriestheburden_torch.kernels import quant as quant_k
+
+    def randn(*shape, std=1.0, mean=0.0):
+        return torch.randn(shape, generator=gen, device=dev) * std + mean
+
+    def held(what, out, ref, tol_rel, faults):
+        ref = ref.double()
+        err = (out.double() - ref).abs().max().item()
+        tol = tol_rel * ref.abs().max().item()
+        misses = {f: (o.double() - ref).abs().max().item() for f, o in faults.items()}
+        check(err <= tol, f"{what}: max abs err {err:.4g} above {tol:.4g}")
+        for f, m in misses.items():
+            check(m > 0 and m >= FAULT_MARGIN * tol, f"{what}: the check cannot see '{f}' "
+                  f"(misses by {m:.4g}, tolerance {tol:.4g})")
+        least = min(misses.values())
+        e, f = worst.get(what.split(" at ")[0], (0.0, float("inf")))
+        worst[what.split(" at ")[0]] = (max(e, err / max(ref.abs().max().item(), 1e-30)),
+                                        min(f, least / tol if tol else least))
+
+    shapes = [(m, n, GEMM_K[(i + j) % len(GEMM_K)]) for i, m in enumerate(GEMM_M)
+              for j, n in enumerate(GEMM_N)]
+    worst = {}
+    t0 = time.perf_counter()
+    for m, n, k in shapes:
+        a, w = randn(m, k).bfloat16(), randn(n, k, std=k ** -0.5).bfloat16()
+        aq = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        wq = torch.randint(-128, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+        for mode, (x, y, od) in {"bf16->fp32": (a, w, torch.float32),
+                                 "bf16->bf16": (a, w, torch.bfloat16),
+                                 "int8->int32": (aq, wq, torch.int32)}.items():
+            ref = gemm_k.dot_plain(x, y, od)
+            faults = {"last k-tile dropped": gemm_k.dot_plain(x, last_ktile_dropped(y), od)}
+            if n > GEMM_BN:
+                faults["second column tile shifted"] = second_tile_shifted(ref)
+            held(f"K14 {mode} at ({m}, {n}, {k})", gemm_k.dot(x, y, od), ref,
+                 K14_TOL.get(mode, 0.0), faults)
+        x = randn(m, k).bfloat16()
+        mask = (torch.rand((m, 1), generator=gen, device=dev) > 0.1).bfloat16()
+        mask[0] = 1                                       # one live row at least
+        wq2, s2 = quant_k.quantize_weight(randn(n, k))
+        args = [x, mask, randn(k, std=0.5, mean=1.0), randn(k, std=0.5), wq2, s2, randn(n)]
+        ref = quant_k.ln_masked_linear_int8_plain(*args)
+        faults = {"last k-tile dropped": quant_k.ln_masked_linear_int8_plain(
+            *args[:4], last_ktile_dropped(wq2), *args[5:])}
+        if n > GEMM_BN:
+            faults["second column tile shifted"] = second_tile_shifted(ref)
+        held(f"K2 at ({m}, {n}, {k})", quant_k.ln_masked_linear_int8(*args), ref,
+             KERNEL_TOL["K2"], faults)
+    for t, e, h in GEMM_K4:
+        w1q, s1 = quant_k.quantize_weight(randn(h, e))
+        w2q, s2 = quant_k.quantize_weight(randn(e, h))
+        args = [randn(t, e).bfloat16(), randn(e, std=0.5, mean=1.0), randn(e, std=0.5), w1q, s1,
+                randn(h, std=0.5), w2q, s2, randn(e, std=0.5)]
+        add = randn(t, e, std=0.5).bfloat16()
+        ref = quant_k.ln_mlp_residual_int8_plain(*args, add=add)
+        faults = {"lin2's last k-tile dropped": quant_k.ln_mlp_residual_int8_plain(
+            *args[:6], last_ktile_dropped(w2q), *args[7:], add=add)}
+        if e > GEMM_BN:
+            faults["second column tile shifted"] = second_tile_shifted(ref)
+        held(f"K4 at ({t}, {e}, {h})", quant_k.ln_mlp_residual_int8(*args, add=add), ref,
+             KERNEL_TOL["K4"], faults)
+    torch.cuda.synchronize()
+    log(f"GEMM mainloop at {len(shapes)} ragged shapes (K4 at {len(GEMM_K4)}) in "
+        f"{time.perf_counter() - t0:.1f} s; the largest error x max |plain| and the smallest "
+        "planted-fault miss x the tolerance, by kernel: "
+        + ", ".join(f"{k} {e:.3g} / {f:.4g}" for k, (e, f) in worst.items())
+        + " (the int8 product: its smallest miss, the error must be 0)")
 
 
 def forms_work(qkv, tables, *, heads, hd, nkeys, rel, exp) -> tuple:
@@ -2888,14 +3030,25 @@ def phase_kernel(torch, attn_k, key: str, kern, plain, args, kw, gen) -> dict:
         q, k, v, bias = sdpa_inputs_pre(torch, *pre_operands(name, args, kw))
         library_ms = card_ms(torch, lambda: sdpa(q, k, v, attn_mask=bias))
         del q, k, v, bias
+    int_mm_ms = None
+    if name in ("K2", "K4"):    # the library's int8 product alone at the kernel's GEMM shapes
+        t, e = args[0].shape
+        dims = [(e, args[4].shape[0])] if name == "K2" else [(e, args[3].shape[0]),
+                                                                (args[3].shape[0], e)]
+        ops = [(torch.randint(-127, 128, (t, k), device=args[0].device, dtype=torch.int8),
+                torch.randint(-127, 128, (n, k), device=args[0].device, dtype=torch.int8))
+               for k, n in dims]
+        int_mm_ms = card_ms(torch, lambda: [torch._int_mm(a, w.t()) for a, w in ops])
+        del ops
     flops, int8_ops, nbytes = kernel_work(name, args, kw)
     bound_ms, bound_by = bound(flops, nbytes, int8_ops)
     shape = tuple(args[0].shape)
     log(f"{key} on {shape}{' into an out= view' if into_view else ''}: "
         f"max abs err {err:.4g} vs max |plain| {ref:.4g} "
         f"(tol {KERNEL_TOL[name]} x max |plain|), {ms:.4f} ms (plain {plain_ms:.4f}, library "
-        f"{library_ms}, bound {bound_ms:.4f} by {bound_by}); "
-        f"{(flops + int8_ops) / (ms * 1e-3) / 1e12:.1f} Tops/s")
+        f"{library_ms}, bound {bound_ms:.4f} by {bound_by}"
+        + (f", torch._int_mm's products alone {int_mm_ms:.4f}" if int_mm_ms else "")
+        + f"); {(flops + int8_ops) / (ms * 1e-3) / 1e12:.1f} Tops/s")
     tol = KERNEL_TOL[name] * max(ref, 1e-6)
     if name in PV_KERNELS:
         tol = max(tol, pv_tol(name, args[0], ref, kw["heads"], kw["hd"]))
@@ -2905,14 +3058,21 @@ def phase_kernel(torch, attn_k, key: str, kern, plain, args, kw, gen) -> dict:
         log(f"{key} with gelu='erf': max abs err {err_erf:.4g}")
         check(err_erf <= KERNEL_TOL[name] * max(ref, 1e-6),
               f"{key} with gelu='erf' disagrees with its plain version")
-    if name == "K12":   # the TPU kernel's arithmetic: q and k in fp32 up to the logits
+    if name == "K12":   # the same bits on every call: the heads summed in a fixed order
+        again = [kern(*args, **kw) for _ in range(2)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(o.view(torch.int16), out_k.view(torch.int16)) for o in again)
+        log(f"{key}: three calls on the same inputs give the same bits: {same}")
+        check(same, f"{key} differs between calls on the same inputs")
+        # the TPU kernel's arithmetic: q and k in fp32 up to the logits
         err32 = max_err(out_k, plain(*args, **kw, round_qk=False))
         log(f"{key} vs its plain version with q and k kept in fp32: max abs err {err32:.4g} "
             f"(tol {K12_FP32_QK_TOL} x max |plain|)")
         check(err32 <= K12_FP32_QK_TOL * ref, f"{key} disagrees with the fp32-q,k plain version")
     phase_stress(torch, key, kern, plain, args, kw, gen)
     return {"shape": list(shape), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            **({"int_mm_ms": int_mm_ms} if int_mm_ms else {})}
 
 
 def phase_medsam(torch, cfg, model, make_serving_encoder, KERNEL_OPS, imgs) -> None:
@@ -3262,6 +3422,7 @@ def main() -> int:
     _, tool_res = phase_tools(torch, kernels)
     rows += phase_k14(torch, tool_res, dev)
     rows += phase_k15(torch, tool_res, torch.Generator(device=dev).manual_seed(7), dev)
+    phase_gemm_shapes(torch, torch.Generator(device=dev).manual_seed(11), dev)
 
     # 6d. the attention experiment tools at their shapes, counted (K5, K7 and
     # K16's instances launch there); each K16 instance against its plain form,

@@ -36,19 +36,17 @@
 //      B, and is multiplied against 64-column tiles of Wp_h streamed through a
 //      two-stage ring.
 // The sum over heads: a (196, 1280) fp32 accumulator is 1 MB and fits no SM,
-// and nothing carries over between blocks, so each block adds its share into
-// an fp32 scratch (nwin, n, E) in device memory with atomicAdd (the result is
-// unused, so the compiler issues red.global.add.f32), and a second small
-// kernel rounds the scratch to bf16.  Chosen over recomputing the attention
+// and nothing carries over between blocks, so each block stores its share
+// o_h . Wp_h^T into a slice of its own of an fp32 scratch (heads, nwin, n, E)
+// in device memory, and a second small kernel sums the heads in the order
+// 0 .. H-1 in fp32 and rounds once to bf16, as the plain version does: the
+// output is the same on every call.  Chosen over recomputing the attention
 // per output tile (ten times the projection work, which is most of the
-// kernel) and, as the simpler first version, over a cluster reduction through
-// distributed shared memory (eight blocks of two heads each, or sixteen as a
-// non-portable cluster size, would add their partial sums one column tile at
-// a time in a fixed order: deterministic, and the next step for this kernel).
-// The atomics' cost is that fp32 sums arrive in an order that changes from run
-// to run: the output moves by a bf16 ulp between calls on the same input; and
-// 16 adds per output element through L2 (heads are the fastest grid axis, so
-// a window's megabyte stays resident).
+// kernel) and, as the simpler version, over a cluster reduction through
+// distributed shared memory (eight blocks of two heads each would add their
+// partial sums one column tile at a time in a fixed order without the
+// scratch, the next step for this kernel).  The scratch's cost: H times the
+// output in fp32 written once and read once (0.8 GB at 50 ViT-H windows).
 #include <math.h>
 
 #include "common.cuh"
@@ -227,6 +225,7 @@ block_attention_kernel(const bf16* __restrict__ xn, const bf16* __restrict__ wqk
   __syncthreads();  // sRel is whole; the tables' space becomes the Wp ring
 
   const bf16* wph = wp + h * HD;  // Wp_h[col][d] = wp[col * E + h * HD + d]
+  float* part = acc + ((size_t)h * gridDim.y + w) * n * E;  // this block's (n, E) slice
   const int NCT = (E + BKV - 1) / BKV;
   auto load_wp = [&](int stage, int t) {
     for (int c = tid; c < BKV * CH; c += NTHREADS) {
@@ -330,8 +329,8 @@ block_attention_kernel(const bf16* __restrict__ xn, const bf16* __restrict__ wqk
     }
   }
 
-  // C. o_h = bf16(o / l) as A fragments, times Wp_h in 64-column tiles, added
-  //    into the fp32 scratch
+  // C. o_h = bf16(o / l) as A fragments, times Wp_h in 64-column tiles, stored
+  //    into the block's slice of the fp32 scratch
   float inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -376,21 +375,28 @@ block_attention_kernel(const bf16* __restrict__ xn, const bf16* __restrict__ wqk
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         if (rl[i] >= n) continue;
-        float* dst = acc + ((size_t)w * n + rl[i]) * E + col;
-        atomicAdd(dst, sc[tt][2 * i]);
-        atomicAdd(dst + 1, sc[tt][2 * i + 1]);
+        *reinterpret_cast<float2*>(part + (size_t)rl[i] * E + col) =
+            make_float2(sc[tt][2 * i], sc[tt][2 * i + 1]);
       }
     }
     __syncthreads();  // this stage is reloaded two tiles on
   }
 }
 
-// out = bf16(acc), four values per thread.
+// out = bf16(acc[0] + acc[1] + ... + acc[heads - 1]), summed in fp32 in that
+// order, four values per thread; count4 values of four per head.
 __global__ void __launch_bounds__(256)
-round_kernel(const float* __restrict__ acc, bf16* __restrict__ out, size_t count4) {
+round_kernel(const float* __restrict__ acc, bf16* __restrict__ out, size_t count4, int heads) {
   const size_t i = (size_t)blockIdx.x * 256 + threadIdx.x;
   if (i >= count4) return;
-  const float4 v = reinterpret_cast<const float4*>(acc)[i];
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int h = 0; h < heads; ++h) {
+    const float4 p = reinterpret_cast<const float4*>(acc)[h * count4 + i];
+    v.x += p.x;
+    v.y += p.y;
+    v.z += p.z;
+    v.w += p.w;
+  }
   __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out) + 2 * i;
   dst[0] = __floats2bfloat162_rn(v.x, v.y);
   dst[1] = __floats2bfloat162_rn(v.z, v.w);
@@ -400,19 +406,16 @@ template <int HD>
 cudaError_t launch(const bf16* xn, const bf16* wqkv, const float* bqkv, const bf16* wp,
                    const bf16* tab, float* acc, bf16* out, int nwin, int n, int E, int heads,
                    int ws, float scale, float inv_scale, cudaStream_t stream) {
-  const size_t count = (size_t)nwin * n * E;
-  cudaError_t err = cudaMemsetAsync(acc, 0, count * sizeof(float), stream);
-  if (err != cudaSuccess) return err;
   const size_t smem = smem_bytes<HD>(ws);
-  err = cudaFuncSetAttribute(block_attention_kernel<HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cudaFuncSetAttribute(block_attention_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   block_attention_kernel<HD><<<dim3(heads, nwin), NTHREADS, smem, stream>>>(
       xn, wqkv, bqkv, wp, tab, acc, n, E, ws, scale, inv_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t count4 = count / 4;
-  round_kernel<<<(unsigned)((count4 + 255) / 256), 256, 0, stream>>>(acc, out, count4);
+  const size_t count4 = (size_t)nwin * n * E / 4;
+  round_kernel<<<(unsigned)((count4 + 255) / 256), 256, 0, stream>>>(acc, out, count4, heads);
   return cudaGetLastError();
 }
 
@@ -421,7 +424,7 @@ cudaError_t launch(const bf16* xn, const bf16* wqkv, const float* bqkv, const bf
 // xn, out (nwin, n, E) bf16 with n = ws * ws <= 208; wqkv (heads*3*hd, E) bf16
 // and bqkv (heads*3*hd) fp32 grouped per head ([q | k | v] rows of each head
 // together); wp (E, E) bf16, the projection as nn.Linear holds it; tab
-// (2 * (2*ws-1), hd) bf16 rows [Rh; Rw]; scratch acc (nwin, n, E) fp32.
+// (2 * (2*ws-1), hd) bf16 rows [Rh; Rw]; scratch acc (heads, nwin, n, E) fp32.
 // E = heads * hd, a multiple of 8; hd in {16, 32, 64, 80}.
 extern "C" int k12_window_block_attention(const void* xn, const void* wqkv, const void* bqkv,
                                           const void* wp, const void* tab, void* acc, void* out,

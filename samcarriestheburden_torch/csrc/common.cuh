@@ -11,10 +11,10 @@
 // four int8 at k = 4*(lane%4).. of its row (a0, a1: k < 16; a2, a3: k >= 16;
 // b0: k < 16, b1: k >= 16), so ldmatrix's 8 x 16-byte tiles load them too.
 //
-// Below them, the two GEMM mainloops every matrix product of the port runs:
-// bf16 (K1, K3, K14) and int8 (K2, K4, K14, K15).  Each computes one block's
-// 128 x 128 tile of A[M, K] @ W[N, K]^T into registers and leaves the
-// epilogue to its kernel.
+// Below them, the bf16 GEMM mainloop of K1 and K3 (csrc/mlp.cu): one block's
+// 128 x 128 tile of A[M, K] @ W[N, K]^T into registers, the epilogue left to
+// its kernel.  K2, K4, K14 and K15 run the TMA + wgmma mainloop of
+// gemm_sm90.cuh.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -86,21 +86,15 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// The tiled tensor-core GEMM mainloops.  A block of 256 threads (8 warps in a
+// The tiled tensor-core GEMM mainloop.  A block of 256 threads (8 warps in a
 // 2 x 4 grid, each owning 64 x 32 of the output) computes the 128 x 128 tile
 // at (blockIdx.y, blockIdx.x) of A[M, K] @ W[N, K]^T, rows of A and W
 // K-contiguous, through a three-stage cp.async ring of k-tiles; rows past M or
-// N and k past K load as zeros (K must be a multiple of 16 bytes).  After the
-// products of k-tile kt the mainloop calls hook(kt): nothing for a plain
-// product, a flush of the accumulators where a kernel splits the contraction
-// into chunks (K15).  The accumulator fragment of warp (wm, wn) = (warp / 4,
-// warp % 4): acc[mi][ni][e] is row wm*64 + mi*16 + lane/4 + 8*(e/2), column
-// wn*32 + ni*8 + 2*(lane%4) + e%2 of the tile.
+// N and k past K load as zeros (K must be a multiple of 16 bytes).  The
+// accumulator fragment of warp (wm, wn) = (warp / 4, warp % 4): acc[mi][ni][e]
+// is row wm*64 + mi*16 + lane/4 + 8*(e/2), column wn*32 + ni*8 + 2*(lane%4) +
+// e%2 of the tile.
 // ---------------------------------------------------------------------------
-
-struct NoHook {
-  __device__ __forceinline__ void operator()(int) const {}
-};
 
 namespace gemm_bf16 {  // 32 contracted bf16 per stage, rows padded to 80 bytes
 constexpr int BM = 128, BN = 128, BK = 32, STAGES = 3, LDS = BK + 8;
@@ -108,11 +102,10 @@ constexpr int THREADS = 256;
 constexpr int SMEM = STAGES * (BM + BN) * LDS * (int)sizeof(bf16);
 }  // namespace gemm_bf16
 
-template <class Hook = NoHook>
 __device__ __forceinline__ void gemm_bf16_mainloop(const bf16* __restrict__ A,
                                                    const bf16* __restrict__ W, int M, int N,
                                                    int K, unsigned char* smem,
-                                                   float (&acc)[4][4][4], Hook hook = Hook()) {
+                                                   float (&acc)[4][4][4]) {
   using namespace gemm_bf16;
   bf16* sA = reinterpret_cast<bf16*>(smem);
   bf16* sB = sA + STAGES * BM * LDS;
@@ -181,92 +174,6 @@ __device__ __forceinline__ void gemm_bf16_mainloop(const bf16* __restrict__ A,
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
     }
-    hook(kt);
-  }
-  cp_async_wait<0>();
-}
-
-namespace gemm_s8 {  // 64 contracted int8 per stage, rows padded to 80 bytes so
-                     // the eight 16-byte rows of an ldmatrix tile fall in distinct banks
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3, LDS = BK + 16;
-constexpr int THREADS = 256;
-constexpr int SMEM = STAGES * (BM + BN) * LDS;
-}  // namespace gemm_s8
-
-template <class Hook = NoHook>
-__device__ __forceinline__ void gemm_s8_mainloop(const int8_t* __restrict__ A,
-                                                 const int8_t* __restrict__ W, int M, int N,
-                                                 int K, unsigned char* smem, int (&acc)[4][4][4],
-                                                 Hook hook = Hook()) {
-  using namespace gemm_s8;
-  int8_t* sA = reinterpret_cast<int8_t*>(smem);
-  int8_t* sB = sA + STAGES * BM * LDS;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps, 64 x 32 each
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int KT = (K + BK - 1) / BK;
-
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int i = 0; i < (BM * BK / 16) / THREADS; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c >> 2, kc = (c & 3) * 16;
-      const int gk = k0 + kc;
-      const bool oka = m0 + r < M && gk < K;
-      cp_async16(sA + (stage * BM + r) * LDS + kc,
-                 oka ? A + (size_t)(m0 + r) * K + gk : A, oka ? 16 : 0);
-      const bool okb = n0 + r < N && gk < K;
-      cp_async16(sB + (stage * BN + r) * LDS + kc,
-                 okb ? W + (size_t)(n0 + r) * K + gk : W, okb ? 16 : 0);
-    }
-  };
-
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load_stage(s, s);
-    cp_async_commit();
-  }
-
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt landed; stage kt-1 is free for the next load
-    const int nk = kt + STAGES - 1;
-    if (nk < KT) load_stage(nk % STAGES, nk);
-    cp_async_commit();
-
-    const int8_t* a_s = sA + (kt % STAGES) * BM * LDS;
-    const int8_t* b_s = sB + (kt % STAGES) * BN * LDS;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi], a_s + (wm * 64 + mi * 16 + (lane & 15)) * LDS + kk + (lane >> 4) * 16);
-      uint32_t bfr[4][2];
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t r[4];
-        ldmatrix_x4(r, b_s + (wn * 32 + nj * 16 + (lane & 7) + (lane >> 4) * 8) * LDS + kk +
-                           ((lane >> 3) & 1) * 16);
-        bfr[2 * nj][0] = r[0];
-        bfr[2 * nj][1] = r[1];
-        bfr[2 * nj + 1][0] = r[2];
-        bfr[2 * nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
-    }
-    hook(kt);
   }
   cp_async_wait<0>();
 }

@@ -26,31 +26,34 @@
 // qkv 3840 wide, MLP 5120 wide) both are matrix products with ~1000 (K2) and
 // ~2800 (K4) operations per byte their function must move, far above the
 // card's ~590 int8 ops/byte ridge, so the int8 tensor-core rate bounds them.
-// The design is the bf16 kernels' (csrc/mlp.cu) with one byte per element:
-// a one-warp-per-row LayerNorm pass that also takes the row's absmax and
-// writes the int8 row and its scale, then one tiled int8 tensor-core GEMM
-// (128x128x64 tiles, 8 warps each owning 64x32, three-stage cp.async ring,
-// mma.sync m16n8k32 s8 x s8 -> s32) with the dequantization and the bias /
-// GELU / residual in its epilogue.  Both operands are contiguous along the
-// contracted axis, so ldmatrix's 8 x 16-byte tiles are the .row.col
-// fragments as they are.  K4's second quantization needs a whole 5120-wide
+// The design: a one-warp-per-row LayerNorm pass that also takes the row's
+// absmax and writes the int8 row and its scale, then one int8 GEMM on the
+// TMA + wgmma mainloop of gemm_sm90.cuh (128 x 128 tiles, two blocks per SM,
+// a three-stage ring of 128-byte-swizzled boxes, two warpgroups of m64n128k32
+// s8 x s8 -> s32) with the dequantization and the bias / GELU / residual in
+// its epilogue.  Both operands are contiguous along the contracted axis, as
+// int8 wgmma requires.  K4's second quantization needs a whole 5120-wide
 // row of the fp32 hidden, which spans every column tile of the first GEMM:
 // its epilogue writes the fp32 hidden to a device scratch buffer and folds
 // the row absmax in with one atomicMax per quad (non-negative floats order
 // as integers), a pass quantizes the rows, and the second GEMM reads int8.
 // That staging moves 4 + 4 + 1 + 1 bytes per hidden element that the
 // function itself does not need; keeping the hidden on chip is later work.
-// The two GEMMs are common.cuh's int8 mainloop, which K14 times bare.  K15
-// runs K4's passes with three changes: the first GEMM's epilogue folds the
-// absmax per (row, chunk) (ch % 128 == 0, so a column tile lies in one
-// chunk), the quantize pass takes each chunk's scale (or the fixed 1/8) and
-// writes it, and the second GEMM flushes its int32 accumulators at every
-// chunk boundary but the last (ch / 64 k-tiles) into fp32 ones, dequantized
-// by the chunk's row scale; the epilogue lands the last chunk's partial on
-// the residual plus that sum in one fused multiply-add, as K4 lands its one
-// partial, so that K15 at K4's settings is K4 bit for bit.  Its fp32 sums
-// cost registers: 184 a thread in the second GEMM against K4's 96.
-#include "common.cuh"
+// K14 times the mainloop bare.  K15 runs K4's passes with three changes: the
+// first GEMM's epilogue folds the absmax per (row, chunk) (ch % 128 == 0, so
+// a 128-column tile lies in one chunk), the quantize pass takes each chunk's
+// scale (or the fixed 1/8) and writes it, and the second GEMM (one block per
+// SM: its fp32 sums double the accumulators) flushes its int32 accumulators
+// at every chunk boundary but the last (ch / 128 k-tiles, one stage each) into
+// fp32 ones, dequantized by the chunk's row scale; the epilogue lands the last
+// chunk's partial on the residual plus that sum in one fused multiply-add, as
+// K4 lands its one partial, so that K15 at K4's settings is K4 bit for bit.
+// The epilogues' arithmetic is the mma.sync kernels' that these replaced,
+// value for value, and the int32 products are exact: the outputs are the same
+// bits.  Their divisions are div_rn_inline's, not the compiler's.
+#include <math.h>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -170,6 +173,32 @@ quant_chunks_kernel(const float* __restrict__ h, const float* __restrict__ hmax,
   if (sh != nullptr && col % ch == 0) sh[row * chunks + j] = s;
 }
 
+// a / b rounded to nearest even: the bits of IEEE division (div.rn.f32, and
+// rcp.rn.f32 for 1 / b), without its call.  The compiler's division keeps a
+// slow path for extreme operands in a subroutine, and a call anywhere in a
+// kernel makes ptxas serialize its wgmma (C7520).  Here the quotient is taken
+// in fp64 (rcp.approx, two Newton steps, one correction of the product:
+// relative error about 2^-53) and rounded once to fp32.  The exact quotient of
+// two floats lies at least 2^-50 of itself away from every midpoint between
+// floats (a midpoint has 25 significant bits, so midpoint x b never equals a),
+// so the fp64 value rounds to the float the exact quotient rounds to.  Zeros,
+// infinities and NaN as IEEE has them.
+__device__ __forceinline__ float div_rn_inline(float a, float b) {
+  const double da = a, db = b;
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;\n" : "=d"(r) : "d"(db));
+  r = fma(r, fma(-db, r, 1.0), r);
+  r = fma(r, fma(-db, r, 1.0), r);
+  double q = da * r;
+  q = fma(r, fma(-db, q, da), q);
+  float out = __double2float_rn(q);
+  const bool neg = signbit(a) != signbit(b);
+  if (a == 0.f || isinf(b)) out = neg ? -0.f : 0.f;            // 0 / b, a / inf
+  if (b == 0.f || isinf(a)) out = neg ? -INFINITY : INFINITY;  // a / 0, inf / b
+  if (isnan(a) || isnan(b) || (a == 0.f && b == 0.f) || (isinf(a) && isinf(b))) out = NAN;
+  return out;
+}
+
 // K4's GELU, fp32.  'poly': the odd-polynomial fit of Phi, Horner in u = h^2.
 __device__ __forceinline__ float gelu_poly(float h) {
   const float u = h * h;
@@ -187,7 +216,7 @@ __device__ __forceinline__ float gelu_poly(float h) {
 __device__ __forceinline__ float gelu_erf(float h) {
   const float x = h * 0.7071067811865476f;
   const float a = fabsf(x);
-  const float t = 1.f / (1.f + 0.3275911f * a);
+  const float t = div_rn_inline(1.f, 1.f + 0.3275911f * a);
   const float poly = t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f +
                      t * (-1.453152027f + t * 1.061405429f))));
   const float erf_a = 1.f - poly * expf(-a * a);
@@ -208,12 +237,12 @@ template <int EPI>
 __device__ __forceinline__ float activation(float h) {
   if constexpr (EPI == EPI_GELU_POLY) return gelu_poly(h);
   else if constexpr (EPI == EPI_GELU_ERF) return gelu_erf(h);
-  else if constexpr (EPI == EPI_SIGMOID) return h * (1.f / (1.f + expf(-1.702f * h)));
+  else if constexpr (EPI == EPI_SIGMOID) return h * div_rn_inline(1.f, 1.f + expf(-1.702f * h));
   else return fmaxf(h, 0.f);
 }
 
-// acc[M, N] = A[M, K] @ W[N, K]^T in int32 (common.cuh's int8 mainloop); rows
-// of A and W are K-contiguous int8.
+// acc[M, N] = A[M, K] @ W[N, K]^T in int32 (gemm_sm90.cuh's mainloop); rows
+// of A and W are K-contiguous int8, mapped by tmA and tmW.
 //   EPI_BIAS       C bf16 = acc * (sa[row] * sw[col]) + bias[col]
 //   activations    C fp32 = act(the same); rowmax[row, col / ch] = max |C| over the
 //                  row's columns of chunk col / ch, (M, chunks) (ch % 128 == 0)
@@ -222,130 +251,131 @@ __device__ __forceinline__ float activation(float h) {
 //   EPI_RESIDUAL_CHUNKED  the same without radd, the contraction in chunks of
 //                  ch: chunk j's int32 partial times (sa[row, j] * sw[col]), sa the
 //                  chunk scales (M, chunks), summed in fp32 in chunk order
-//                  (ch % 64 == 0); the last chunk's is fused onto rx + the sum
-template <int EPI>
-__global__ void __launch_bounds__(gemm_s8::THREADS)
-gemm_s8_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
+//                  (ch % 128 == 0); the last chunk's is fused onto rx + the sum
+template <int EPI, class G>
+__global__ void __launch_bounds__(256, G::BLOCKS)
+gemm_s8_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,
                const float* __restrict__ sa, const float* __restrict__ sw,
                const float* __restrict__ bias, void* __restrict__ Cout,
                float* __restrict__ rowmax, const bf16* __restrict__ rx,
                const bf16* __restrict__ radd, int M, int N, int K, int ch, int chunks) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.y * gemm_s8::BM, n0 = blockIdx.x * gemm_s8::BN;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  constexpr int BN = G::BN;
+  const int lane = threadIdx.x % 32;
+  const int m0 = blockIdx.y * G::BM, n0 = blockIdx.x * BN;
   constexpr bool CHUNKED = EPI == EPI_RESIDUAL_CHUNKED;
-  int acc[4][4][4];
-  float facc[CHUNKED ? 4 : 1][4][4];
+  int acc[BN / 2];
+  float facc[CHUNKED ? BN / 2 : 1];
   if constexpr (CHUNKED) {
-    const int steps = ch / gemm_s8::BK;
-    gemm_s8_mainloop(A, W, M, N, K, smem, acc, [&](int kt) {
-      const int j = kt / steps;
-      if ((kt + 1) % steps != 0 || j == chunks - 1) return;  // the last chunk: the epilogue
+    gemm_sm90_mainloop<G>(&tmA, &tmW, K, smem, acc, ch / G::BK, [&](int j) {
+      if (j == chunks - 1) return;  // the last chunk: the epilogue
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = m0 + tile_row(hh);
+        const float sr = row < M ? sa[(size_t)row * chunks + j] : 0.f;
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int row = m0 + wm * 64 + mi * 16 + (lane >> 2) + hh * 8;
-          const float sr = row < M ? sa[(size_t)row * chunks + j] : 0.f;
+        for (int jj = 0; jj < BN / 8; ++jj) {
+          const int col = n0 + tile_col(jj);
 #pragma unroll
-          for (int ni = 0; ni < 4; ++ni) {
-            const int col = n0 + wn * 32 + ni * 8 + (lane & 3) * 2;
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float v = col + e < N ? (float)acc[mi][ni][2 * hh + e] * (sr * sw[col + e])
-                                          : 0.f;
-              float& f = facc[mi][ni][2 * hh + e];
-              f = j == 0 ? v : f + v;
-              acc[mi][ni][2 * hh + e] = 0;
-            }
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * jj + 2 * hh + e;
+            const float v = col + e < N ? (float)acc[i] * (sr * sw[col + e]) : 0.f;
+            float& f = facc[i];
+            f = j == 0 ? v : f + v;
+            acc[i] = 0;
           }
         }
+      }
     });
   } else {
-    gemm_s8_mainloop(A, W, M, N, K, smem, acc);
+    gemm_sm90_mainloop<G>(&tmA, &tmW, K, smem, acc);
   }
 
   constexpr bool ACT = is_act(EPI);
-  float rmax[4][2];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi) rmax[mi][0] = rmax[mi][1] = 0.f;
+  static_assert(!ACT || BN == 128, "an activation tile lies in one chunk (ch % 128 == 0)");
+  float rmax[2] = {0.f, 0.f};
 
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int col = n0 + wn * 32 + ni * 8 + (lane & 3) * 2;
+  for (int jj = 0; jj < BN / 8; ++jj) {
+    const int col = n0 + tile_col(jj);
     const bool colok = col < N;
     const float w0 = colok ? sw[col] : 0.f, w1 = colok ? sw[col + 1] : 0.f;
     const float b0 = colok ? bias[col] : 0.f, b1 = colok ? bias[col + 1] : 0.f;
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = m0 + wm * 64 + mi * 16 + (lane >> 2) + hh * 8;
-        if (row >= M || !colok) continue;
-        const size_t o = (size_t)row * N + col;
-        float v0, v1;
-        if constexpr (CHUNKED) {
-          // the last chunk's partial lands on the residual and the earlier
-          // chunks' sum in one fused multiply-add, as K4's single chunk does
-          const float sr = sa[(size_t)row * chunks + chunks - 1];
-          const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(rx + o);
-          float s0 = __bfloat162float(xv.x), s1 = __bfloat162float(xv.y);
-          if (chunks > 1) {
-            s0 += facc[mi][ni][2 * hh];
-            s1 += facc[mi][ni][2 * hh + 1];
-          }
-          v0 = __fmaf_rn((float)acc[mi][ni][2 * hh], sr * w0, s0) + b0;
-          v1 = __fmaf_rn((float)acc[mi][ni][2 * hh + 1], sr * w1, s1) + b1;
-        } else {
-          const float sr = EPI == EPI_RESIDUAL ? fmaxf(sa[row], 1e-12f) / 127.f : sa[row];
-          v0 = (float)acc[mi][ni][2 * hh] * (sr * w0);
-          v1 = (float)acc[mi][ni][2 * hh + 1] * (sr * w1);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = m0 + tile_row(hh);
+      if (row >= M || !colok) continue;
+      const size_t o = (size_t)row * N + col;
+      const int i = 4 * jj + 2 * hh;
+      float v0, v1;
+      if constexpr (CHUNKED) {
+        // the last chunk's partial lands on the residual and the earlier
+        // chunks' sum in one fused multiply-add, as K4's single chunk does
+        const float sr = sa[(size_t)row * chunks + chunks - 1];
+        const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(rx + o);
+        float s0 = __bfloat162float(xv.x), s1 = __bfloat162float(xv.y);
+        if (chunks > 1) {
+          s0 += facc[i];
+          s1 += facc[i + 1];
         }
-        if (EPI == EPI_RESIDUAL) {
-          const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(rx + o);
-          float s0 = __bfloat162float(xv.x), s1 = __bfloat162float(xv.y);
-          if (radd != nullptr) {
-            const __nv_bfloat162 av = *reinterpret_cast<const __nv_bfloat162*>(radd + o);
-            s0 += __bfloat162float(av.x);
-            s1 += __bfloat162float(av.y);
-          }
-          v0 = (s0 + v0) + b0;
-          v1 = (s1 + v1) + b1;
-        } else if (!CHUNKED) {
-          v0 += b0;
-          v1 += b1;
+        v0 = __fmaf_rn((float)acc[i], sr * w0, s0) + b0;
+        v1 = __fmaf_rn((float)acc[i + 1], sr * w1, s1) + b1;
+      } else {
+        const float sr =
+            EPI == EPI_RESIDUAL ? div_rn_inline(fmaxf(sa[row], 1e-12f), 127.f) : sa[row];
+        v0 = (float)acc[i] * (sr * w0);
+        v1 = (float)acc[i + 1] * (sr * w1);
+      }
+      if (EPI == EPI_RESIDUAL) {
+        const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(rx + o);
+        float s0 = __bfloat162float(xv.x), s1 = __bfloat162float(xv.y);
+        if (radd != nullptr) {
+          const __nv_bfloat162 av = *reinterpret_cast<const __nv_bfloat162*>(radd + o);
+          s0 += __bfloat162float(av.x);
+          s1 += __bfloat162float(av.y);
         }
-        if (ACT) {
-          v0 = activation<EPI>(v0);
-          v1 = activation<EPI>(v1);
-          rmax[mi][hh] = fmaxf(rmax[mi][hh], fmaxf(fabsf(v0), fabsf(v1)));
-          *reinterpret_cast<float2*>(static_cast<float*>(Cout) + o) = make_float2(v0, v1);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(Cout) + o) =
-              __floats2bfloat162_rn(v0, v1);
-        }
+        v0 = (s0 + v0) + b0;
+        v1 = (s1 + v1) + b1;
+      } else if (!CHUNKED) {
+        v0 += b0;
+        v1 += b1;
+      }
+      if (ACT) {
+        v0 = activation<EPI>(v0);
+        v1 = activation<EPI>(v1);
+        rmax[hh] = fmaxf(rmax[hh], fmaxf(fabsf(v0), fabsf(v1)));
+        *reinterpret_cast<float2*>(static_cast<float*>(Cout) + o) = make_float2(v0, v1);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(Cout) + o) =
+            __floats2bfloat162_rn(v0, v1);
       }
     }
   }
 
   if (ACT) {
-    // the four lanes of a quad hold one row's columns of this warp's 32; the
-    // block's 128 columns lie in chunk n0 / ch
+    // the four lanes of a quad hold one row's columns of the tile, which lies
+    // in chunk n0 / ch
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        float r = rmax[mi][hh];
-        r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 1));
-        r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
-        const int row = m0 + wm * 64 + mi * 16 + (lane >> 2) + hh * 8;
-        if ((lane & 3) == 0 && row < M)
-          atomicMax(reinterpret_cast<int*>(rowmax + (size_t)row * chunks + n0 / ch),
-                    __float_as_int(r));
-      }
+    for (int hh = 0; hh < 2; ++hh) {
+      float r = rmax[hh];
+      r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 1));
+      r = fmaxf(r, __shfl_xor_sync(0xffffffffu, r, 2));
+      const int row = m0 + tile_row(hh);
+      if ((lane & 3) == 0 && row < M)
+        atomicMax(reinterpret_cast<int*>(rowmax + (size_t)row * chunks + n0 / ch),
+                  __float_as_int(r));
+    }
   }
 }
+
+// the tile of each epilogue: 128 x 128, two blocks per SM, so that one
+// block's epilogue (the dequantization, the GELU, the fp32 hidden's stores)
+// runs beside the other's products (on the H100, K4 at 8416 rows 0.451
+// against 0.505 ms at one block per SM of the same tiles, the same bits:
+// tools/ab_gemm.py).  K15's chunked sums hold twice the accumulators: one
+// block per SM.
+template <int EPI>
+using GemmTile = GemmSm90<int8_t, 128, EPI == EPI_RESIDUAL_CHUNKED ? 1 : 2>;
 
 // ch = 0: the whole of N is one chunk (K2, K4)
 template <int EPI>
@@ -353,13 +383,17 @@ cudaError_t launch_gemm(const int8_t* A, const int8_t* W, const float* sa, const
                         const float* bias, void* C, float* rowmax, const bf16* rx,
                         const bf16* radd, int M, int N, int K, cudaStream_t stream, int ch = 0,
                         int chunks = 1) {
-  using namespace gemm_s8;
-  cudaError_t err = cudaFuncSetAttribute(gemm_s8_kernel<EPI>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  using G = GemmTile<EPI>;
+  CUtensorMap ta, tw;
+  if (!encode_map_2d(&ta, A, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, M, G::BM) ||
+      !encode_map_2d(&tw, W, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K, N, G::BN))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(gemm_s8_kernel<EPI, G>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_s8_kernel<EPI><<<grid, THREADS, SMEM, stream>>>(A, W, sa, sw, bias, C, rowmax, rx, radd, M,
-                                                       N, K, ch > 0 ? ch : N, chunks);
+  const dim3 grid((N + G::BN - 1) / G::BN, (M + G::BM - 1) / G::BM);
+  gemm_s8_kernel<EPI, G><<<grid, G::THREADS, G::SMEM, stream>>>(
+      ta, tw, sa, sw, bias, C, rowmax, rx, radd, M, N, K, ch > 0 ? ch : N, chunks);
   return cudaGetLastError();
 }
 
@@ -474,7 +508,7 @@ extern "C" int k15_ln_mlp_residual_int8_exp(const void* x, const void* gamma, co
                                             void* sh, void* hq, void* out, int T, int E, int M,
                                             float eps, int chunks, int act, int rq,
                                             int fixed_hscale, void* stream) {
-  if (E % 16 || chunks < 1 || M % chunks || (M / chunks) % gemm_s8::BN || rq < 0 || rq > 1)
+  if (E % 16 || chunks < 1 || M % chunks || (M / chunks) % 128 || rq < 0 || rq > 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ch = M / chunks;

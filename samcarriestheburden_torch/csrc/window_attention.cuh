@@ -129,12 +129,6 @@ __host__ __device__ constexpr WinSmem win_smem(int rb, int ntp, int krp) {
   return l;
 }
 
-// wait until at most N committed wgmma groups of this warp are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }

@@ -804,12 +804,21 @@ def window_block_attention_plain(xn, qkv_w, qkv_b, proj_w, tables, *, ws: int, h
     return acc.to(dt)
 
 
+def window_block_scratch(wb: int, n: int, e: int, heads: int, device) -> torch.Tensor:
+    """K12's fp32 scratch: one contiguous (wb, n, e) slice per head, which the
+    block of (window, head) fills with that head's share of the projection
+    and the rounding pass sums over the heads in order."""
+    return torch.empty((heads, wb, n, e), dtype=torch.float32, device=device)
+
+
 def window_block_attention(xn, qkv_w, qkv_b, proj_w, tables, *, ws: int,
                            heads: int) -> torch.Tensor:
     """K12 over (Wb, ws*ws, E) LayerNormed, pad-masked windows of at most 208
     tokens: one block per (window, head) projects that head's q, k, v, runs
-    its attention and adds its share of the output projection into an fp32
-    scratch buffer, which a second pass rounds to the compute type."""
+    its attention and stores its share of the output projection into the
+    head's slice of an fp32 scratch buffer (:func:`window_block_scratch`); a
+    second pass sums the heads in order and rounds once to the compute type,
+    so the output is the same on every call."""
     if xn.device.type == "cpu":
         return window_block_attention_plain(xn, qkv_w, qkv_b, proj_w, tables, ws=ws,
                                             heads=heads)
@@ -825,7 +834,7 @@ def window_block_attention(xn, qkv_w, qkv_b, proj_w, tables, *, ws: int,
     if n != ws * ws or n > 208 or e != heads * hd or e % 8:
         raise ValueError(f"K12 expects windows of {ws}x{ws} <= 208 tokens and E = heads * hd "
                          f"divisible by 8, got {n} tokens, E {e}, {heads} heads")
-    acc = torch.empty((wb, n, e), dtype=torch.float32, device=xn.device)
+    acc = window_block_scratch(wb, n, e, heads, xn.device)
     out = torch.empty_like(xn)
     scale = hd ** -0.5
     code = _block_lib().k12_window_block_attention(

@@ -8,8 +8,9 @@ and ``tools/exp_3d.py:dot3d``, ``dotreshape``, ``dot2d``).
 * bf16 x bf16 -> bf16, accumulated in fp32 and rounded once;
 * int8 x int8 -> int32, exact.
 
-The CUDA kernel (``csrc/gemm.cu``) is the mainloop of K1-K4 with an epilogue
-that only stores, so its time is what those kernels' products reach alone.
+The CUDA kernel (``csrc/gemm.cu``) is the TMA + wgmma mainloop of K2, K4 and
+K15 (``csrc/gemm_sm90.cuh``) with an epilogue that only stores, so its time is
+what those kernels' products reach alone.
 The plain version multiplies in float64 and converts the product to the
 output type: exact for int8 (the accumulants stay far below 2^53), one
 rounding for fp32, and for bf16 PyTorch's conversion from float64 (through

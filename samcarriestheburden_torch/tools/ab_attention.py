@@ -131,15 +131,19 @@ print(json.dumps(res))
 '''
 
 
-def run(parent: str, change: str = str(Path(__file__).resolve().parents[2])):
-    """``[(checkout, {kernel: {"ms", "device_ms", "digest", "max_diff", "max_abs"}}),
-    ...]`` for the four turns; raises without a card or when a turn fails."""
+def run_turns(script: str, parent: str, change: str, name: str, iters: int, *args: str):
+    """``script`` (a turn: argv ``tree iters saved *args``, its last line of
+    output one JSON object) for the four turns parent, change, change,
+    parent, each in a process of its own; the first turn saves its outputs
+    at ``saved`` in the temporary directory, which is removed at the end.
+    Returns ``[(checkout, result), ...]``; raises without a card or when a
+    turn fails."""
     resolve_device(None)
-    saved = os.path.join(tempfile.gettempdir(), f"ab_attention_{os.getpid()}.pt")
+    saved = os.path.join(tempfile.gettempdir(), f"{name}_{os.getpid()}.pt")
     results = []
     try:
         for tree in (parent, change, change, parent):
-            proc = subprocess.run([sys.executable, "-c", TURN, tree, str(ITERS), saved],
+            proc = subprocess.run([sys.executable, "-c", script, tree, str(iters), saved, *args],
                                   capture_output=True, text=True, timeout=900)
             if proc.returncode != 0:
                 raise RuntimeError(f"the turn in {tree} failed:\n{proc.stderr[-4000:]}")
@@ -149,6 +153,12 @@ def run(parent: str, change: str = str(Path(__file__).resolve().parents[2])):
         if os.path.exists(saved):
             os.remove(saved)
     return results
+
+
+def run(parent: str, change: str = str(Path(__file__).resolve().parents[2])):
+    """``[(checkout, {kernel: {"ms", "device_ms", "digest", "max_diff", "max_abs"}}),
+    ...]`` for the four turns; raises without a card or when a turn fails."""
+    return run_turns(TURN, parent, change, "ab_attention", ITERS)
 
 
 if __name__ == "__main__":

@@ -117,9 +117,9 @@ def test_cuda_sources_are_registered_and_stand_alone():
     sources = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     assert sources == sorted(build.SOURCES) and "quant" in sources
     allowed = {"common.cuh", "rel_attention.cuh", "global_attention.cuh",
-               "window_attention.cuh", "cuda_bf16.h",
+               "window_attention.cuh", "hopper.cuh", "gemm_sm90.cuh", "cuda_bf16.h",
                "cuda_runtime.h", "cuda.h", "cooperative_groups.h",
-               "stdint.h", "math.h"}
+               "stdint.h", "math.h", "type_traits"}
     for path in sorted(build.CSRC.glob("*.cu*")):
         text = path.read_text()
         includes = re.findall(r'#include\s+[<"]([^>"]+)[>"]', text)
@@ -128,11 +128,16 @@ def test_cuda_sources_are_registered_and_stand_alone():
             assert 'extern "C"' in text, path.name
     quant = (build.CSRC / "quant.cu").read_text()
     for symbol in ("k2_ln_masked_linear_int8", "k4_ln_mlp_residual_int8",
-                   "k15_ln_mlp_residual_int8_exp", "gemm_s8_mainloop"):
+                   "k15_ln_mlp_residual_int8_exp", "gemm_sm90_mainloop"):
         assert symbol in quant
     gemm = (build.CSRC / "gemm.cu").read_text()
-    assert "k14_dot" in gemm and "gemm_bf16_mainloop" in gemm and "gemm_s8_mainloop" in gemm
+    assert "k14_dot" in gemm and "gemm_sm90_mainloop" in gemm
+    # K2, K4, K14 and K15 on the TMA + wgmma mainloop, K1 and K3 on mma.sync;
+    # the int8 mma.sync mainloop is gone
+    sm90 = (build.CSRC / "gemm_sm90.cuh").read_text()
+    assert "wgmma.mma_async" in sm90 and "tma_load_2d" in sm90
     assert "gemm_bf16_mainloop" in (build.CSRC / "mlp.cu").read_text()
+    assert "gemm_s8_mainloop" not in (build.CSRC / "common.cuh").read_text()
     attention = (build.CSRC / "attention.cu").read_text()
     assert "k7_rel_attention_global_int8" in attention and "k7_rel_attention_global_pv" in attention
     # the kernel template of K5-K7, K9-K11 and K16, shared with attention_forms.cu
@@ -146,10 +151,12 @@ def test_cuda_sources_are_registered_and_stand_alone():
         assert '#include "rel_attention.cuh"' in text
     assert "k13_cost_probe" in (build.CSRC / "cost_probe.cu").read_text()
     block = (build.CSRC / "block_attention.cu").read_text()
-    assert "k12_window_block_attention" in block and "atomicAdd" in block and "mma_bf16" in block
+    assert "k12_window_block_attention" in block and "mma_bf16" in block
+    # K12's head sum: a slice per head, summed in head order; no atomics
+    assert "atomicAdd" not in block and "for (int h = 0; h < heads; ++h)" in block
     common = (build.CSRC / "common.cuh").read_text()
     assert "m16n8k32.row.col.s32.s8.s8.s32" in common
-    assert "mma_s8(acc" in common and "mma_bf16(acc" in common   # in the shared mainloops
+    assert "mma_bf16(acc" in common   # in K1's and K3's mainloop
 
 
 def _c_function(text: str, name: str) -> str:
@@ -164,6 +171,8 @@ def test_the_global_instances_run_the_hopper_kernel():
     mbarriers, wgmma for both products), never the 8-warp ``mma.sync``
     instances of ``rel_attention.cuh``, which only K7's int8 p.v pair keeps."""
     header = (build.CSRC / "global_attention.cuh").read_text()
+    assert '#include "hopper.cuh"' in header     # the mbarrier, TMA and wgmma helpers
+    header += (build.CSRC / "hopper.cuh").read_text()
     for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier", "m64n64k32.s32.s8.s8",
                 "cuTensorMapEncodeTiled", "global_attention_kernel"):
         assert ptx in header, ptx
