@@ -30,19 +30,19 @@
 // nrows, heads * 3 * HD) with each head's [q | k | v] columns side by side;
 // output is token-major (nseq, nrows, heads, HD), ready for the projection.
 //
-// Three kernels compute them:
+// Two kernels compute them:
 //   * the windows (K5, K6, K9 on a sequence of at most 208 rows, K10) run
 //     window_attention_kernel (window_attention.cuh): persistent blocks of
 //     two warpgroups, TMA-fed item stages, a whole 208-column row of S in one
 //     wgmma product with the rel terms as the selector product R . E^T, the
 //     TPU kernel's own formulation.  Bytes bound it (~100 operations per byte).
-//   * the global grid (K7, K7-int8, K9 longer than 208 rows, K11) runs
-//     global_attention_kernel (global_attention.cuh): 128 query rows per block
-//     in two warpgroups, K/V tiles by TMA through an mbarrier ring, both
-//     products on wgmma.  The tensor cores bound it.
-//   * K7-pv and K7-int8pv run rel_attention_kernel (rel_attention.cuh), the
-//     mma.sync flash loop with two key passes (the row max and sum, then the
-//     int8 p . v), after the pre-passes that quantize k and v.
+//   * the global grid (K7, K7-int8, K7-pv, K7-int8pv, K9 longer than 208
+//     rows, K11) runs global_attention_kernel (global_attention.cuh): 128
+//     query rows per block in two warpgroups, K/V tiles by TMA through an
+//     mbarrier ring, both products on wgmma.  The tensor cores bound it.
+//     K7-pv and K7-int8pv are its SM_PV instances: two key passes (the row
+//     max and sum, then the int8 p . v on s8 wgmma), after the pre-passes that
+//     quantize v (rel_attention.cuh:v_quant_kernel) and, for K7-int8pv, k.
 #include "global_attention.cuh"
 #include "rel_attention.cuh"
 #include "window_attention.cuh"
@@ -113,8 +113,10 @@ extern "C" int k7_rel_attention_global_pv(const void* qkv, const void* tab, void
   op.vq = static_cast<int8_t*>(vq);
   op.vmax = static_cast<float*>(vmax);
   if (int8_qk)
-    return dispatch_pv<true>(hd, op, out, nseq, nrows, heads, kh, kw, scale, inv_scale, stream);
-  return dispatch_pv<false>(hd, op, out, nseq, nrows, heads, kh, kw, scale, inv_scale, stream);
+    return dispatch_global<true, false, SM_PV>(hd, op, out, nseq, nrows, heads, kh, kw, scale,
+                                               inv_scale, stream);
+  return dispatch_global<false, false, SM_PV>(hd, op, out, nseq, nrows, heads, kh, kw, scale,
+                                              inv_scale, stream);
 }
 
 // K9: q, k, v, out (nseq, nrows, hd) bf16, one head per sequence; rel_h (nseq,

@@ -5,11 +5,8 @@
 //   A (16x16): a0 = (r, c..c+1), a1 = (r+8, c..), a2 = (r, c+8..), a3 = (r+8, c+8..)
 //   B (16x8):  b0 = (k..k+1, n), b1 = (k+8.., n)
 //   C (16x8):  c0,c1 = (r, c..c+1), c2,c3 = (r+8, c..c+1)
-// with r = lane/4, c = k = 2*(lane%4), n = lane/4.
-// The int8 product mma.m16n8k32 (s8 x s8 -> s32) has the same fragments with
-// 16-byte column groups in place of 8 bf16: a thread's register holds the
-// four int8 at k = 4*(lane%4).. of its row (a0, a1: k < 16; a2, a3: k >= 16;
-// b0: k < 16, b1: k >= 16), so ldmatrix's 8 x 16-byte tiles load them too.
+// with r = lane/4, c = k = 2*(lane%4), n = lane/4.  (The int8 products run on
+// wgmma: hopper.cuh, gemm_sm90.cuh, global_attention.cuh.)
 //
 // Below them, the bf16 GEMM mainloop of K1 and K3 (csrc/mlp.cu): one block's
 // 128 x 128 tile of A[M, K] @ W[N, K]^T into registers, the epilogue left to
@@ -55,15 +52,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -1,25 +1,35 @@
-// global_attention_kernel: the global attention of K7, K7-int8, K9 on a
-// sequence longer than one block, K11, and K16's two-pass forms v1 and v3 on
-// the grid, written for Hopper (sm_90a): TMA, mbarriers and wgmma.  Included
-// by attention.cu (K7, K7-int8, K9, K11) and attention_forms.cu (K16).  The
-// TPU kernels it replaces: samcarriestheburden_tpu/kernels/attention.py:
-// fused_rel_attention_global3d (K7, K7-int8), fused_rel_attention at the
-// global shape (K9), fused_rel_attention_headmajor_global (K11), and the v1
-// and v3 forms of tools/exp_attn.py:mk_global (K16).
+// global_attention_kernel: the global attention of K7, K7-int8, K7-pv,
+// K7-int8pv, K9 on a sequence longer than one block, K11, and K16's two-pass
+// forms v1 and v3 on the grid, written for Hopper (sm_90a): TMA, mbarriers and
+// wgmma.  Included by attention.cu (K7, K7-int8, K7-pv, K7-int8pv, K9, K11)
+// and attention_forms.cu (K16).  The TPU kernels it replaces:
+// samcarriestheburden_tpu/kernels/attention.py: fused_rel_attention_global3d
+// (K7, K7-int8; with int8_pv=True, lines 615-629, K7-pv and K7-int8pv),
+// fused_rel_attention at the global shape (K9),
+// fused_rel_attention_headmajor_global (K11), and the v1 and v3 forms of
+// tools/exp_attn.py:mk_global (K16).
 //
 // It computes the function of attention.cu's header with the rounding points
 // of the mma.sync kernels it replaced: the rel terms
 // bf16 at 1 / scale, (s + rh + rw) * scale (int8: fma(s, sq, rh + rw) * scale),
 // P rounded to bf16 before p . v, 1 / l after p . v (v1: p / l before,
-// correctly rounded), fp32 accumulation.  Only the order of the fp32 sums inside the tensor-core
-// products differs.
+// correctly rounded), fp32 accumulation.  Only the order of the fp32 sums
+// inside the tensor-core products differs.  The int8 p . v pair (SM_PV) keeps
+// its logits in log2 units, c = scale * log2(e): on a 64-wide grid
+// fma(s, c (int8: sq * c), rh * c + rw * c), else (s + rh + rw) * c; then
+// p = rint(2^(logit - m + log2(127 / l))) = rint(127 exp(.) / l) and an exact
+// int32 p . v.  Its probabilities differ from the mma.sync kernel's only by
+// fp32 rounding, so an output differs only where one lands on the other side
+// of a .5 step of the 127 scale.
 //
 // What bounds it: per (sequence, head) 2 x n^2 x hd x 2 operations on
 // 3 x n x hd x 2 bytes of q, k, v: at n = 4096 that is ~1700 operations per
 // byte, far above the card's ~295 ops/byte ridge, so the tensor cores bound
 // it (0.18 ms for K7's ViT-H call at 989 TFLOP/s), and behind them the
 // softmax's exp and the rel-term adds, which run on the SM's other units
-// beside the products.  The design:
+// beside the products.  (The int8 p . v pair's bound is K7's with p . v at
+// the int8 rate; its two passes of logits and exp2 bound it in practice.)
+// The design:
 //   * a block of 288 threads owns 128 query rows of one (sequence, head):
 //     two consumer warpgroups of 64 rows each and one producer warp, whose
 //     lane 0 issues every TMA copy (the consumers copy only the small rel
@@ -35,8 +45,8 @@
 //   * q . k is wgmma m64n64k16 (bf16, both operands in shared memory; q is
 //     loaded once by TMA); K7-int8's is m64n64k32 s8 -> s32 over its int8
 //     keys (the pre-pass of rel_attention.cuh, streamed by TMA in 32-byte
-//     boxes) and q quantized in the block, as rel_attention_kernel does, into
-//     a 32-byte-swizzled tile.
+//     boxes) and q quantized in the block, by each row's absmax as the TPU
+//     kernel does, into a 32-byte-swizzled tile.
 //   * p . v is wgmma m64n{hd}k16 with P in registers: the S accumulator's
 //     fragment is the A fragment of the next product, row for row, so P
 //     converts to bf16 in place; V is the transposed (MN-major) B.
@@ -48,10 +58,22 @@
 //     grid row: each thread keeps its 2 rows x 16 keys of rw in registers for
 //     the whole key loop and reads one rh per row per tile.  Other grids read
 //     the table per score.
-//   * the two-pass forms (v1, v3) need each row's final max before its first
-//     probability: the producer runs the key sequence twice, K alone on the
-//     first pass (max and sum), K and V on the second (the products).
+//   * the two-pass forms (v1, v3, and SM_PV of the int8 p . v pair) need each
+//     row's final max before its first probability: the producer runs the key
+//     sequence twice, K alone on the first pass (max and sum), K and V on the
+//     second (the products).
+//   * SM_PV's p . v is wgmma m64n{hd}k32 s8 -> s32, P the A operand in
+//     registers: the S fragment's probabilities are quantized at 127 with one
+//     FMA-pipe add each (rint by the 1.5 x 2^23 shift, no F2I) and packed four
+//     to a register with prmt, in the key order of rel_attention.cuh:pv_key,
+//     which v_quant_kernel writes vq in.  8-bit wgmma takes only K-major B, so
+//     vq's rows are value channels with the keys contiguous: TMA brings each
+//     64-key tile as two 32-byte boxes of hd rows, 32-byte swizzled, the
+//     layout of the int8 key tiles.  The int32 sums are exact, dequantized by
+//     sv / 127 per channel in the epilogue.
 #pragma once
+
+#include <type_traits>
 
 #include "hopper.cuh"
 #include "rel_attention.cuh"
@@ -102,6 +124,61 @@ __device__ __forceinline__ void wgmma_qk_s8(int (&d)[32], uint64_t da, uint64_t 
         "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
         "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// O (64 x HD, s32) += P (64 x 32, int8 A fragments in registers) . V (32 x HD),
+// V int8 from shared memory K-major (its rows are value channels, 32 keys
+// contiguous: the layout of vq)
+template <int HD>
+__device__ __forceinline__ void wgmma_pv_s8(int (&d)[HD / 2], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  if constexpr (HD == 16)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+          "+r"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (HD == 32)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+          "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+          "+r"(d[14]), "+r"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (HD == 64)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+        "{%32, %33, %34, %35}, %36, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+          "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+          "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+          "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (HD == 80)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+        "%34, %35, %36, %37, %38, %39},"
+        "{%40, %41, %42, %43}, %44, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+          "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+          "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]),
+          "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+          "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+          "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // O (64 x HD, fp32) += P (64 x 16, bf16 A fragments in registers) . V (16 x HD),
@@ -197,6 +274,32 @@ __device__ __forceinline__ float div_rn_by(float x, float y, float r) {
   return __fmaf_rn(__fmaf_rn(-y, q, x), r, q);
 }
 
+// x in [0, 255] (a probability at the scale 127) rounded half to even, as
+// __float2int_rn rounds it, in the low byte of the result: adding 1.5 x 2^23
+// leaves the integer in the low mantissa bits, one FMA-pipe add where F2I would
+// take the slow conversion pipe
+__device__ __forceinline__ uint32_t rint_low_byte(float x) {
+  return __float_as_uint(__fadd_rn(x, 12582912.f));
+}
+// an int32 q . k sum (|x| < 2^22: at most 127 x 127 x 96) as fp32, exactly:
+// the same 1.5 x 2^23 shift, on the ALU and FMA pipes, where I2F would share
+// the conversion pipe with the softmax's exp2
+__device__ __forceinline__ float int_to_float(int x) {
+  return __fsub_rn(__int_as_float(x + 0x4B400000), 12582912.f);
+}
+// four low bytes into one register, a's in the low byte (prmt)
+__device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b, uint32_t c,
+                                                   uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// 2^x, the SFU's approximation (subnormal results flush to zero)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // bf16 -> fp32 of the low and the high half of a register
 __device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
@@ -206,8 +309,11 @@ __device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x 
 // column h * head_stride.  tm_kq (K7-int8): the int8 keys (nseq * heads, nrows, hd
 // padded to 32), boxes of 32 bytes x 64 rows.  PRE: the rel terms come from
 // rel_h (heads, nseq, nrows, KH) and rel_w (.., KW), not from tab.  SM: the
-// softmax form (SM_ONLINE; K16's SM_V1 and SM_V3 make two passes).  Every row
-// is a key (nrows = KH * KW); out is (nseq, nrows, heads, HD).
+// softmax form (SM_ONLINE; K16's SM_V1 and SM_V3 and the int8 p . v pair's
+// SM_PV make two passes).  SM_PV: tm_v maps the int8 values vq (nseq * heads,
+// HD, keys padded to 64) in boxes of 32 bytes x HD rows, and vmax (nseq, heads,
+// HD) holds their channels' absmax.  Every row is a key (nrows = KH * KW); out
+// is (nseq, nrows, heads, HD).
 template <int HD, bool INT8, bool PRE, int SM>
 __global__ void __launch_bounds__(G_THREADS, 1)
 global_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -216,15 +322,23 @@ global_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_kq, int head_stride,
                         const bf16* __restrict__ tab,
                         const bf16* __restrict__ rel_h, const bf16* __restrict__ rel_w,
-                        const float* __restrict__ kmax, bf16* __restrict__ out, int nrows,
-                        int heads, int KH, int KW, float scale, float inv_scale) {
+                        const float* __restrict__ kmax, const float* __restrict__ vmax,
+                        bf16* __restrict__ out, int nrows, int heads, int KH, int KW,
+                        float scale, float inv_scale) {
   constexpr int KSTEPS = HD / 16, DT = HD / 8, LD = HD + 8;
   constexpr int KSTEPS8 = padded_hd(HD) / 32;
-  constexpr bool TABLES = !PRE;
+  constexpr bool TABLES = !PRE, PV = SM == SM_PV;
   constexpr int NPASS = SM == SM_ONLINE ? 1 : 2;
+  // a stage's V: bf16 boxes of 16 columns x 64 keys, or (PV) int8 boxes of 32
+  // keys x HD channels
+  constexpr uint32_t VBYTES = PV ? BKV * HD : KSTEPS * G_BOX;
   constexpr float LOG2E = 1.4426950408889634f;
-  static_assert(SM == SM_ONLINE || SM == SM_V1 || SM == SM_V3, "no such global form");
-  static_assert(SM == SM_ONLINE || (!INT8 && !PRE), "the two-pass forms are K16's");
+  // PV's logits are in log2 units (scale * log2(e) in place of scale), so its
+  // exp2 takes them as they are, on the SFU alone
+  const float lscale = PV ? scale * LOG2E : scale;
+  static_assert(SM == SM_ONLINE || SM == SM_V1 || SM == SM_V3 || PV, "no such global form");
+  static_assert(SM == SM_ONLINE || (!PRE && (PV || !INT8)),
+                "v1 and v3 are K16's bf16 forms; SM_PV takes the tables");
   const GlobalSmem L = global_smem<HD, INT8>(KH, KW);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -271,7 +385,7 @@ global_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int kt = 0; kt < NKT; ++kt) {
           mbar_wait(&empty[stage], phase ^ 1);
           unsigned char* st = ring + stage * L.stage;
-          mbar_expect_tx(&full[stage], L.kbytes + (with_v ? KSTEPS * G_BOX : 0));
+          mbar_expect_tx(&full[stage], L.kbytes + (with_v ? VBYTES : 0));
           if (INT8)
             for (int kk = 0; kk < KSTEPS8; ++kk)
               tma_load(st + kk * G_BOX, &tm_kq, &full[stage], kk * 32, kt * BKV, s * heads + h);
@@ -279,7 +393,11 @@ global_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
             for (int kk = 0; kk < KSTEPS; ++kk)
               tma_load(st + kk * G_BOX, &tm_k, &full[stage], h * head_stride + kk * 16,
                        kt * BKV, s);
-          if (with_v)
+          if (with_v && PV)
+            for (int kk = 0; kk < BKV / 32; ++kk)
+              tma_load(st + L.kbytes + kk * 32 * HD, &tm_v, &full[stage], kt * BKV + kk * 32, 0,
+                       s * heads + h);
+          else if (with_v)
             for (int kk = 0; kk < KSTEPS; ++kk)
               tma_load(st + L.kbytes + kk * G_BOX, &tm_v, &full[stage],
                        h * head_stride + kk * 16, kt * BKV, s);
@@ -419,14 +537,26 @@ global_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
         const bf16* r = (i ? rel1 : rel0) + KH + t * 8 + (lane & 3) * 2;
         rwp[i][t] = pack_bf16(__bfloat162float(r[0]), __bfloat162float(r[1]));
       }
-
-  // 4. the key loop
-  float o[HD / 2], sc[32];
+  // PV: the same rw as floats times lscale, and sq times lscale, so that a
+  // logit is one add and one fma
+  float rws[2][16];
+  if (PV && row64)
 #pragma unroll
-  for (int x = 0; x < HD / 2; ++x) o[x] = 0.f;
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        rws[i][k] = ((k & 1) ? bf16_hi(rwp[i][k >> 1]) : bf16_lo(rwp[i][k >> 1])) * lscale;
+  const float sqs[2] = {sq[0] * lscale, sq[1] * lscale};
+
+  // 4. the key loop; PV's p . v sums in int32
+  typename std::conditional<PV, int, float>::type o[HD / 2];
+  float sc[32];
+#pragma unroll
+  for (int x = 0; x < HD / 2; ++x) o[x] = 0;
 #pragma unroll
   for (int x = 0; x < 32; ++x) sc[x] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, linv[2] = {0.f, 0.f};
+  float mq[2] = {0.f, 0.f};
   const float inv_qw = 1.f / KW;
   const unsigned char* sQg = sQ + g * G_BOX;  // this warpgroup's rows of each q box
   const unsigned char* sQig = reinterpret_cast<const unsigned char*>(sQi) + g * G_BOX;
@@ -440,9 +570,7 @@ global_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
       const unsigned char* sV = sK + L.kbytes;
 
       if (INT8) {
-        int si[32];
-#pragma unroll
-        for (int x = 0; x < 32; ++x) si[x] = 0;
+        int si[32];  // not zeroed: the first k-step overwrites it (scale_d = 0)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KSTEPS8; ++kk)
@@ -452,7 +580,8 @@ global_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
         wgmma_wait_all();
         fence_regs(si);
 #pragma unroll
-        for (int x = 0; x < 32; ++x) sc[x] = (float)si[x];  // * sq in the logit's fma
+        for (int x = 0; x < 32; ++x)  // * sq in the logit's fma
+          sc[x] = int_to_float(si[x]);
       } else {
         fence_regs(sc);
         wgmma_fence();
@@ -469,12 +598,19 @@ global_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
       float mx[2] = {-INFINITY, -INFINITY};
       if (row64) {
         const float rh[2] = {__bfloat162float(rel0[kt]), __bfloat162float(rel1[kt])};
+        const float rhs[2] = {rh[0] * lscale, rh[1] * lscale};
 #pragma unroll
         for (int x = 0; x < 32; ++x) {
           const int t = x >> 2, i = (x >> 1) & 1;
-          const float rw = (x & 1) ? bf16_hi(rwp[i][t]) : bf16_lo(rwp[i][t]);
-          const float v = INT8 ? __fmaf_rn(sc[x], sq[i], rh[i] + rw) * scale
-                               : (sc[x] + rh[i] + rw) * scale;
+          float v;
+          if (PV) {
+            const float b = rhs[i] + rws[i][2 * t + (x & 1)];
+            v = INT8 ? __fmaf_rn(sc[x], sqs[i], b) : __fmaf_rn(sc[x], lscale, b);
+          } else {
+            const float rw = (x & 1) ? bf16_hi(rwp[i][t]) : bf16_lo(rwp[i][t]);
+            v = INT8 ? __fmaf_rn(sc[x], sq[i], rh[i] + rw) * lscale
+                     : (sc[x] + rh[i] + rw) * lscale;
+          }
           sc[x] = v;
           mx[i] = fmaxf(mx[i], v);
         }
@@ -489,7 +625,7 @@ global_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
             const int kw = j - kh * KW;
             const bf16* rel = i ? rel1 : rel0;
             const float rh = __bfloat162float(rel[kh]), rw = __bfloat162float(rel[KH + kw]);
-            v = INT8 ? __fmaf_rn(sc[x], sq[i], rh + rw) * scale : (sc[x] + rh + rw) * scale;
+            v = INT8 ? __fmaf_rn(sc[x], sq[i], rh + rw) * lscale : (sc[x] + rh + rw) * lscale;
           }
           sc[x] = v;
           mx[i] = fmaxf(mx[i], v);
@@ -504,22 +640,22 @@ global_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
           mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
           mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
           const float mn = fmaxf(m[i], mx[i]);  // finite: key 0 is always live
-          alpha[i] = exp2f((m[i] - mn) * LOG2E);
+          alpha[i] = PV ? ex2_ftz(m[i] - mn) : exp2f((m[i] - mn) * LOG2E);
           m[i] = mn;
         }
 #pragma unroll
         for (int x = 0; x < 32; ++x) {
           const int i = (x >> 1) & 1;
-          const float p = exp2f((sc[x] - m[i]) * LOG2E);
+          const float p = PV ? ex2_ftz(sc[x] - m[i]) : exp2f((sc[x] - m[i]) * LOG2E);
           sc[x] = p;
           ls[i] += p;
         }
 #pragma unroll
         for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + ls[i];
-        if (NPASS == 1)
+        if constexpr (NPASS == 1)
 #pragma unroll
           for (int x = 0; x < HD / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
-      } else {  // the product pass of a two-pass form: m (and, for v1, l) are final
+      } else if (!PV) {  // the product pass of v1, v3: m (and, for v1, l) are final
 #pragma unroll
         for (int x = 0; x < 32; ++x) {
           const int i = (x >> 1) & 1;
@@ -537,7 +673,36 @@ global_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
           for (int i = 0; i < 2; ++i) l[i] += ls[i];
       }
 
-      if (!stats) {  // O += P . V, P from the S fragment as bf16 A fragments
+      if constexpr (PV) {
+        if (!stats) {
+          // O += P . V in int8: p = rint(2^(logit - mq)) = rint(127 exp(.) / l),
+          // the S fragment's entries 4t + e (row e >> 1, keys 8t + 2 (lane % 4) +
+          // (e & 1)) packed as the A fragment of k-step kk: register r holds row
+          // r & 1's keys of the 8-key groups t, t + 1 with t = 4 kk + 2 (r >> 1)
+          uint32_t qp[32];
+#pragma unroll
+          for (int x = 0; x < 32; ++x) {
+            const int i = (x >> 1) & 1;
+            qp[x] = rint_low_byte(ex2_ftz(sc[x] - mq[i]));
+          }
+          uint32_t a[BKV / 32][4];
+#pragma unroll
+          for (int kk = 0; kk < BKV / 32; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              const int x = 4 * (4 * kk + 2 * (r >> 1)) + 2 * (r & 1);
+              a[kk][r] = pack_low_bytes(qp[x], qp[x + 1], qp[x + 4], qp[x + 5]);
+            }
+          fence_regs(o);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BKV / 32; ++kk)
+            wgmma_pv_s8<HD>(o, a[kk], desc_kmajor(sV + kk * 32 * HD));
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(o);
+        }
+      } else if (!stats) {  // O += P . V, P from the S fragment as bf16 A fragments
         uint32_t a[BKV / 16][4];
 #pragma unroll
         for (int kk = 0; kk < BKV / 16; ++kk)
@@ -565,11 +730,12 @@ global_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
         l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
         linv[i] = __frcp_rn(l[i]);
+        if (PV) mq[i] = m[i] - log2f(linv[i] * 127.f);  // 2^(s - mq) = 127 p / l
         if (SM == SM_V3) l[i] = 0.f;  // summed again over the p used
       }
   }
 
-  if (SM != SM_V1)  // v1's probabilities are normalised already
+  if (SM == SM_ONLINE || SM == SM_V3)  // v1's and PV's probabilities are normalised already
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -579,12 +745,23 @@ global_attention_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int i = 0; i < 2; ++i) {
     const int row = q0 + rl[i];
     if (row >= nrows) continue;
-    const float inv = SM == SM_V1 ? 1.f : 1.f / l[i];
     bf16* dst = out + ((size_t)(s * nrows + row) * heads + h) * HD + (lane & 3) * 2;
+    if constexpr (PV) {  // the exact int32 sums x sv / 127 per value channel
+      const float* vm = vmax + (size_t)(s * heads + h) * HD + (lane & 3) * 2;
 #pragma unroll
-    for (int d = 0; d < DT; ++d)
-      *reinterpret_cast<__nv_bfloat162*>(dst + d * 8) =
-          __floats2bfloat162_rn(o[4 * d + 2 * i] * inv, o[4 * d + 2 * i + 1] * inv);
+      for (int d = 0; d < DT; ++d) {
+        const float s0 = (vm[d * 8] / 127.f + 1e-12f) / 127.f;
+        const float s1 = (vm[d * 8 + 1] / 127.f + 1e-12f) / 127.f;
+        *reinterpret_cast<__nv_bfloat162*>(dst + d * 8) =
+            __floats2bfloat162_rn((float)o[4 * d + 2 * i] * s0, (float)o[4 * d + 2 * i + 1] * s1);
+      }
+    } else {
+      const float inv = SM == SM_V1 ? 1.f : 1.f / l[i];
+#pragma unroll
+      for (int d = 0; d < DT; ++d)
+        *reinterpret_cast<__nv_bfloat162*>(dst + d * 8) =
+            __floats2bfloat162_rn(o[4 * d + 2 * i] * inv, o[4 * d + 2 * i + 1] * inv);
+    }
   }
 }
 
@@ -619,7 +796,9 @@ size_t global_launch_smem(int kh, int kw) {
 
 // op (Operands, rel_attention.cuh), a sequence
 // seq_stride = nrows * stride elements long: q, k and v each become a 3-D
-// tensor map of (nseq, nrows, stride) elements from its own base.
+// tensor map of (nseq, nrows, stride) elements from its own base.  INT8 runs
+// K7-int8's key pre-passes into op.kq, op.kmax first; SM_PV the value
+// pre-passes into op.vq, op.vmax (a grouped qkv: op.q is its base).
 template <int HD, bool INT8, bool PRE, int SM>
 cudaError_t launch_global(const Operands& op, bf16* out, int nseq, int nrows, int heads, int kh,
                           int kw, float scale, float inv_scale, cudaStream_t stream) {
@@ -639,6 +818,19 @@ cudaError_t launch_global(const Operands& op, bf16* out, int nseq, int nrows, in
     return cudaErrorInvalidValue;
   tkq = tk;
   cudaError_t err;
+  if constexpr (SM == SM_PV) {  // the values' channel absmax, then vq in pv_key's order
+    if (op.vq == nullptr || op.vmax == nullptr) return cudaErrorInvalidValue;
+    err = column_absmax<HD>(op.q, op.vmax, nseq, nrows, heads, 2 * HD, stream);
+    if (err != cudaSuccess) return err;
+    const int tiles = (nrows + BKV - 1) / BKV;
+    v_quant_kernel<HD><<<dim3(tiles, heads, nseq), 256, 0, stream>>>(op.q, op.vmax, op.vq, nrows,
+                                                                    tiles * BKV, heads);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    if (!encode_map(&tv, op.vq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, tiles * BKV, HD, nseq * heads,
+                    32, HD))
+      return cudaErrorInvalidValue;
+  }
   if (INT8) {
     if (op.kq == nullptr || op.kmax == nullptr) return cudaErrorInvalidValue;
     err = column_absmax<HD>(op.q, op.kmax, nseq, nrows, heads, HD, stream);
@@ -658,8 +850,8 @@ cudaError_t launch_global(const Operands& op, bf16* out, int nseq, int nrows, in
   if (err != cudaSuccess) return err;
   const dim3 grid((nrows + G_BQ - 1) / G_BQ, heads, nseq);
   kernel<<<grid, G_THREADS, smem, stream>>>(tq, tk, tv, tkq, op.head_stride, op.tab, op.rel_h,
-                                            op.rel_w, op.kmax, out, nrows, heads, kh, kw, scale,
-                                            inv_scale);
+                                            op.rel_w, op.kmax, op.vmax, out, nrows, heads, kh, kw,
+                                            scale, inv_scale);
   return cudaGetLastError();
 }
 

@@ -151,13 +151,6 @@ __device__ __forceinline__ float rcp_nr(float y) {
   return __fmaf_rn(r, __fmaf_rn(-y, r, 1.f), r);
 }
 
-// 2^x, the SFU's approximation (subnormal results flush to zero)
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // tm_q, tm_k, tm_v: 3-D maps (sequence, row, column) of bf16, boxes of 16
 // columns x rb rows, from the bases of head 0's q, k, v; head h's start at
 // column h * head_stride.  RECT (K6): qkv_bias (heads * 3 * HD fp32) gives the

@@ -111,11 +111,13 @@ items (:func:`window_items`), TMA feeds a ring of item stages, and one wgmma
 product per 64-row slab gives whole rows of logits in the TPU kernel's own
 selector form, ``q . k + R . E^T`` (:func:`window_selectors`,
 :func:`window_rel_terms`), so every softmax form takes one pass.  The global
-attentions (K7, K7-int8, K9 on a longer sequence, K11, and K16's v1 and v3 on
-the grid) run ``csrc/global_attention.cuh``: TMA copies and mbarriers feed
-wgmma for both products (:func:`global_smem_bytes`; what it takes:
-:func:`_check_global`).  K7's int8 p.v pair runs the ``mma.sync`` kernel of
-``csrc/rel_attention.cuh``.
+attentions (K7, K7-int8, K7-pv, K7-int8pv, K9 on a longer sequence, K11, and
+K16's v1 and v3 on the grid) run ``csrc/global_attention.cuh``: TMA copies and
+mbarriers feed wgmma for both products (:func:`global_smem_bytes`; what it
+takes: :func:`_check_global`).  K7's int8 p.v pair is its two-pass form whose
+p.v is an s8 wgmma with the quantized probabilities as the A operand in
+registers, over int8 values stored in the key order of those registers
+(:func:`pv_key_order`, :func:`pv_fragment_entries`).
 """
 
 from __future__ import annotations
@@ -381,8 +383,9 @@ def _check_hd(hd: int) -> None:
 
 
 def _check_global(kh: int, kw: int, **operands) -> None:
-    """What the global kernel (``csrc/global_attention.cuh``: K7, K7-int8, K9 on
-    a sequence longer than one block, K11, K16's v1 and v3 on the grid) takes
+    """What the global kernel (``csrc/global_attention.cuh``: K7, K7-int8, K7-pv,
+    K7-int8pv, K9 on a sequence longer than one block, K11, K16's v1 and v3 on
+    the grid) takes
     beyond the head dims: a kh x kw grid whose stacked tables (2kh-1 + 2kw-1
     rows) fit its 256-row table product, and operands whose base and row pitch
     its TMA copies can address (16 bytes)."""
@@ -397,9 +400,33 @@ def _check_global(kh: int, kw: int, **operands) -> None:
 
 def global_smem_bytes(hd: int, int8_qk: bool, kh: int, kw: int) -> int:
     """The dynamic shared memory of the global kernel's launch at head dim hd
-    on a kh x kw grid (with K7-int8's int8 q . k or without)."""
+    on a kh x kw grid (with K7-int8's int8 q . k or without; K7-pv and
+    K7-int8pv take as much as K7 and K7-int8)."""
     _check_hd(hd)
     return _lib().global_attention_smem(hd, int(int8_qk), kh, kw)
+
+
+def pv_key_order() -> torch.Tensor:
+    """The key each position of a 32-key chunk of ``vq`` holds (K7-pv's and
+    K7-int8pv's int8 values, (S, heads, hd, keys padded to 64)), as
+    ``csrc/rel_attention.cuh:pv_key`` writes it: position 16 h + 4 q + e holds
+    key 16 h + 8 (e >> 1) + 2 q + (e & 1).  Lane q of a quad holds A-fragment
+    columns 4 q .. 4 q + 3 (and 16 + 4 q ..) of wgmma m64nNk32's 8-bit A
+    operand, and keys 2 q, 2 q + 1 of every 8-key group in the S accumulator
+    (:func:`pv_fragment_entries` packs the one from the other)."""
+    kp = torch.arange(32)
+    half, q, e = kp >> 4, (kp & 15) >> 2, kp & 3
+    return half * 16 + (e >> 1) * 8 + 2 * q + (e & 1)
+
+
+def pv_fragment_entries() -> torch.Tensor:
+    """(2, 4, 4) long: the entry x (0..31) of a thread's S accumulator (one
+    64-key tile of its two rows, ``sc`` in ``csrc/global_attention.cuh``) that
+    the SM_PV instance quantizes into byte b of A register r of k-step kk
+    (keys 32 kk .. 32 kk + 31 of the tile): register r holds row r & 1's keys
+    of the 8-key groups t and t + 1, t = 4 kk + 2 (r >> 1)."""
+    kk, r, b = torch.meshgrid(torch.arange(2), torch.arange(4), torch.arange(4), indexing="ij")
+    return 4 * (4 * kk + 2 * (r >> 1) + (b >> 1)) + 2 * (r & 1) + (b & 1)
 
 
 #: key columns of the window kernel's one S product (its wgmma N): a window's
@@ -568,6 +595,7 @@ def rel_attention_global(qkv, tables, *, kh: int, kw: int, heads: int,
         nkp = -(-n // 64) * 64                     # keys padded to the 64-key tile
         vq = torch.empty((s, heads, hd, nkp), dtype=torch.int8, device=dev)
         vmax = torch.empty((s, heads, hd), dtype=torch.float32, device=dev)
+        _check_global(kh, kw, vq=vq)
         code = _lib().k7_rel_attention_global_pv(
             ptr(qkv), ptr(tables), ptr(kq), ptr(kmax), ptr(vq), ptr(vmax), ptr(out), s, n,
             heads, hd, kh, kw, int(int8_qk), scale, 1.0 / scale, stream())

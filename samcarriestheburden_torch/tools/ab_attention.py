@@ -20,16 +20,20 @@ the order parent, change, change, parent: it builds that checkout's
 - on 2 grids of 64 x 64 tokens: K7, K7-int8, K7-pv and K7-int8pv
   (``rel_attention_global`` and its ``int8_qk``, ``int8_pv`` flags), K11
   (``rel_attention_headmajor_global``), K9 (``rel_attention_pre`` on the same
-  q, k, v split per head) and K16's v1 and v3 (``rel_attention_forms``).
+  q, k, v split per head) and K16's v1 and v3 (``rel_attention_forms``);
+  K7-pv and K7-int8pv again on the int8 p.v tool's own inputs
+  (``tools/bench_int8pv.inputs``: rel tables of std 0.1), whose softmax the
+  fixed probability scale flushes less.
 
 Each turn prints one JSON line: per kernel its milliseconds per call (CUDA
 events around back-to-back calls, which the host's launch path bounds for a
 small kernel), its device milliseconds per call (``torch.profiler``'s device
 time of every kernel the call launches, over 10 calls), a digest of its output (the sum of the output's raw 16-bit patterns, as int64),
-its max |output| (the scale of the kernels' tolerances) and the max
-|difference| from the first turn's output, which the first turn
-saves in the temporary directory (and the last turn removes).  Equal digests
-and a difference of 0 mean the two checkouts' kernels give the same bits.
+its max |output| (the scale of the kernels' tolerances), and the max
+|difference| from the first turn's output and the share of its entries
+equal to it bit for bit, which the first turn saves in the temporary
+directory (and the last turn removes).  Equal digests and a difference of 0
+mean the two checkouts' kernels give the same bits.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ sys.path.insert(0, sys.argv[1])
 import torch
 from torch.profiler import ProfilerActivity, profile
 from samcarriestheburden_torch.kernels import attention as A, build
+from samcarriestheburden_torch.tools import bench_int8pv
 PROFILED = 10
 build.build(["attention", "attention_forms"])
 dev = torch.device("cuda")
@@ -79,6 +84,7 @@ rel_h, rel_w = randn(heads, 2, side * side, side), randn(heads, 2, side * side, 
 x = qkv.view(2, side * side, heads, 3, hd).permute(3, 2, 0, 1, 4).reshape(3, -1, side * side, hd)
 q, k, v = (t.contiguous() for t in x)
 grid = dict(kh=side, kw=side, heads=heads, hd=hd)
+qkv_p, tab_p = bench_int8pv.inputs(heads, hd, side, 2, dev)
 cases = {
     "K5": lambda: A.rel_attention_window(qkv_w, tab_w, ws=14, heads=heads, hd=hd),
     "K5 200": lambda: A.rel_attention_window(qkv_t, tab_w, ws=14, heads=heads, hd=hd),
@@ -95,6 +101,9 @@ cases = {
     "K7-int8": lambda: A.rel_attention_global(qkv, tab, **grid, int8_qk=True),
     "K7-pv": lambda: A.rel_attention_global(qkv, tab, **grid, int8_pv=True),
     "K7-int8pv": lambda: A.rel_attention_global(qkv, tab, **grid, int8_qk=True, int8_pv=True),
+    "K7-pv tool": lambda: A.rel_attention_global(qkv_p, tab_p, **grid, int8_pv=True),
+    "K7-int8pv tool": lambda: A.rel_attention_global(qkv_p, tab_p, **grid, int8_qk=True,
+                                                     int8_pv=True),
     "K11": lambda: A.rel_attention_headmajor_global(qkv, rel_h, rel_w, **grid),
     "K9": lambda: A.rel_attention_pre(q, k, v, rel_h.reshape(-1, side * side, side),
                                       rel_w.reshape(-1, side * side, side), kh=side, kw=side),
@@ -107,7 +116,10 @@ for name, fn in cases.items():
     out = fn()
     torch.cuda.synchronize()
     outs[name] = out.cpu()
-    diff = None if first is None else (out.float().cpu() - first[name].float()).abs().max().item()
+    diff = equal = None
+    if first is not None:
+        diff = (out.float().cpu() - first[name].float()).abs().max().item()
+        equal = (out.cpu().view(torch.int16) == first[name].view(torch.int16)).float().mean().item()
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -124,7 +136,7 @@ for name, fn in cases.items():
     device_us = sum(e.self_device_time_total for e in prof.key_averages())
     res[name] = {"ms": start.elapsed_time(end) / iters, "device_ms": device_us / PROFILED / 1e3,
                  "digest": int(out.view(torch.int16).long().sum()), "max_diff": diff,
-                 "max_abs": out.float().abs().max().item()}
+                 "equal": equal, "max_abs": out.float().abs().max().item()}
 if first is None:
     torch.save(outs, saved)
 print(json.dumps(res))
@@ -156,8 +168,9 @@ def run_turns(script: str, parent: str, change: str, name: str, iters: int, *arg
 
 
 def run(parent: str, change: str = str(Path(__file__).resolve().parents[2])):
-    """``[(checkout, {kernel: {"ms", "device_ms", "digest", "max_diff", "max_abs"}}),
-    ...]`` for the four turns; raises without a card or when a turn fails."""
+    """``[(checkout, {kernel: {"ms", "device_ms", "digest", "max_diff", "equal",
+    "max_abs"}}), ...]`` for the four turns; raises without a card or when a
+    turn fails."""
     return run_turns(TURN, parent, change, "ab_attention", ITERS)
 
 

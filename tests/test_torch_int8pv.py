@@ -124,3 +124,80 @@ def test_the_wrappers_take_the_plain_version_on_cpu_without_counting(monkeypatch
     _ours(qkv, rel, False, True)
     _ours(qkv, rel, True, True)
     assert kernels.LAUNCHES["K7-pv"] == kernels.LAUNCHES["K7-int8pv"] == 0
+
+
+# The register fragments of wgmma (PTX ISA, "Register Fragments" of
+# wgmma.mma_async) that the global kernel's SM_PV instance reads, for the
+# thread at quad lane ``tig`` of its warp: entry x of the m64nN accumulator S
+# lies at row half (x >> 1) & 1 (row groupID + 8 half) and column 8 (x >> 2) +
+# 2 tig + (x & 1); byte b of register r of the 8-bit A operand of m64nNk32 at
+# row half r & 1 and column 16 (r >> 1) + 4 tig + b.
+def _s_entry(x, tig):
+    return (x >> 1) & 1, 8 * (x >> 2) + 2 * tig + (x & 1)
+
+
+def _a_byte(r, b, tig):
+    return r & 1, 16 * (r >> 1) + 4 * tig + b
+
+
+def test_vq_key_order_is_a_permutation_of_each_chunk():
+    order = attn_k.pv_key_order()
+    assert order.shape == (32,) and sorted(order.tolist()) == list(range(32))
+    entries = attn_k.pv_fragment_entries()
+    assert entries.shape == (2, 4, 4)
+    # each k-step's 16 bytes of each row half are 16 distinct entries of S, and
+    # the two k-steps take every entry once
+    for half in (0, 1):
+        taken = entries[:, half::2].flatten().tolist()
+        assert sorted(taken) == sorted(x for x in range(32) if (x >> 1) & 1 == half)
+
+
+def _keys_read(tig):
+    """For the thread at quad lane tig: per row half, the tile keys of the
+    probabilities it packs (accumulator order) and the vq positions its A
+    bytes meet (fragment order), both over the 64 keys of a tile."""
+    order, entries = attn_k.pv_key_order(), attn_k.pv_fragment_entries()
+    keys, pos = {0: [], 1: []}, {0: [], 1: []}
+    for kk in range(2):
+        for r in range(4):
+            for b in range(4):
+                half, key = _s_entry(int(entries[kk, r, b]), tig)
+                a_half, col = _a_byte(r, b, tig)
+                assert half == a_half
+                keys[half].append(key)
+                pos[half].append(32 * kk + col)
+    return keys, pos
+
+
+@pytest.mark.parametrize("n", [196, 4096])
+def test_fragment_order_against_vq_gives_the_exact_int8_product(n):
+    """A thread's int8 probabilities read in accumulator order, packed as the A
+    fragment, against vq's rows written in :func:`pv_key_order`: summed over
+    the quad's lanes, every row gets ``int8_pv_plain``'s exact integer product
+    (the keys past n read zeros on both sides)."""
+    rng = np.random.default_rng(5)
+    rows, hd = 16, HD
+    nkp = -(-n // 64) * 64
+    logits = (rng.standard_normal((1, rows, n)) * 2.5).astype(np.float32)
+    p = torch.softmax(_t(logits), -1)
+    v = _t((rng.standard_normal((1, n, hd)) * rng.uniform(0.1, 4.0, hd)).astype(np.float32))
+    sv = v.abs().amax(dim=1, keepdim=True) / 127.0 + 1e-12
+    vi = torch.round(v / sv)[0]                                   # (n, hd)
+    pi = torch.round(p * 127.0)[0]                                # (rows, n)
+    # vq as v_quant_kernel writes it: (hd, nkp), position kp of chunk c holds
+    # key 32 c + pv_key_order()[kp], zero past n
+    vpad = torch.cat([vi, torch.zeros(nkp - n, hd)])
+    key_of_pos = (torch.arange(nkp) // 32) * 32 + attn_k.pv_key_order().repeat(nkp // 32)
+    vq = vpad[key_of_pos].T.to(torch.int8)
+    ppad = torch.cat([pi, torch.zeros(rows, nkp - n)], 1)
+    tiles = torch.arange(nkp // 64)[:, None] * 64
+    got = torch.zeros(rows, hd, dtype=torch.float64)
+    for tig in range(4):
+        keys, pos = _keys_read(tig)
+        for row in range(rows):
+            half = row // 8
+            k_idx = (tiles + torch.tensor(keys[half])[None]).flatten()
+            v_idx = (tiles + torch.tensor(pos[half])[None]).flatten()
+            got[row] += ppad[row, k_idx].double() @ vq[:, v_idx].double().T
+    want = attn_k.int8_pv_plain(p, v)[0]
+    assert torch.equal((got.float() * (sv / 127.0))[0], want)

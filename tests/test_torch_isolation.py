@@ -140,9 +140,12 @@ def test_cuda_sources_are_registered_and_stand_alone():
     assert "gemm_s8_mainloop" not in (build.CSRC / "common.cuh").read_text()
     attention = (build.CSRC / "attention.cu").read_text()
     assert "k7_rel_attention_global_int8" in attention and "k7_rel_attention_global_pv" in attention
-    # the kernel template of K5-K7, K9-K11 and K16, shared with attention_forms.cu
+    # what the attention kernels share, with attention_forms.cu: the forms, the
+    # operands, the pre-passes (vq in the key order of the p.v A fragments);
+    # no attention kernel and no mma.sync product of its own
     rel = (build.CSRC / "rel_attention.cuh").read_text()
-    assert "mma_s8" in rel and "v_quant_kernel" in rel and "rel_attention_kernel" in rel
+    assert "v_quant_kernel" in rel and "pv_key" in rel and "SM_PV" in rel
+    assert "rel_attention_kernel" not in rel and "mma_s8" not in rel and "mma_bf16" not in rel
     for flag in ("SM_V1", "SM_V3", "SM_NOEXP", "REL_NONE", "REL_BASE0"):
         assert flag in rel
     forms = (build.CSRC / "attention_forms.cu").read_text()
@@ -155,7 +158,8 @@ def test_cuda_sources_are_registered_and_stand_alone():
     # K12's head sum: a slice per head, summed in head order; no atomics
     assert "atomicAdd" not in block and "for (int h = 0; h < heads; ++h)" in block
     common = (build.CSRC / "common.cuh").read_text()
-    assert "m16n8k32.row.col.s32.s8.s8.s32" in common
+    # the int8 mma.sync product is gone with its last user, K7's int8 p.v pair
+    assert "m16n8k32.row.col.s32.s8.s8.s32" not in common and "mma_s8" not in common
     assert "mma_bf16(acc" in common   # in K1's and K3's mainloop
 
 
@@ -166,15 +170,16 @@ def _c_function(text: str, name: str) -> str:
 
 
 def test_the_global_instances_run_the_hopper_kernel():
-    """K7, K7-int8, K9 on the global grid, K11 and K16's v1 and v3 on the grid
-    launch ``global_attention_kernel`` (``csrc/global_attention.cuh``: TMA,
-    mbarriers, wgmma for both products), never the 8-warp ``mma.sync``
-    instances of ``rel_attention.cuh``, which only K7's int8 p.v pair keeps."""
+    """K7, K7-int8, K7-pv, K7-int8pv, K9 on the global grid, K11 and K16's v1
+    and v3 on the grid launch ``global_attention_kernel``
+    (``csrc/global_attention.cuh``: TMA, mbarriers, wgmma for both products;
+    K7's int8 p.v pair as its SM_PV form, p.v on s8 wgmma with P in
+    registers); no ``mma.sync`` attention kernel is left."""
     header = (build.CSRC / "global_attention.cuh").read_text()
     assert '#include "hopper.cuh"' in header     # the mbarrier, TMA and wgmma helpers
     header += (build.CSRC / "hopper.cuh").read_text()
     for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier", "m64n64k32.s32.s8.s8",
-                "cuTensorMapEncodeTiled", "global_attention_kernel"):
+                "m64n80k32.s32.s8.s8", "cuTensorMapEncodeTiled", "global_attention_kernel"):
         assert ptx in header, ptx
     attention = (build.CSRC / "attention.cu").read_text()
     forms = (build.CSRC / "attention_forms.cu").read_text()
@@ -184,7 +189,17 @@ def test_the_global_instances_run_the_hopper_kernel():
                  "k9_rel_attention_pre", "k11_rel_attention_headmajor_global"):
         body = _c_function(attention, name)
         assert "dispatch<8" not in body and "dispatch_global<" in body, name
-    assert "dispatch_pv<" in _c_function(attention, "k7_rel_attention_global_pv")
+    pv = _c_function(attention, "k7_rel_attention_global_pv")
+    assert "dispatch_global<true, false, SM_PV>" in pv and "dispatch_global<false, false, SM_PV>" in pv
+    # every __global__ of the attention sources is the global or the window
+    # kernel, or a pre-pass of the int8 modes (column absmax, kq, vq)
+    kernels = set()
+    for name in ("rel_attention.cuh", "global_attention.cuh", "window_attention.cuh",
+                 "attention.cu", "attention_forms.cu"):
+        kernels.update(re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(",
+                                  (build.CSRC / name).read_text()))
+    assert kernels == {"global_attention_kernel", "window_attention_kernel", "k_absmax_kernel",
+                       "k_quant_kernel", "v_quant_kernel"}, kernels
     assert "dispatch<8" not in forms and "dispatch_form<8" not in forms
     assert "dispatch_global_form<SM_V1>" in forms and "dispatch_global_form<SM_V3>" in forms
     assert "dispatch_global<" in forms
@@ -194,9 +209,10 @@ def test_the_window_instances_run_the_hopper_kernel():
     """K5, K6, K9 on a window, K10 and K16's window forms launch
     ``window_attention_kernel`` (``csrc/window_attention.cuh``: persistent
     blocks, TMA, mbarriers, one wgmma product of 208 key columns with the rel
-    terms as the selector product), never ``rel_attention_kernel``, which keeps
-    only K7's int8 p.v pair: its window, rect, caller's-rel-terms and form
-    paths are gone."""
+    terms as the selector product); ``rel_attention.cuh`` keeps no attention
+    kernel of its own: the mma.sync flash loop, with its window, rect,
+    caller's-rel-terms and form paths, is gone (its last instances, K7's int8
+    p.v pair, run on the global kernel)."""
     header = (build.CSRC / "window_attention.cuh").read_text()
     for ptx in ("wgmma.mma_async", "m64n208k16", "tma_load(", "mbar_wait(", "encode_map(",
                 "window_attention_kernel", "persistent_grid"):
@@ -211,9 +227,14 @@ def test_the_window_instances_run_the_hopper_kernel():
         assert "dispatch_window<" in body and "dispatch<" not in body, name
     assert "dispatch_window<" in forms and "dispatch<" not in forms
     rel = (build.CSRC / "rel_attention.cuh").read_text()
-    kernel = rel[rel.index("rel_attention_kernel("):rel.index("struct Operands")]
-    for gone in ("RECT", "PRE", "SM_V1", "SM_V3", "SM_NOEXP", "REL_BASE0", "qkv_bias"):
-        assert gone not in kernel, gone
+    for path in build.CSRC.glob("*.cu*"):
+        assert "rel_attention_kernel" not in path.read_text(), path.name
+    # what is left between the forms and the operands is the pre-passes
+    passes = rel[rel.index("__host__ __device__ constexpr int padded_hd"):
+                 rel.index("struct Operands")]
+    for gone in ("RECT", "PRE", "SM_V1", "SM_V3", "SM_NOEXP", "REL_BASE0", "qkv_bias",
+                 "mma_", "mma.sync", "ldmatrix"):
+        assert gone not in passes, gone
 
 
 #: the C entry point of every counted kernel and the registered source that holds it
