@@ -9,7 +9,7 @@
    and prints each instance of the global attention kernel
    (``csrc/global_attention.cuh``) with its registers and spills as ``-Xptxas
    -v`` reports them and the shared memory its launch asks for; the GEMM
-   sources (``gemm``, ``quant``: the TMA + wgmma mainloop of
+   sources (``gemm``, ``quant``, ``mlp``: the TMA + wgmma mainloop of
    ``csrc/gemm_sm90.cuh``) and the global kernel's int8 p.v instances (K7-pv,
    K7-int8pv) must build without a spill and without ptxas serializing their
    wgmma (warning C7520), each of the GEMM kernels' SASS must hold HGMMA or
@@ -81,9 +81,10 @@
    each activation, both row quantizations, the fixed hidden scale), equal
    to K4 bit for bit at K4's settings, and stressed with planted faults;
    then the GEMM mainloop at ragged shapes (``GEMM_M`` x ``GEMM_N``, K through
-   ``GEMM_K``; K4 on ``GEMM_K4``): K14's three modes (int8 equal), K2 and K4
-   against their plain versions, each with the planted faults a mainloop or
-   an epilogue could make (the last k-tile dropped, a column tile shifted);
+   ``GEMM_K``; K3 and K4 on ``GEMM_K4``): K14's three modes (int8 equal), K2,
+   K4, K1 and K3, against their plain versions, each
+   with the planted faults a mainloop or an epilogue could make (the last
+   k-tile dropped, a column tile shifted);
 4g. drives the port's attention experiment tools at their shapes
    (``tools/exp_attn.run``, ``exp_attn2.run``: 16 heads, 200 windows of 14 x 14
    tokens in 200 slots, 8 grids of 64 x 64), counted: every experiment makes
@@ -114,14 +115,15 @@
    writing into an ``out=`` view of a larger buffer as the path has them do;
    and every call shape of the v1, v2 and v3 runs; K12 also against itself,
    three calls giving the same bits; K2 and K4 with ``torch._int_mm``'s time
-   for their products alone beside them)
+   for their products alone beside them, K1 and K3 with ``torch.matmul``'s)
    and on stressed inputs of the same shapes (with planted faults that the
    check must be able to see), the whole
    kernel-path encoder against the plain-path encoder (bf16 and int8, flat
    and compact), with the random rel tables as they are and scaled up; K7-pv
    and K7-int8pv on global block 7's qkv and stressed (per output channel,
    with four planted quantization faults); K13 bit for bit against x * 2.0,
-   with ``FlopCounterMode`` counting its declared cost for the launch; K6
+   with ``FlopCounterMode`` counting its declared cost for the launch, and
+   ``kernels.stream()`` the current stream's handle; K6
    also against K5 on the materialised padded windows, and enhance on the
    card against enhance on the CPU and against itself image by image;
 6. checks the outputs: finite and of the expected shape, the decode against
@@ -268,23 +270,27 @@ FAULT_MARGIN = 4.0
 # six times that), bf16 -> bf16 3.76e-3 (0.9993 of the entries equal; one step
 # in the largest binade is the tolerance).
 K14_TOL = {"bf16->fp32": 1e-5, "bf16->bf16": 2.0 ** -7}
-# The TMA + wgmma mainloop (csrc/gemm_sm90.cuh) of K14, K2 and K4 at ragged
-# shapes: every M of GEMM_M with every N of GEMM_N, K taking each value of
-# GEMM_K in turn (K14, K2); K4 on GEMM_K4 (rows, E, hidden).  Tiles are 128 rows
-# by 256 columns and a stage is 128 bytes of the contraction, so these hold the
-# row tails (19600 = 153 x 128 + 16, 8416 = 65 x 128 + 96), the column tails
-# (8, 24, and 1280 = 5 x 256), and K below one stage (16, 48) and not a multiple
-# of it in bf16 (48).  Each case is held to K14_TOL (the int8 product equal) or
-# K2's and K4's KERNEL_TOL, and each has planted faults that the check must see
+# The TMA + wgmma mainloop (csrc/gemm_sm90.cuh) of K14, K2, K1, K3 and K4 at
+# ragged shapes: every M of GEMM_M with every N of GEMM_N, K taking each value
+# of GEMM_K in turn (K14, K2, K1); K3 and K4 on GEMM_K4 (rows, E, hidden).
+# Tiles are 128 rows by 128 or 256 columns and a stage is 128 bytes of the
+# contraction, so these hold the row tails (19600 = 153 x 128 + 16, 8416 = 65 x
+# 128 + 96), the column tails (8, 24, and 1280 = 5 x 256), and K below one
+# stage (16, 48) and not a multiple of it in bf16 (48).  Each case is held to
+# K14_TOL (the int8 product equal) or its kernel's KERNEL_TOL, and each has planted faults that the check must see
 # by FAULT_MARGIN x the tolerance (the int8 product: by any difference): the last
 # k-tile of the contraction dropped, and where there is more than one column tile
-# the second one given the first one's columns.
+# the second one given the first one's columns (at the width of the tile that
+# writes the output: GEMM_BN, K1's MLP_BN).
 GEMM_M = (1, 16, 8416, 19600)
 GEMM_N = (8, 24, 1280, 3840, 5120)
 GEMM_K = (16, 48, 1280, 5120)
 GEMM_K4 = ((1, 16, 1280), (16, 48, 3840), (8416, 1280, 5120), (19600, 5120, 1280),
            (8416, 48, 1280))
 GEMM_BN = 256
+# K1's qkv product and K3's lin1 run on 128-wide tiles (csrc/mlp.cu), K3's
+# lin2, which writes K3's output, on GEMM_BN
+MLP_BN = 128
 # K15, K4 with the tools' flags, shares K4's arithmetic and is held to K4's
 # tolerances on the tools' inputs (KERNEL_TOL) and stressed (STRESS_TOL); at
 # K4's settings it must equal K4 bit for bit.  Its stressed inputs are K4's
@@ -385,8 +391,11 @@ BF16_VS_FP32_AGREE = 0.997
 # finite value, flops_convention.ok and K13 launched (its full size runs on
 # its own: ``python -m samcarriestheburden_torch.bench``)
 BENCH_ARGS = ["--batch", "2", "--iters", "1", "--enhance_batch", "4"]
-# K13's declared cost (bench.py:104) and the probe's shape there
+# K13's declared cost (bench.py:104) and the probe's shape there; its time is
+# the host's launch path, timed over K13_TIMED = (calls, warm-ups) back to back
+# (as are its plain version and x * 2.0), since ten calls spread widely
 K13_DECLARED, K13_SHAPE = 1234567, (128, 128)
+K13_TIMED = (200, 20)
 
 # the enhance path (bench.py:223, 340-411): 16 images per enhance_batch, the
 # U-Net grid, and the sizes bench.py gives its seeded embeddings
@@ -1148,7 +1157,7 @@ PV_INSTANCE = r"global_attention_kernelILi\d+ELb[01]ELb0ELi5E"
 
 def phase_build(build) -> dict:
     """Every source built at once, ``-Xptxas -v``'s report printed; the GEMM
-    sources (``gemm``, ``quant``) and the int8 p.v instances of the global
+    sources (``gemm``, ``quant``, ``mlp``) and the int8 p.v instances of the global
     attention kernel (K7-pv, K7-int8pv: ``global_attention_kernel`` with
     SM_PV, in ``attention``) must build with no spill and without ptxas
     serializing their wgmma (warning C7520); every GEMM kernel's SASS must
@@ -1164,7 +1173,7 @@ def phase_build(build) -> dict:
             if "C7520" in line or ("C751" not in line and any(
                     word in line for word in ("entry function", "registers", "spill"))):
                 log(f"  ptxas {name}: {line.strip()}")
-    for name in ("gemm", "quant"):
+    for name in ("gemm", "quant", "mlp"):
         lines = logs[name].splitlines()
         check(not any("C7520" in line for line in lines),
               f"ptxas serializes the wgmma of {name}.cu (C7520)")
@@ -1182,7 +1191,8 @@ def phase_build(build) -> dict:
                       for line in lines), f"the p.v instance {f} spills")
     # the SASS of every GEMM kernel holds Hopper's wgmma: HGMMA (bf16), IGMMA (int8)
     cuobjdump = str(Path(build.nvcc()).with_name("cuobjdump"))
-    for name, kernel in (("gemm", "dot_kernel"), ("quant", "gemm_s8_kernel")):
+    for name, kernel in (("gemm", "dot_kernel"), ("quant", "gemm_s8_kernel"),
+                         ("mlp", "gemm_kernel")):
         sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(name))],
                               capture_output=True, text=True, timeout=300).stdout
         functions = [f for f in sass.split("Function : ")[1:] if kernel in f.split("\n")[0]]
@@ -1839,12 +1849,22 @@ def phase_k13(torch, dev, launches: int) -> dict:
         f"to x * 2.0: {same}; FlopCounterMode counted {fc.get_total_flops()} for the launch "
         f"(declared {K13_DECLARED})")
     check(all(same), "K13 differs from x * 2.0")
-    ms = card_ms(torch, lambda: k13.cost_probe(x, K13_DECLARED))
-    plain_ms = card_ms(torch, lambda: k13.cost_probe_plain(x))
-    library_ms = card_ms(torch, lambda: x * 2.0)
+    # every wrapper launches on kernels.stream(): the current stream's raw handle
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        on_side = kernels.stream() == side.cuda_stream
+    on_current = kernels.stream() == torch.cuda.current_stream().cuda_stream
+    log(f"kernels.stream() is the current stream: {on_current}, and inside a side stream's "
+        f"context that stream: {on_side}")
+    check(on_current and on_side, "kernels.stream() is not PyTorch's current stream")
+    # host-bound: K13_TIMED back-to-back calls each, so that a launch's spread averages
+    # out; the call is the bench's, through the operator
+    ms = card_ms(torch, lambda: k13.cost_probe(x, K13_DECLARED), *K13_TIMED)
+    plain_ms = card_ms(torch, lambda: k13.cost_probe_plain(x), *K13_TIMED)
+    library_ms = card_ms(torch, lambda: x * 2.0, *K13_TIMED)
     bound_ms, bound_by = bound(float(x.numel()), 4.0 * x.numel())
-    log(f"K13 on {K13_SHAPE}: {ms:.4f} ms (plain {plain_ms:.4f}, library x * 2.0 {library_ms:.4f}, "
-        f"bound {bound_ms:.6f} by {bound_by}): a launch, not the bound, sets its time")
+    log(f"K13 on {K13_SHAPE}: {ms:.4f} ms (plain {plain_ms:.4f}, library x * 2.0 {library_ms:.4f}, bound {bound_ms:.6f} by {bound_by}; "
+        f"{K13_TIMED[0]} calls each): a launch, not the bound, sets its time")
     return {"name": "K13", "path": "bench", "shape": list(K13_SHAPE), "route": "cuda",
             "source": KERNELS["K13"][1], "replaces": KERNELS["K13"][2], "launches": launches,
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2083,20 +2103,21 @@ def last_ktile_dropped(w, stage_bytes: int = 128):
     return w
 
 
-def second_tile_shifted(out):
+def second_tile_shifted(out, bn: int = GEMM_BN):
     """A planted fault of the GEMM epilogue: the output's second column tile
-    holding the first one's columns."""
+    (of ``bn`` columns) holding the first one's columns."""
     out = out.clone()
-    n = min(2 * GEMM_BN, out.shape[1]) - GEMM_BN
-    out[:, GEMM_BN:GEMM_BN + n] = out[:, :n]
+    n = min(2 * bn, out.shape[1]) - bn
+    out[:, bn:bn + n] = out[:, :n]
     return out
 
 
 def phase_gemm_shapes(torch, gen, dev) -> None:
-    """K14 in its three modes, K2 and K4 at the ragged shapes of GEMM_M,
-    GEMM_N, GEMM_K (K4: GEMM_K4) against their plain versions, each with its
-    planted faults (``last_ktile_dropped``, ``second_tile_shifted``)."""
+    """K14 in its three modes, K2 and K1 at the ragged shapes of GEMM_M,
+    GEMM_N, GEMM_K, K3 and K4 at GEMM_K4, against their plain versions, each with its planted faults
+    (``last_ktile_dropped``, ``second_tile_shifted``)."""
     from samcarriestheburden_torch.kernels import gemm as gemm_k
+    from samcarriestheburden_torch.kernels import mlp as mlp_k
     from samcarriestheburden_torch.kernels import quant as quant_k
 
     def randn(*shape, std=1.0, mean=0.0):
@@ -2145,6 +2166,27 @@ def phase_gemm_shapes(torch, gen, dev) -> None:
             faults["second column tile shifted"] = second_tile_shifted(ref)
         held(f"K2 at ({m}, {n}, {k})", quant_k.ln_masked_linear_int8(*args), ref,
              KERNEL_TOL["K2"], faults)
+        w16 = randn(n, k, std=k ** -0.5).bfloat16()
+        args = [x, mask, args[2], args[3], w16, randn(n)]
+        ref = mlp_k.ln_masked_linear_plain(*args)
+        faults = {"last k-tile dropped": mlp_k.ln_masked_linear_plain(
+            *args[:4], last_ktile_dropped(w16), args[5])}
+        if n > MLP_BN:
+            faults["second column tile shifted"] = second_tile_shifted(ref, MLP_BN)
+        held(f"K1 at ({m}, {n}, {k})", mlp_k.ln_masked_linear(*args), ref, KERNEL_TOL["K1"],
+             faults)
+    for t, e, h in GEMM_K4:
+        w1, w2 = randn(h, e, std=e ** -0.5).bfloat16(), randn(e, h, std=h ** -0.5).bfloat16()
+        args = [randn(t, e).bfloat16(), randn(e, std=0.5, mean=1.0), randn(e, std=0.5), w1,
+                randn(h, std=0.5), w2, randn(e, std=0.5)]
+        add = randn(t, e, std=0.5).bfloat16()
+        ref = mlp_k.ln_mlp_residual_plain(*args, add=add)
+        faults = {"lin2's last k-tile dropped": mlp_k.ln_mlp_residual_plain(
+            *args[:5], last_ktile_dropped(w2), args[6], add=add)}
+        if e > GEMM_BN:
+            faults["second column tile shifted"] = second_tile_shifted(ref)
+        held(f"K3 at ({t}, {e}, {h})", mlp_k.ln_mlp_residual(*args, add=add), ref,
+             KERNEL_TOL["K3"], faults)
     for t, e, h in GEMM_K4:
         w1q, s1 = quant_k.quantize_weight(randn(h, e))
         w2q, s2 = quant_k.quantize_weight(randn(e, h))
@@ -2159,7 +2201,7 @@ def phase_gemm_shapes(torch, gen, dev) -> None:
         held(f"K4 at ({t}, {e}, {h})", quant_k.ln_mlp_residual_int8(*args, add=add), ref,
              KERNEL_TOL["K4"], faults)
     torch.cuda.synchronize()
-    log(f"GEMM mainloop at {len(shapes)} ragged shapes (K4 at {len(GEMM_K4)}) in "
+    log(f"GEMM mainloop at {len(shapes)} ragged shapes (K3 and K4 at {len(GEMM_K4)}) in "
         f"{time.perf_counter() - t0:.1f} s; the largest error x max |plain| and the smallest "
         "planted-fault miss x the tolerance, by kernel: "
         + ", ".join(f"{k} {e:.3g} / {f:.4g}" for k, (e, f) in worst.items())
@@ -3113,6 +3155,13 @@ def phase_kernel(torch, attn_k, key: str, kern, plain, args, kw, gen,
                for k, n in dims]
         int_mm_ms = card_ms(torch, lambda: [torch._int_mm(a, w.t()) for a, w in ops])
         del ops
+    matmul_ms = None
+    if name in ("K1", "K3"):    # the library's bf16 products alone at the kernel's GEMM shapes
+        t, e = args[0].shape
+        ws = [args[4]] if name == "K1" else [args[3], args[5]]
+        ops = [(torch.randn((t, w.shape[1]), device=args[0].device).bfloat16(), w) for w in ws]
+        matmul_ms = card_ms(torch, lambda: [torch.matmul(a, w.t()) for a, w in ops])
+        del ops
     flops, int8_ops, nbytes = kernel_work(name, args, kw)
     bound_ms, bound_by = bound(flops, nbytes, int8_ops)
     shape = tuple(args[0].shape)
@@ -3121,6 +3170,7 @@ def phase_kernel(torch, attn_k, key: str, kern, plain, args, kw, gen,
         f"(tol {KERNEL_TOL[name]} x max |plain|), {ms:.4f} ms (plain {plain_ms:.4f}, library "
         f"{library_ms}, bound {bound_ms:.4f} by {bound_by}"
         + (f", torch._int_mm's products alone {int_mm_ms:.4f}" if int_mm_ms else "")
+        + (f", torch.matmul's products alone {matmul_ms:.4f}" if matmul_ms else "")
         + f"); {(flops + int8_ops) / (ms * 1e-3) / 1e12:.1f} Tops/s")
     tol = KERNEL_TOL[name] * max(ref, 1e-6)
     if name in PV_KERNELS:
@@ -3146,7 +3196,8 @@ def phase_kernel(torch, attn_k, key: str, kern, plain, args, kw, gen,
         phase_stress(torch, key, kern, plain, args, kw, gen)
     return {"shape": list(shape), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-            **({"int_mm_ms": int_mm_ms} if int_mm_ms else {})}
+            **({"int_mm_ms": int_mm_ms} if int_mm_ms else {}),
+            **({"matmul_ms": matmul_ms} if matmul_ms else {})}
 
 
 def phase_medsam(torch, cfg, model, make_serving_encoder, KERNEL_OPS, imgs) -> None:

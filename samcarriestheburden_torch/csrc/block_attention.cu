@@ -26,8 +26,8 @@
 // 16w..16w+15 of the window throughout, so q fragments, the online softmax and
 // the attention output stay in its registers.
 //   A. three products (q, k, v) of 208 x HD x E: xn and the head's weight rows
-//      stream through a three-stage cp.async ring in 32-wide k-tiles, as in
-//      csrc/mlp.cu (a window's 490 KB of tokens fit no shared memory); the
+//      stream through a three-stage cp.async ring in 32-wide k-tiles (a
+//      window's 490 KB of tokens fit no shared memory); the
 //      results go to shared memory in bf16.  xn is read once per product from
 //      L2; a single pass over all 3 * HD columns would need 120 accumulator
 //      registers per thread at 416 threads.

@@ -2,9 +2,10 @@
 // (sm_90a): TMA, mbarriers and wgmma.  One block of 256 threads computes the
 // 128 x BN tile at (blockIdx.y, blockIdx.x) of A[M, K] @ W[N, K]^T into
 // registers, A and W both K-contiguous, and leaves the epilogue to its kernel:
-// K14 (gemm.cu: 128 x 256 tiles, one block per SM) and K2, K4 and K15's GEMMs
+// K14 (gemm.cu: 128 x 256 tiles, one block per SM), K2, K4 and K15's GEMMs
 // (quant.cu: 128 x 128 tiles, two blocks per SM, so that one block's
-// epilogue runs beside the other's products).
+// epilogue runs beside the other's products) and K1 and K3's bf16 GEMMs
+// (mlp.cu: 128 x 128 tiles for the qkv product and lin1, 128 x 256 for lin2).
 //
 //   * A stage is one 128-byte swizzle atom of the contraction per row (64 bf16
 //     or 128 int8): a (128 x 128-byte) box of A and a (BN x 128-byte) box of
@@ -87,6 +88,30 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16(float (&d)[128], uint64_t 
         "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
         "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t da, uint64_t db,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -184,10 +209,11 @@ struct GemmSm90 {
 template <class T, int BN>
 __device__ __forceinline__ void wgmma_stage(typename Sm90Elem<T>::Acc (&acc)[BN / 2], uint64_t da,
                                             uint64_t db) {
-  static_assert(sizeof(T) == 1 || BN == 256, "bf16 tiles are 128 x 256 (K14's)");
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    if constexpr (sizeof(T) == 2) wgmma_m64n256k16_bf16(acc, da + 2 * k, db + 2 * k, 1);
+    if constexpr (sizeof(T) == 2 && BN == 256)
+      wgmma_m64n256k16_bf16(acc, da + 2 * k, db + 2 * k, 1);
+    else if constexpr (sizeof(T) == 2) wgmma_m64n128k16_bf16(acc, da + 2 * k, db + 2 * k, 1);
     else if constexpr (BN == 256) wgmma_m64n256k32_s8(acc, da + 2 * k, db + 2 * k, 1);
     else wgmma_m64n128k32_s8(acc, da + 2 * k, db + 2 * k, 1);
   }

@@ -44,8 +44,10 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def stream() -> int:
-    """PyTorch's current CUDA stream, where every kernel launches."""
-    return torch.cuda.current_stream().cuda_stream
+    """PyTorch's current CUDA stream on the current device, where every kernel
+    launches: its raw handle, as ``torch.cuda.current_stream().cuda_stream``
+    gives it, without building a ``Stream`` object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def raise_on_error(kernel: str, code: int) -> None:

@@ -9,7 +9,9 @@ Numerics of both versions, as the JAX kernels: LayerNorm statistics in fp32,
 the normalised rows rounded to x's dtype before the product, fp32
 accumulation, fp32 biases, K3's hidden rounded to x's dtype before lin2.
 Weights are (out, in) like ``nn.Linear``.  The CUDA kernels
-(``csrc/mlp.cu``) take bf16 activations and weights.
+(``csrc/mlp.cu``: a LayerNorm row pass, then each product on the TMA + wgmma
+mainloop of ``csrc/gemm_sm90.cuh``) take bf16 activations and weights; TMA
+needs 16-byte row pitches, so E, O and M must be multiples of 8.
 """
 
 from __future__ import annotations
@@ -36,6 +38,18 @@ def _lib():
     return lib
 
 
+def check_tma_shapes(kernel: str, t: int, **widths: int) -> None:
+    """Raise unless the kernel's GEMMs can take these shapes through TMA: at
+    least one row, and every width (the contraction and the outputs) a
+    positive multiple of 8 bf16, TMA's 16-byte row pitch."""
+    if t < 1:
+        raise ValueError(f"{kernel} needs at least one row, got {t}")
+    bad = {k: v for k, v in widths.items() if v < 8 or v % 8}
+    if bad:
+        raise ValueError(f"{kernel}: TMA needs 16-byte row pitches, so every width must be a "
+                         f"positive multiple of 8; got {bad}")
+
+
 # ---------------------------------------------------------------------------
 # K1
 # ---------------------------------------------------------------------------
@@ -56,6 +70,7 @@ def ln_masked_linear(x, mask, ln_weight, ln_bias, w, b, eps: float = 1e-6):
         return ln_masked_linear_plain(x, mask, ln_weight, ln_bias, w, b, eps)
     t, e = x.shape
     o = w.shape[0]
+    check_tma_shapes("K1", t, E=e, O=o)
     bf = torch.bfloat16
     check_cuda("x", x, (t, e), bf)
     if mask is not None:
@@ -64,8 +79,6 @@ def ln_masked_linear(x, mask, ln_weight, ln_bias, w, b, eps: float = 1e-6):
     check_cuda("ln_bias", ln_bias, (e,), torch.float32)
     check_cuda("w", w, (o, e), bf)
     check_cuda("b", b, (o,), torch.float32)
-    if e % 8 or o % 8:
-        raise ValueError(f"K1 needs E and O divisible by 8, got {e}, {o}")
     xn = torch.empty_like(x)
     out = torch.empty((t, o), dtype=bf, device=x.device)
     code = _lib().k1_ln_masked_linear(
@@ -100,6 +113,7 @@ def ln_mlp_residual(x, ln_weight, ln_bias, w1, b1, w2, b2, add=None,
                                      add, eps)
     t, e = x.shape
     m = w1.shape[0]
+    check_tma_shapes("K3", t, E=e, M=m)
     bf = torch.bfloat16
     check_cuda("x", x, (t, e), bf)
     if add is not None:
@@ -110,8 +124,6 @@ def ln_mlp_residual(x, ln_weight, ln_bias, w1, b1, w2, b2, add=None,
     check_cuda("b1", b1, (m,), torch.float32)
     check_cuda("w2", w2, (e, m), bf)
     check_cuda("b2", b2, (e,), torch.float32)
-    if e % 8 or m % 8:
-        raise ValueError(f"K3 needs E and M divisible by 8, got {e}, {m}")
     xn = torch.empty_like(x)
     hidden = torch.empty((t, m), dtype=bf, device=x.device)
     out = torch.empty_like(x)

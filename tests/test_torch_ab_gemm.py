@@ -5,9 +5,10 @@ encoder profile tool (``tools/profile_encoder.py``) and K12's head-sum scratch
 The tool's kernels run only on the card; here its input builder, its cases
 (each kernel's wrapper, which takes its plain version for a CPU tensor) and
 its digest are held at a small size: the inputs are the same for the same
-seed, every case is the plain function on those inputs, the int8 product's
-digest is the digest of the exact integer product, and a one-step change of
-one output changes the digest.  K12's scratch is sized and strided as the
+seed, every case is the plain function on those inputs (K13 ``x * 2.0`` bit
+for bit), the int8 product's digest is
+the digest of the exact integer product, and a one-step change of one
+output changes the digest.  K12's scratch is sized and strided as the
 kernel writes it, and its head slices summed in head order, as the kernel's
 rounding pass sums them, give the plain version's output bit for bit (fp32,
 vit_t's widths).
@@ -26,10 +27,11 @@ from samcarriestheburden_torch.tools import ab_attention, ab_gemm, profile_encod
 torch.set_num_threads(1)
 
 SMALL = dict(t=40, e=64, m=256, o=48, rows=(16, 40))
+MLP_ROWS = (24, 40)
 
 
 def small_cases(v):
-    return ab_gemm.cases(v, t=SMALL["t"], rows=SMALL["rows"])
+    return ab_gemm.cases(v, t=SMALL["t"], rows=SMALL["rows"], mlp_rows=MLP_ROWS)
 
 
 def test_the_inputs_are_the_seeds():
@@ -61,9 +63,11 @@ def test_the_weights_are_quantized_as_the_port_quantizes():
 def test_every_case_is_its_plain_version_on_the_cpu():
     v = ab_gemm.inputs("cpu", **SMALL)
     calls = small_cases(v)
+    mlp_cases = [f"K{k} {r}" for r in MLP_ROWS for k in (1, 3)]
     assert list(calls) == ["K14 bf16->fp32", "K14 bf16->bf16", "K14 int8->int32",
                            "K2 16", "K4 16", "K2 40", "K4 40", "K15 2 chunks erf div",
-                           "K15 8 chunks erf div", "K15 8 chunks sigmoid recip"]
+                           "K15 8 chunks erf div", "K15 8 chunks sigmoid recip",
+                           *mlp_cases, "K13 128x128"]
     mlp = (v["g"], v["b"], *v["w1"], v["b1"], *v["w2"], v["b2"])
     want = {
         "K14 bf16->fp32": gemm_k.dot_plain(v["a"], v["w"], torch.float32),
@@ -78,6 +82,29 @@ def test_every_case_is_its_plain_version_on_the_cpu():
         out = calls[name]()
         assert out.dtype == ref.dtype and torch.equal(out, ref), name
     assert calls["K2 40"]().shape == (40, 48) and calls["K4 16"]().shape == (16, 64)
+
+
+def test_the_k1_k3_and_k13_cases_are_their_plain_versions_on_the_cpu():
+    """K1 (with the pad mask) and K3 (with ``add``) on the first rows of the
+    seeded inputs, and K13 on its (128, 128) probe: each the plain version on those inputs, bit for bit
+    (K13: ``x * 2.0``); K1 and K3 on the row counts asked for."""
+    from samcarriestheburden_torch.kernels import mlp as mlp_k
+
+    v = ab_gemm.inputs("cpu", **SMALL)
+    assert v["wqkv_bf"].shape == (48, 64) and v["wqkv_bf"].dtype == torch.bfloat16
+    assert v["w1_bf"].shape == (256, 64) and v["w2_bf"].shape == (64, 256)
+    assert v["probe"].shape == ab_gemm.K13_SHAPE and v["probe"].dtype == torch.bfloat16
+    calls = small_cases(v)
+    bf = (v["g"], v["b"], v["w1_bf"], v["b1"], v["w2_bf"], v["b2"])
+    for r in MLP_ROWS:
+        k1 = mlp_k.ln_masked_linear_plain(v["x"][:r], v["mask"][:r], v["g"], v["b"],
+                                          v["wqkv_bf"], v["bqkv"])
+        k3 = mlp_k.ln_mlp_residual_plain(v["x"][:r], *bf, add=v["add"][:r])
+        assert k1.shape == (r, 48) and k3.shape == (r, 64) and k3.dtype == torch.bfloat16
+        assert torch.equal(calls[f"K1 {r}"](), k1), r
+        assert torch.equal(calls[f"K3 {r}"](), k3), r
+    probe = calls["K13 128x128"]()
+    assert torch.equal(probe.view(torch.int16), (v["probe"] * 2.0).view(torch.int16))
 
 
 def test_the_digest_is_the_sum_of_the_raw_bits():

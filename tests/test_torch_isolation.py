@@ -132,11 +132,14 @@ def test_cuda_sources_are_registered_and_stand_alone():
         assert symbol in quant
     gemm = (build.CSRC / "gemm.cu").read_text()
     assert "k14_dot" in gemm and "gemm_sm90_mainloop" in gemm
-    # K2, K4, K14 and K15 on the TMA + wgmma mainloop, K1 and K3 on mma.sync;
-    # the int8 mma.sync mainloop is gone
+    # every GEMM (K1-K4, K14, K15) on the TMA + wgmma mainloop, bf16 at both
+    # tile widths; the mma.sync mainloops (int8, then K1 and K3's bf16) are gone
     sm90 = (build.CSRC / "gemm_sm90.cuh").read_text()
     assert "wgmma.mma_async" in sm90 and "tma_load_2d" in sm90
-    assert "gemm_bf16_mainloop" in (build.CSRC / "mlp.cu").read_text()
+    assert "m64n256k16.f32.bf16.bf16" in sm90 and "m64n128k16.f32.bf16.bf16" in sm90
+    mlp = (build.CSRC / "mlp.cu").read_text()
+    assert '#include "gemm_sm90.cuh"' in mlp and "gemm_sm90_mainloop" in mlp
+    assert "gemm_bf16" not in mlp and "mma_bf16" not in mlp
     assert "gemm_s8_mainloop" not in (build.CSRC / "common.cuh").read_text()
     attention = (build.CSRC / "attention.cu").read_text()
     assert "k7_rel_attention_global_int8" in attention and "k7_rel_attention_global_pv" in attention
@@ -160,7 +163,14 @@ def test_cuda_sources_are_registered_and_stand_alone():
     common = (build.CSRC / "common.cuh").read_text()
     # the int8 mma.sync product is gone with its last user, K7's int8 p.v pair
     assert "m16n8k32.row.col.s32.s8.s8.s32" not in common and "mma_s8" not in common
-    assert "mma_bf16(acc" in common   # in K1's and K3's mainloop
+    # the bf16 mma.sync GEMM mainloop is gone with its last users, K1 and K3;
+    # the m16n8k16 product stays for K12's products and the global kernel's
+    # small rel-term product
+    assert "gemm_bf16_mainloop" not in common and "namespace gemm_bf16" not in common
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in common
+    users = sorted(p.name for p in build.CSRC.glob("*.cu*")
+                   if p.name != "common.cuh" and "mma_bf16(" in p.read_text())
+    assert users == ["block_attention.cu", "global_attention.cuh"], users
 
 
 def _c_function(text: str, name: str) -> str:
