@@ -125,7 +125,14 @@
    with ``FlopCounterMode`` counting its declared cost for the launch, and
    ``kernels.stream()`` the current stream's handle; K6
    also against K5 on the materialised padded windows, and enhance on the
-   card against enhance on the CPU and against itself image by image;
+   card against enhance on the CPU and against itself image by image; K8's
+   register kernel on the path's recorded maps and on stressed maps of
+   their shape, truncated at 37 steps and to the fixpoint, checked every 16
+   and every 48 steps, its shared-memory kernel on stressed maps of
+   (512, 448), labels, flags and steps bit for bit, with planted faults of
+   the steps (4-connected, one step more, Gauss-Seidel) and of the register
+   kernel's blocking at its own geometry (``k8_blocked``: a halo one row
+   short, barrier groups across chunk ends, the changed bit over the halo);
 6. checks the outputs: finite and of the expected shape, the decode against
    the same decode on the CPU, and the kernels against the reference
    golden ``tests/golden/image_encoder.npz`` at the tiny config;
@@ -404,8 +411,13 @@ ENH_ORIGINAL_HW = (2304, 1344)   # the grid x 6
 ENH_INPUT_HW = (1024, 597)       # its resize-longest-side to 1024
 TWO_ROUNDS = [["box"], ["pos_points", "neg_points"]]
 # K8 on stressed maps runs truncated at a cap that is not a multiple of the
-# check interval (16), and to the fixpoint
+# check interval (16), and to the fixpoint, at the path's check interval and
+# at one that holds several of the register kernel's barrier groups
 K8_TRUNCATED = 37
+K8_CHECK_EVERY = (16, 48)
+# a map the register kernel does not hold (wider than 256 columns): the
+# shared-memory kernel takes it
+K8_SHARED_HW = (512, 448)
 # H100 SXM: 132 SMs of 64 INT32 lanes each (NVIDIA Hopper white paper)
 H100_SMS, INT32_LANES = 132, 64
 
@@ -1419,10 +1431,91 @@ def k8_equal(torch, got, want) -> bool:
     return all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+def k8_blocked(torch, kccl, maps, cap: int, check_every: int, geo, *, halo=None,
+               cross_chunks=False, changed_over_halo=False):
+    """A model of ``csrc/ccl.cu:ccl_reg_kernel``'s temporal blocking in plain
+    PyTorch: each map cut into ``geo.cluster`` bands of R = ceil(H / cluster)
+    rows; at every cluster barrier each band copies ``halo`` (default
+    ``geo.halo``) rows of its neighbours' own rows above and below (0 beyond
+    the map) and then runs a group of ``kccl.barrier_groups`` steps on its
+    extended rows alone (nothing beyond them); a chunk's "changed" bit is
+    taken over the bands' own rows.  Returns (labels, converged, steps), the
+    plain version's result where ``halo >= geo.depth``.  The keywords plant
+    the faults a blocked kernel can have: a halo one row short, groups of
+    ``geo.depth`` steps that cross a chunk's end (a chunk of 5 runs 16), and
+    the "changed" bit taken over the halo rows in place of the band's own
+    rows.  (Taken over both, the bit cannot change a result: a halo row
+    changes in a chunk only if the map is not at its fixpoint, and then some
+    band's own rows change in that chunk's first step; the exit is a
+    cluster-wide OR.)"""
+    F = torch.nn.functional
+    m, h, w = maps.shape
+    cs, k = geo.cluster, geo.halo if halo is None else halo
+    r = -(-h // cs)
+    pad = cs * r - h
+    fg = maps > 0.5
+    labels = torch.arange(1, h * w + 1, device=maps.device, dtype=torch.float32).view(h, w) * fg
+    rows = (torch.arange(cs)[:, None] * r + torch.arange(r + 2 * k)[None]).to(maps.device)
+    gate = F.pad(fg.float(), (0, 0, k, pad + k))[:, rows]            # (m, cs, r + 2k, w)
+    done = torch.zeros(m, dtype=torch.bool, device=maps.device)
+    steps = torch.zeros(m, dtype=torch.int32, device=maps.device)
+    i = 0
+    while i < cap and not bool(done.all()):
+        n = min(check_every, cap - i)
+        groups = [geo.depth] * -(-n // geo.depth) if cross_chunks else \
+            kccl.barrier_groups(n, n, geo.depth)[0]
+        act = (~done).nonzero().squeeze(1)
+        cur, g_act = labels[act], gate[act]
+        changed = torch.zeros(len(act), dtype=torch.bool, device=maps.device)
+        for g in groups:
+            ext = F.pad(cur, (0, 0, k, pad + k))[:, rows]             # the barrier's copy
+            for _ in range(g):
+                new = F.max_pool2d(ext.flatten(0, 1)[:, None], 3, stride=1,
+                                   padding=1)[:, 0].view_as(ext) * g_act
+                diff = new != ext
+                seen = torch.cat([diff[:, :, :k], diff[:, :, k + r:]], 2) if changed_over_halo \
+                    else diff[:, :, k:k + r]
+                changed |= seen.flatten(1).any(1)
+                ext = new
+            cur = ext[:, :, k:k + r].reshape(len(act), cs * r, w)[:, :h]
+        labels[act] = cur
+        steps[act] += n
+        done[act] = ~changed
+        i += n
+    return labels.int(), done, steps
+
+
+def k8_blocked_faults(torch, kccl, maps, geo, truncated, converged) -> dict:
+    """The register kernel's planted faults at its own geometry ``geo``:
+    {what: labels}, each beside the plain labels it must differ from
+    (``truncated`` at K8_TRUNCATED, ``converged`` at the full cap)."""
+    full = maps[0].numel()
+    return {
+        f"halo of {geo.halo - 1} rows at depth {geo.depth}":
+            (k8_blocked(torch, kccl, maps, K8_TRUNCATED, 16, geo, halo=geo.halo - 1)[0],
+             truncated),
+        "barrier groups across chunk ends":
+            (k8_blocked(torch, kccl, maps, K8_TRUNCATED, 16, geo, cross_chunks=True)[0],
+             truncated),
+        "changed bit over the halo rows":
+            (k8_blocked(torch, kccl, maps, full, 16, geo, changed_over_halo=True)[0],
+             converged),
+    }
+
+
 def phase_k8(torch, np, kccl, recorded, gen_np) -> dict:
-    """K8 against its plain version on the main path's recorded input and on
-    stressed maps of the same shape; returns the kernel's numbers."""
+    """K8 against its plain version on the main path's recorded input, on
+    stressed maps of the same shape (the register kernel) and of
+    K8_SHARED_HW (the shared-memory kernel), truncated and to the fixpoint at
+    each of K8_CHECK_EVERY; the planted faults of the plain steps and of the
+    register kernel's blocking; returns the kernel's numbers.  Tolerance 0:
+    labels, flags and steps must be equal, and a fault must change at least
+    FAULT_MARGIN labels."""
     mask, cap, check_every = recorded
+    geo = kccl.geometry(*mask.shape[-2:])
+    log(f"K8 geometry of {tuple(mask.shape[-2:])}: {geo}")
+    check(geo.kernel == "registers" and geo.halo >= geo.depth,
+          "the main path's maps must run the register kernel")
     out_k = kccl.propagate(mask, cap, check_every)
     out_p = kccl.propagate_plain(mask, cap, check_every)
     torch.cuda.synchronize()
@@ -1435,21 +1528,34 @@ def phase_k8(torch, np, kccl, recorded, gen_np) -> dict:
     check(k8_equal(torch, out_k, out_p), "K8 disagrees with its plain version on the main path")
 
     maps = torch.from_numpy(k8_stress_maps(np, gen_np, mask.shape[-2:])).to(mask.device)
-    for cap_s in (K8_TRUNCATED, maps[0].numel()):
-        got = kccl.propagate(maps, cap_s)
-        want = kccl.propagate_plain(maps, cap_s)
-        log(f"K8 stressed, cap {cap_s}: labels, flags and steps equal: "
-            f"{k8_equal(torch, got, want)}; converged {want[1].tolist()}; "
-            f"steps {want[2].tolist()}")
-        check(k8_equal(torch, got, want), f"K8 disagrees with its plain version on "
-              f"stressed maps at cap {cap_s}")
-        if cap_s == K8_TRUNCATED:
-            truncated = want[0]
-            check(not bool(want[1][4]), "the spiral must stay truncated")
-    for what, labels in k8_faults(torch, kccl, maps, K8_TRUNCATED).items():
-        misses = int((labels != truncated).sum())
-        log(f"K8 planted fault '{what}': {misses} labels differ from the plain version")
-        check(misses > 0, f"K8: the stressed check cannot see '{what}'")
+    wide = torch.from_numpy(k8_stress_maps(np, gen_np, K8_SHARED_HW)).to(mask.device)
+    check(kccl.geometry(*K8_SHARED_HW).kernel == "shared",
+          f"{K8_SHARED_HW} must run the shared-memory kernel")
+    plain = {}
+    for what, stack in (("stressed", maps), (f"stressed {K8_SHARED_HW}", wide)):
+        for cap_s in (K8_TRUNCATED, stack[0].numel()):
+            for every in K8_CHECK_EVERY if stack is maps else K8_CHECK_EVERY[:1]:
+                got = kccl.propagate(stack, cap_s, every)
+                want = plain[what, cap_s, every] = kccl.propagate_plain(stack, cap_s, every)
+                log(f"K8 {what}, cap {cap_s}, check every {every}: labels, flags and steps "
+                    f"equal: {k8_equal(torch, got, want)}; converged {want[1].tolist()}; "
+                    f"steps {want[2].tolist()}")
+                check(k8_equal(torch, got, want), f"K8 disagrees with its plain version on "
+                      f"{what} maps at cap {cap_s}, check every {every}")
+    truncated = plain["stressed", K8_TRUNCATED, 16][0]
+    converged = plain["stressed", maps[0].numel(), 16][0]
+    check(not bool(plain["stressed", K8_TRUNCATED, 16][1][4]), "the spiral must stay truncated")
+    model = k8_blocked(torch, kccl, maps, K8_TRUNCATED, 16, geo)
+    check(k8_equal(torch, model, plain["stressed", K8_TRUNCATED, 16]),
+          "the model of the register kernel's blocking disagrees with the plain version")
+    faults = {what: (labels, truncated)
+              for what, labels in k8_faults(torch, kccl, maps, K8_TRUNCATED).items()}
+    faults.update(k8_blocked_faults(torch, kccl, maps, geo, truncated, converged))
+    for what, (labels, want) in faults.items():
+        misses = int((labels != want).sum())
+        log(f"K8 planted fault '{what}': {misses} labels differ from the plain version "
+            f"(must be >= {FAULT_MARGIN:g})")
+        check(misses >= FAULT_MARGIN, f"K8: the stressed check cannot see '{what}'")
 
     ms = card_ms(torch, lambda: kccl.propagate(mask, cap, check_every))
     plain_ms = card_ms(torch, lambda: kccl.propagate_plain(mask, cap, check_every),

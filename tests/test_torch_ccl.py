@@ -4,6 +4,9 @@ mode), on seeded maps built to stress the propagation: speckle with many
 components, spirals and 1-pixel diagonal chains, run truncated and to the
 fixpoint.  Labels, flags and kept masks must be equal (tolerance 0)."""
 
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ from samcarriestheburden_tpu.ops import ccl as jccl
 torch.set_num_threads(1)
 
 H, W = 24, 40
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def speckle(seed: int, n: int = 3, p: float = 0.45) -> np.ndarray:
@@ -224,3 +228,110 @@ def test_non_cpu_tensor_never_takes_the_plain_version():
         kccl.propagate(torch.empty((2, H, W), device="meta"), 7)
     with pytest.raises(ValueError, match="check_every"):
         kccl.propagate(torch.zeros((1, H, W)), 7, check_every=0)
+
+
+# ---------------------------------------------------------------------------
+# the register kernel's geometry and temporal blocking
+# ---------------------------------------------------------------------------
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` (its model of the register kernel), loaded by path."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("hw,kernel,cluster,cols", [
+    ((384, 224), "registers", 4, 7),     # the main path's maps
+    ((48, 32), "registers", 1, 1),
+    ((97, 33), "registers", 2, 2),
+    ((768, 256), "registers", 8, 8),     # the largest map the register kernel holds
+    ((769, 256), "shared", 8, 0),        # one row too tall
+    ((384, 257), "shared", 4, 0),        # one column too wide
+    ((512, 448), "shared", 8, 0),
+    ((1024, 224), "shared", 8, 0),
+    ((8, 28928), "shared", 8, 0),
+])
+def test_geometry(hw, kernel, cluster, cols):
+    geo = kccl.geometry(*hw)
+    assert (geo.kernel, geo.cluster, geo.cols_per_lane) == (kernel, cluster, cols)
+    assert geo.halo >= geo.depth >= 1
+    if kernel == "registers":
+        band = -(-hw[0] // cluster)
+        assert hw[1] <= 32 * cols and band <= kccl.REG_MAX_BAND
+        assert cluster == 1 or band >= geo.halo       # a halo lies in one neighbour's band
+        assert (geo.halo, geo.depth) == (kccl.REG_HALO, kccl.REG_DEPTH)
+    else:
+        assert geo.cluster == kccl.cluster_size(*hw) and (geo.halo, geo.depth) == (1, 1)
+
+
+def test_geometry_refuses_maps_no_kernel_holds():
+    with pytest.raises(ValueError, match="K8 takes maps"):
+        kccl.geometry(2048, 2048)
+
+
+@pytest.mark.parametrize("cap,check_every,groups", [
+    (37, 16, [[16], [16], [5]]),
+    (37, 48, [[16, 16, 5]]),
+    (48, 48, [[16, 16, 16]]),
+    (17, 16, [[16], [1]]),               # a 1-step last chunk
+    (100, 40, [[16, 16, 8], [16, 16, 8], [16, 4]]),
+    (0, 16, []),
+])
+def test_barrier_groups(cap, check_every, groups):
+    got = kccl.barrier_groups(cap, check_every)
+    assert got == groups
+    assert [sum(c) for c in got] == [min(check_every, cap - i)
+                                     for i in range(0, cap, check_every)]
+    assert all(1 <= g <= kccl.REG_DEPTH <= kccl.REG_HALO for c in got for g in c)
+
+
+# a scaled-down geometry of the register kernel: 4 bands of 10 rows with
+# halos of 4 rows, 4 steps per barrier, on maps of (40, 48)
+SMALL_GEO = kccl.Geometry("registers", 4, 2, 4, 4)
+SMALL_HW = (40, 48)
+
+
+def _small_maps():
+    """Speckle, a spiral, diagonal chains, an empty map and a line along row
+    15, which lies in no halo: its labels travel 47 steps without touching
+    a halo row."""
+    h, w = SMALL_HW
+    rng = np.random.default_rng(7)
+    line = np.zeros((1, h, w), np.float32)
+    line[0, 15] = 1
+    return np.concatenate([(rng.random((2, h, w)) < 0.45).astype(np.float32),
+                           spiral(h, w)[None], diagonal_chains(h, w)[None],
+                           np.zeros((1, h, w), np.float32), line])
+
+
+@pytest.mark.parametrize("cap", [7, 37, SMALL_HW[0] * SMALL_HW[1]])
+@pytest.mark.parametrize("check_every", [16, 5, 48])
+def test_blocked_model_matches_plain(cap, check_every):
+    """The register kernel's blocking (``chip_smoke.k8_blocked``: bands,
+    halos copied at each barrier, groups that end at chunk ends, the changed
+    bit over own rows) gives the plain version's labels, flags and steps."""
+    maps = torch.from_numpy(_small_maps())
+    got = _chip_smoke().k8_blocked(torch, kccl, maps, cap, check_every, SMALL_GEO)
+    want = kccl.propagate_plain(maps, cap, check_every)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_blocked_model_faults_are_caught():
+    """Each planted fault of the blocking changes at least 4 labels (the
+    chip check's FAULT_MARGIN), at the scaled-down geometry."""
+    cs = _chip_smoke()
+    maps = torch.from_numpy(_small_maps())
+    full = maps[0].numel()
+    truncated = kccl.propagate_plain(maps, cs.K8_TRUNCATED)[0]
+    converged = kccl.propagate_plain(maps, full)[0]
+    faults = cs.k8_blocked_faults(torch, kccl, maps, SMALL_GEO, truncated, converged)
+    assert len(faults) == 3
+    for what, (labels, want) in faults.items():
+        assert int((labels != want).sum()) >= cs.FAULT_MARGIN, what
+    # taken over the halo as well as the own rows, the changed bit changes nothing
+    both = cs.k8_blocked(torch, kccl, maps, full, 16, SMALL_GEO)
+    assert torch.equal(both[0], converged)
