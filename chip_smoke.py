@@ -11,9 +11,11 @@
    -v`` reports them and the shared memory its launch asks for; the GEMM
    sources (``gemm``, ``quant``, ``mlp``: the TMA + wgmma mainloop of
    ``csrc/gemm_sm90.cuh``) and the global kernel's int8 p.v instances (K7-pv,
-   K7-int8pv) must build without a spill and without ptxas serializing their
-   wgmma (warning C7520), each of the GEMM kernels' SASS must hold HGMMA or
-   IGMMA and each p.v instance's IGMMA, its int8 p.v product (``cuobjdump``);
+   K7-int8pv) and K12 (``block_attention``) must build without a spill and
+   without ptxas serializing their wgmma (warning C7520; K12 also C7518,
+   and a stack frame above ``K12_MAX_STACK``),
+   each of the GEMM kernels' and K12's SASS must hold HGMMA or IGMMA and each
+   p.v instance's IGMMA, its int8 p.v product (``cuobjdump``);
 2. drives the flat embed path once at full ViT-H width and depth with seeded
    random weights: ``make_serving_encoder(model, torch.bfloat16,
    compact_windows=False)`` on two padded 1024x1024 uint8 images (input size
@@ -109,6 +111,10 @@
    selector column shifted by one key, K6's b_v dropped) and v1 on inputs at
    a bf16 rounding edge of its normalised probabilities (the normalisation
    moved after p . v);
+4j. logs K12's instances (shared memory, clusters that fit the card at
+   once) and holds K12 at ViT-B's and ViT-L's geometry (``K12_SHAPES``:
+   clusters of 6 and 8 blocks of two heads of 64) against its plain version,
+   three calls giving the same bits, and stressed with its planted faults;
 5. holds each kernel against its plain PyTorch version on the card, on the
    inputs each of its paths gives it (the flat rows and windows; the
    compact stream's: K1-K4 on 8416 rows, K5 on 32 windows and K6, both
@@ -184,10 +190,10 @@ ORIGINAL_HW = (1600, 1119)   # the X-ray before resizing (1600 * 0.64 = 1024)
 # K1 0.48 %, K2 0.24 %, K3 and K4 0.38 %, K5 0.53 %, K7 and K7-int8 0.63 %.
 # K9-K11 are K5's and K7's loop with the rel terms read, not made: the same
 # tolerance.  K12 adds two projections with fp32 accumulation and one bf16
-# rounding each, and a sum over heads in fp32 (in head order, as its plain
-# version sums them): the same tolerance against its plain version, which
-# rounds q and k to bf16 as
-# the kernel does; against the plain version that keeps q and k in fp32 up to
+# rounding each, and a sum over heads in fp32 (one fixed-order chain over
+# K = E per output column, where its plain version sums the heads' products
+# one by one): the same tolerance against its plain version, which rounds q
+# and k to bf16 as the kernel does; against the plain version that keeps q and k in fp32 up to
 # the logits (the TPU kernel's arithmetic) it is held to K12_FP32_QK_TOL.
 # Readings on the H100 (first build-and-compare call, synthetic inputs of the
 # paths' shapes, x max |plain|): K9 0.44 % (windows) and 0.63 % (global), K10
@@ -1166,13 +1172,34 @@ def ptxas_functions(text: str) -> dict:
 #: kernel: <HD, INT8, PRE = false, SM_PV = 5>
 PV_INSTANCE = r"global_attention_kernelILi\d+ELb[01]ELb0ELi5E"
 
+#: the largest stack frame, in bytes, that a K12 instance may have: its
+#: accumulators stay in registers (an index into them that ptxas cannot fold,
+#: as a rolled loop's, puts them on the stack)
+K12_MAX_STACK = 0
+
+
+def stack_frames(text: str, kernel: str) -> dict:
+    """{mangled instance of ``kernel``: its stack frame in bytes} from
+    ``-Xptxas -v``'s report."""
+    import re
+
+    frames = {}
+    for f, lines in ptxas_functions(text).items():
+        for line in lines:
+            m = re.search(r"(\d+) bytes stack frame", line)
+            if kernel in f and m:
+                frames[f] = max(frames.get(f, 0), int(m.group(1)))
+    return frames
+
 
 def phase_build(build) -> dict:
     """Every source built at once, ``-Xptxas -v``'s report printed; the GEMM
-    sources (``gemm``, ``quant``, ``mlp``) and the int8 p.v instances of the global
-    attention kernel (K7-pv, K7-int8pv: ``global_attention_kernel`` with
-    SM_PV, in ``attention``) must build with no spill and without ptxas
-    serializing their wgmma (warning C7520); every GEMM kernel's SASS must
+    sources (``gemm``, ``quant``, ``mlp``), K12's (``block_attention``) and the
+    int8 p.v instances of the global attention kernel (K7-pv, K7-int8pv:
+    ``global_attention_kernel`` with SM_PV, in ``attention``) must build with
+    no spill and without ptxas serializing their wgmma (warning C7520; for
+    K12 also C7518), and K12's three instances with a stack frame of at most
+    ``K12_MAX_STACK`` bytes; every GEMM kernel's and every K12 instance's SASS must
     hold wgmma (HGMMA, IGMMA), and every p.v instance's SASS the int8 wgmma
     of its p.v product (IGMMA)."""
     import re
@@ -1182,16 +1209,23 @@ def phase_build(build) -> dict:
     log(f"build: {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "C7520" in line or ("C751" not in line and any(
+            if "C7520" in line or "C7518" in line or ("C751" not in line and any(
                     word in line for word in ("entry function", "registers", "spill"))):
                 log(f"  ptxas {name}: {line.strip()}")
-    for name in ("gemm", "quant", "mlp"):
+    for name in ("gemm", "quant", "mlp", "block_attention"):
         lines = logs[name].splitlines()
-        check(not any("C7520" in line for line in lines),
-              f"ptxas serializes the wgmma of {name}.cu (C7520)")
+        # K12 is also held to C7518: every wgmma serialized for a wait in a branch
+        warnings = ("C7520", "C7518") if name == "block_attention" else ("C7520",)
+        check(not any(w in line for line in lines for w in warnings),
+              f"ptxas serializes the wgmma of {name}.cu ({', '.join(warnings)})")
         spills = [line.strip() for line in lines if "spill" in line
                   and "0 bytes spill stores, 0 bytes spill loads" not in line]
         check(not spills, f"{name}.cu spills: {spills}")
+    frames = stack_frames(logs["block_attention"], "block_attention_kernel")
+    log(f"stack frames of block_attention.cu's instances (bytes): {frames}")
+    check(len(frames) == 3 and max(frames.values()) <= K12_MAX_STACK,
+          f"K12's instances do not all keep a stack frame of at most {K12_MAX_STACK} "
+          f"bytes: {frames}")
     pv = {f: lines for f, lines in ptxas_functions(logs["attention"]).items()
           if re.search(PV_INSTANCE, f)}
     check(len(pv) == 8, f"ptxas reported {len(pv)} int8 p.v instances of the global kernel, "
@@ -1204,7 +1238,7 @@ def phase_build(build) -> dict:
     # the SASS of every GEMM kernel holds Hopper's wgmma: HGMMA (bf16), IGMMA (int8)
     cuobjdump = str(Path(build.nvcc()).with_name("cuobjdump"))
     for name, kernel in (("gemm", "dot_kernel"), ("quant", "gemm_s8_kernel"),
-                         ("mlp", "gemm_kernel")):
+                         ("mlp", "gemm_kernel"), ("block_attention", "block_attention_kernel")):
         sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(name))],
                               capture_output=True, text=True, timeout=300).stdout
         functions = [f for f in sass.split("Function : ")[1:] if kernel in f.split("\n")[0]]
@@ -2887,6 +2921,60 @@ def phase_window_shapes(torch, attn_k, gen, dev) -> None:
         del args
 
 
+#: K12's geometries beyond the v2 path's ViT-H one: (preset, windows, window
+#: side, E, heads); ViT-B's cluster of 6 blocks and ViT-L's of 8, two heads of
+#: 64 per block each
+K12_SHAPES = (("vit_b", 50, 14, 768, 12), ("vit_l", 50, 14, 1024, 16))
+
+
+def phase_k12_shapes(torch, attn_k, gen, dev) -> None:
+    """K12's instances: each one's dynamic shared memory and the clusters of
+    it that fit the card at once (cudaOccupancyMaxActiveClusters); then K12
+    at ViT-B's and ViT-L's geometry (K12_SHAPES, seeded: tokens of std 1 with
+    the pad tokens of two 64 x 64 grids zero, weights of std E^-1/2, tables of
+    std 0.3) against its plain version (KERNEL_TOL), three calls giving the
+    same bits, and stressed with K12's planted faults."""
+    for hd, heads, what in ((80, 16, "ViT-H"), (64, 16, "ViT-L"), (64, 12, "ViT-B"),
+                            (16, 2, "vit_t")):
+        smem, clusters = attn_k.window_block_info(hd, heads)
+        c, per_block, cols = attn_k.window_block_geometry(heads * hd, heads)
+        log(f"K12 instance (head dim {hd}, {per_block} heads per block) at {what}: cluster of "
+            f"{c} blocks, {cols} output columns each, {smem} bytes of shared memory, "
+            f"{clusters} clusters at once")
+        check(clusters >= 1, f"K12's instance for {what} fits no cluster on the card")
+    for preset, wb, ws, e, heads in K12_SHAPES:
+        n = ws * ws
+        per_side = -(-64 // ws)
+        w = torch.arange(wb, device=dev) % (per_side * per_side)
+        r = torch.arange(ws, device=dev)
+        live = (((w // per_side)[:, None] * ws + r)[:, :, None] < 64) \
+            & (((w % per_side)[:, None] * ws + r)[:, None, :] < 64)
+        xn = (torch.randn((wb, n, e), generator=gen, device=dev) * live.reshape(wb, n, 1)).bfloat16()
+        args = (xn, (torch.randn((3 * e, e), generator=gen, device=dev) * e ** -0.5).bfloat16(),
+                torch.randn((3 * e,), generator=gen, device=dev) * 0.1,
+                (torch.randn((e, e), generator=gen, device=dev) * e ** -0.5).bfloat16(),
+                (torch.randn((2 * (2 * ws - 1), e // heads), generator=gen, device=dev)
+                 * 0.3).bfloat16())
+        kw = dict(ws=ws, heads=heads)
+        key = f"K12 {preset} {wb}x{n}x{e}, {heads} heads"
+        out_k = attn_k.window_block_attention(*args, **kw)
+        again = [attn_k.window_block_attention(*args, **kw) for _ in range(2)]
+        out_p = attn_k.window_block_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err, ref = max_err(out_k, out_p), out_p.float().abs().max().item()
+        same = all(torch.equal(o.view(torch.int16), out_k.view(torch.int16)) for o in again)
+        ms = card_ms(torch, lambda: attn_k.window_block_attention(*args, **kw))
+        log(f"{key}: max abs err {err:.4g} vs max |plain| {ref:.4g} (tol {KERNEL_TOL['K12']} x "
+            f"max |plain|), three calls give the same bits: {same}, {ms:.4f} ms")
+        check(bool(torch.isfinite(out_k.float()).all()), f"{key}: non-finite output")
+        check(err <= KERNEL_TOL["K12"] * ref, f"{key} disagrees with its plain version")
+        check(same, f"{key} differs between calls on the same inputs")
+        del out_k, out_p, again
+        phase_stress(torch, key, attn_k.window_block_attention,
+                     attn_k.window_block_attention_plain, args, kw, gen)
+        del args
+
+
 def phase_embed_int8(torch, kernels, cfg, model, make_serving_encoder, two_round_decode,
                      inputs, n_classes: int, emb_bf16, results_bf16, bf16_ips: float,
                      enhance_ips: float):
@@ -3678,6 +3766,10 @@ def main() -> int:
     # 6f. the window kernel at every shape class and item count it takes,
     # against its plain versions and stressed
     phase_window_shapes(torch, attn_k, torch.Generator(device=dev).manual_seed(10), dev)
+
+    # 6g. K12's instances, and K12 at ViT-B's and ViT-L's geometry against its
+    # plain version, the same bits on every call, and stressed
+    phase_k12_shapes(torch, attn_k, torch.Generator(device=dev).manual_seed(12), dev)
 
     # 7. the tiny config through the kernels vs the reference golden --------
     phase_golden(torch, np, sam_vit_t_config(), ImageEncoderViT, KERNEL_OPS, KERNEL_OPS_INT8,

@@ -117,7 +117,11 @@ mbarriers feed wgmma for both products (:func:`global_smem_bytes`; what it
 takes: :func:`_check_global`).  K7's int8 p.v pair is its two-pass form whose
 p.v is an s8 wgmma with the quantized probabilities as the A operand in
 registers, over int8 values stored in the key order of those registers
-(:func:`pv_key_order`, :func:`pv_fragment_entries`).
+(:func:`pv_key_order`, :func:`pv_fragment_entries`).  K12 runs
+``csrc/block_attention.cu``: one thread-block cluster per window
+(:func:`window_block_geometry`), the projections and the window kernel's
+attention on wgmma, the heads' outputs exchanged through distributed shared
+memory for the output projection.
 """
 
 from __future__ import annotations
@@ -172,8 +176,10 @@ def _forms_lib():
 def _block_lib():
     lib = build.load("block_attention")
     if not getattr(lib, "_typed", False):
-        lib.k12_window_block_attention.argtypes = [_VP] * 7 + [_I] * 5 + [_F, _F, _VP]
+        lib.k12_window_block_attention.argtypes = [_VP] * 6 + [_I] * 6 + [_F, _F, _VP]
         lib.k12_window_block_attention.restype = _I
+        lib.k12_block_info.argtypes = [_I, _I, _VP, _VP]
+        lib.k12_block_info.restype = _I
         lib._typed = True
     return lib
 
@@ -832,21 +838,41 @@ def window_block_attention_plain(xn, qkv_w, qkv_b, proj_w, tables, *, ws: int, h
     return acc.to(dt)
 
 
-def window_block_scratch(wb: int, n: int, e: int, heads: int, device) -> torch.Tensor:
-    """K12's fp32 scratch: one contiguous (wb, n, e) slice per head, which the
-    block of (window, head) fills with that head's share of the projection
-    and the rounding pass sums over the heads in order."""
-    return torch.empty((heads, wb, n, e), dtype=torch.float32, device=device)
+#: K12's kernel instances: (head dim, heads per block)
+BLOCK_INSTANCES = ((16, 1), (64, 2), (80, 2))
+
+
+def window_block_geometry(e: int, heads: int):
+    """K12's thread-block cluster for E = heads * hd: (C, heads per block,
+    output columns per block).  C, the blocks of one window's cluster, is the
+    largest divisor of ``heads`` up to 8 (``csrc/block_attention.cu:
+    block_cluster``): 8 at ViT-H and ViT-L (16 heads), 6 at ViT-B (12), 2 at
+    vit_t (2).  Block r owns heads r * HB .. (r + 1) * HB - 1 and computes the
+    output columns r * E / C .. (r + 1) * E / C - 1, which are its heads'
+    columns of O as wide (HB * hd)."""
+    c = max(d for d in range(1, min(heads, 8) + 1) if heads % d == 0)
+    return c, heads // c, e // c
+
+
+def window_block_info(hd: int, heads: int):
+    """(dynamic shared memory in bytes, clusters that fit the card at once) of
+    K12's instance for a head dim and head count; on the card only."""
+    smem, clusters = ctypes.c_int(), ctypes.c_int()
+    code = _block_lib().k12_block_info(hd, heads, ctypes.addressof(smem),
+                                       ctypes.addressof(clusters))
+    raise_on_error("K12 block info", code)
+    return smem.value, clusters.value
 
 
 def window_block_attention(xn, qkv_w, qkv_b, proj_w, tables, *, ws: int,
                            heads: int) -> torch.Tensor:
     """K12 over (Wb, ws*ws, E) LayerNormed, pad-masked windows of at most 208
-    tokens: one block per (window, head) projects that head's q, k, v, runs
-    its attention and stores its share of the output projection into the
-    head's slice of an fp32 scratch buffer (:func:`window_block_scratch`); a
-    second pass sums the heads in order and rounds once to the compute type,
-    so the output is the same on every call."""
+    tokens: one cluster of blocks per window (:func:`window_block_geometry`).
+    Each block projects its heads' q, k, v, runs their attention into its
+    shared memory, and then computes its share of the output columns as one
+    fp32 product over all heads' outputs, read from the blocks that hold
+    them, in a fixed order: the output is rounded once to the compute type
+    and is the same on every call.  The call allocates only its output."""
     if xn.device.type == "cpu":
         return window_block_attention_plain(xn, qkv_w, qkv_b, proj_w, tables, ws=ws,
                                             heads=heads)
@@ -859,15 +885,19 @@ def window_block_attention(xn, qkv_w, qkv_b, proj_w, tables, *, ws: int,
     check_cuda("proj_w", proj_w, (e, e), bf)
     check_cuda("tables", tables, (2 * (2 * ws - 1), hd), bf)
     _check_hd(hd)
-    if n != ws * ws or n > 208 or e != heads * hd or e % 8:
+    if n != ws * ws or n > 208 or e != heads * hd or e % 32:
         raise ValueError(f"K12 expects windows of {ws}x{ws} <= 208 tokens and E = heads * hd "
-                         f"divisible by 8, got {n} tokens, E {e}, {heads} heads")
-    acc = window_block_scratch(wb, n, e, heads, xn.device)
+                         f"divisible by 32, got {n} tokens, E {e}, {heads} heads")
+    cluster, per_block, _ = window_block_geometry(e, heads)
+    if (hd, per_block) not in BLOCK_INSTANCES:
+        raise ValueError(f"K12 has no kernel for head dim {hd} at {per_block} heads per block "
+                         f"({heads} heads); it has (head dim, heads per block) "
+                         f"{BLOCK_INSTANCES}")
     out = torch.empty_like(xn)
     scale = hd ** -0.5
     code = _block_lib().k12_window_block_attention(
-        ptr(xn), ptr(qkv_w), ptr(qkv_b), ptr(proj_w), ptr(tables), ptr(acc), ptr(out),
-        wb, n, e, heads, ws, scale, 1.0 / scale, stream())
+        ptr(xn), ptr(qkv_w), ptr(qkv_b), ptr(proj_w), ptr(tables), ptr(out),
+        wb, n, e, heads, ws, cluster, scale, 1.0 / scale, stream())
     raise_on_error("K12 window_block_attention", code)
     LAUNCHES["K12"] += 1
     return out

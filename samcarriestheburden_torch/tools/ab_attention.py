@@ -5,9 +5,9 @@
 ``PARENT`` and ``CHANGE`` (default: this checkout) are repository roots.
 Each turn runs in a process of its own (the two packages share a name), in
 the order parent, change, change, parent: it builds that checkout's
-``attention`` and ``attention_forms`` sources and times, by CUDA events over
-``ITERS`` calls after 3 warm-ups, at the ViT-H encoder's shapes (16 heads of
-80; seeded inputs of std 1, tables of std 0.02):
+``attention``, ``attention_forms`` and ``block_attention`` sources and times,
+by CUDA events over ``ITERS`` calls after 3 warm-ups, at the ViT-H encoder's
+shapes (16 heads of 80; seeded inputs of std 1, tables of std 0.02):
 
 - the window family: K5 (``rel_attention_window``) on 50 windows of 14 x 14
   tokens in 200 slots and on the attention tools' 200; K6
@@ -23,7 +23,12 @@ the order parent, change, change, parent: it builds that checkout's
   q, k, v split per head) and K16's v1 and v3 (``rel_attention_forms``);
   K7-pv and K7-int8pv again on the int8 p.v tool's own inputs
   (``tools/bench_int8pv.inputs``: rel tables of std 0.1), whose softmax the
-  fixed probability scale flushes less.
+  fixed probability scale flushes less;
+- K12 (``window_block_attention``, the v2 formulation's fused window block)
+  on the inputs :func:`k12_case` makes: 50 windows of 14 x 14 tokens (two
+  images' 64 x 64 grids, padded to 70 x 70), E 1280 in 16 heads, seeded with
+  numpy (the same in every turn, whichever checkout's package runs them; the
+  turn loads this module by path, so the parent need not have it).
 
 Each turn prints one JSON line: per kernel its milliseconds per call (CUDA
 events around back-to-back calls, which the host's launch path bounds for a
@@ -45,19 +50,25 @@ import sys
 import tempfile
 from pathlib import Path
 
+import numpy as np
+import torch
+
 from samcarriestheburden_torch.device import resolve_device
 
 ITERS = 50
 
 TURN = r'''
-import json, os, sys
+import importlib.util, json, os, sys
 sys.path.insert(0, sys.argv[1])
 import torch
 from torch.profiler import ProfilerActivity, profile
 from samcarriestheburden_torch.kernels import attention as A, build
 from samcarriestheburden_torch.tools import bench_int8pv
+spec = importlib.util.spec_from_file_location("ab_attention_cases", sys.argv[4])
+cases_mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cases_mod)
 PROFILED = 10
-build.build(["attention", "attention_forms"])
+build.build(["attention", "attention_forms", "block_attention"])
 dev = torch.device("cuda")
 g = torch.Generator(device=dev).manual_seed(0)
 iters, saved = int(sys.argv[2]), sys.argv[3]
@@ -110,6 +121,8 @@ cases = {
     "K16-v1": lambda: A.rel_attention_forms(qkv, tab, **grid, nkeys=side * side, softmax="v1"),
     "K16-v3": lambda: A.rel_attention_forms(qkv, tab, **grid, nkeys=side * side, softmax="v3"),
 }
+k12_args, k12_kw = cases_mod.k12_case(dev)
+cases["K12"] = lambda: A.window_block_attention(*k12_args, **k12_kw)
 first = torch.load(saved) if os.path.exists(saved) else None
 outs, res = {}, {}
 for name, fn in cases.items():
@@ -143,6 +156,33 @@ print(json.dumps(res))
 '''
 
 
+def k12_case(device, *, wb: int = 50, ws: int = 14, e: int = 1280, heads: int = 16,
+             grid: int = 64, seed: int = 0):
+    """K12's inputs, seeded with numpy: ``wb`` windows of ``ws`` x ``ws``
+    LayerNormed tokens of std 1 from images whose ``grid`` x ``grid`` tokens
+    are padded to whole windows, the pad tokens zero (as the encoder masks
+    them); the per-head-grouped qkv weight and bias, the projection and the
+    stacked rel tables of std 0.02.  Returns ``(args, kwargs)`` of
+    ``window_block_attention``."""
+    rng = np.random.default_rng(seed)
+    per_side = -(-grid // ws)
+    w = np.arange(wb) % (per_side * per_side)
+    rows = (w // per_side)[:, None] * ws + np.arange(ws)[None]        # (wb, ws) grid rows
+    cols = (w % per_side)[:, None] * ws + np.arange(ws)[None]
+    live = (rows[:, :, None] < grid) & (cols[:, None, :] < grid)      # (wb, ws, ws)
+    xn = rng.standard_normal((wb, ws * ws, e), dtype=np.float32) * live.reshape(wb, -1, 1)
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * 0.02
+
+    bf = torch.bfloat16
+    args = (torch.from_numpy(xn).to(device, bf), torch.from_numpy(normal(3 * e, e)).to(device, bf),
+            torch.from_numpy(normal(3 * e)).to(device),
+            torch.from_numpy(normal(e, e)).to(device, bf),
+            torch.from_numpy(normal(2 * (2 * ws - 1), e // heads)).to(device, bf))
+    return args, dict(ws=ws, heads=heads)
+
+
 def run_turns(script: str, parent: str, change: str, name: str, iters: int, *args: str):
     """``script`` (a turn: argv ``tree iters saved *args``, its last line of
     output one JSON object) for the four turns parent, change, change,
@@ -171,7 +211,7 @@ def run(parent: str, change: str = str(Path(__file__).resolve().parents[2])):
     """``[(checkout, {kernel: {"ms", "device_ms", "digest", "max_diff", "equal",
     "max_abs"}}), ...]`` for the four turns; raises without a card or when a
     turn fails."""
-    return run_turns(TURN, parent, change, "ab_attention", ITERS)
+    return run_turns(TURN, parent, change, "ab_attention", ITERS, str(Path(__file__).resolve()))
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """The GEMM A/B tool (``samcarriestheburden_torch/tools/ab_gemm.py``), the
-encoder profile tool (``tools/profile_encoder.py``) and K12's head-sum scratch
-(``kernels/attention.py:window_block_scratch``) on the CPU.
+encoder profile tool (``tools/profile_encoder.py``) and K12's cluster and
+head sum (``kernels/attention.py:window_block_geometry``) on the CPU.
 
 The tool's kernels run only on the card; here its input builder, its cases
 (each kernel's wrapper, which takes its plain version for a CPU tensor) and
@@ -8,17 +8,22 @@ its digest are held at a small size: the inputs are the same for the same
 seed, every case is the plain function on those inputs (K13 ``x * 2.0`` bit
 for bit), the int8 product's digest is
 the digest of the exact integer product, and a one-step change of one
-output changes the digest.  K12's scratch is sized and strided as the
-kernel writes it, and its head slices summed in head order, as the kernel's
-rounding pass sums them, give the plain version's output bit for bit (fp32,
-vit_t's widths).
+output changes the digest.  K12's cluster gives every head to one block and
+the output columns to the blocks once, in ranges of multiples of 8, at every
+preset's widths; the kernel's order of arithmetic (every head's output
+rounded to bf16, then one fp32 product over K = E in head order, rounded
+once) stays within K12's tolerance of the plain version on vit_t's windows.
 """
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from samcarriestheburden_torch.config import sam_vit_t_config
+from samcarriestheburden_torch.config import (sam_vit_b_config, sam_vit_h_config,
+                                              sam_vit_l_config, sam_vit_t_config)
 from samcarriestheburden_torch.kernels import attention as attn_k
 from samcarriestheburden_torch.kernels import gemm as gemm_k
 from samcarriestheburden_torch.kernels import quant as quant_k
@@ -158,36 +163,80 @@ def vit_t_windows():
         dict(ws=ws, heads=heads)
 
 
-def test_k12_scratch_is_one_slice_per_head_in_the_kernels_layout():
-    (xn, *_), kw = vit_t_windows()
-    wb, n, e = xn.shape
-    heads = kw["heads"]
-    acc = attn_k.window_block_scratch(wb, n, e, heads, xn.device)
-    assert acc.shape == (heads, wb, n, e) and acc.dtype == torch.float32
-    assert acc.is_contiguous() and acc.stride() == (wb * n * e, n * e, e, 1)
-    # the block of (window w, head h) writes from element (h * nwin + w) * n * E
-    for h in range(heads):
-        for w in (0, wb - 1):
-            assert acc[h, w].data_ptr() - acc.data_ptr() == (h * wb + w) * n * e * 4
+#: K12's tolerance against its plain version (chip_smoke.py: KERNEL_TOL["K12"])
+K12_TOL = 1.6e-2
+PRESETS = {"vit_h": sam_vit_h_config, "vit_l": sam_vit_l_config, "vit_b": sam_vit_b_config,
+           "vit_t": sam_vit_t_config}
 
 
-def test_k12_head_slices_summed_in_order_are_the_plain_version():
-    """Each head's share (the plain version with the projection's other heads'
-    columns zeroed: exact in fp32) in its slice of the scratch, summed in
-    head order from 0 as the rounding pass sums them: the plain version's
-    output, bit for bit."""
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_k12_cluster_owns_every_head_and_column_once(preset):
+    """Block r of a window's cluster owns heads r * HB .. and output columns
+    r * E / C ..: every head in exactly one block, the column ranges tiling E
+    once, each a multiple of 8 wide (the wgmma N); the preset's head dim and
+    heads per block are one of the kernel's instances, and the cluster fits
+    one (portable) cluster of at most 8 blocks."""
+    enc = PRESETS[preset]().image_encoder
+    e, heads = enc.embed_dim, enc.num_heads
+    c, per_block, cols = attn_k.window_block_geometry(e, heads)
+    assert 1 <= c <= 8 and heads % c == 0 and per_block * c == heads
+    owners = [h // per_block for h in range(heads)]
+    assert sorted(set(owners)) == list(range(c))
+    assert all(owners.count(r) == per_block for r in range(c))
+    ranges = [range(r * cols, (r + 1) * cols) for r in range(c)]
+    assert sorted(x for r in ranges for x in r) == list(range(e))
+    assert cols % 8 == 0 and cols == per_block * (e // heads)
+    assert (e // heads, per_block) in attn_k.BLOCK_INSTANCES and e % 32 == 0
+    # block r's output columns are its own heads' columns of O
+    for r in range(c):
+        assert ranges[r][0] // (e // heads) == r * per_block
+
+
+def test_k12_order_of_arithmetic_is_within_its_tolerance():
+    """On vit_t's windows in bf16: every head's output rounded to bf16 (the
+    plain version with the identity as projection: each head's output in its
+    own columns, exactly), then one fp32 product over K = E in head order,
+    rounded once, as the kernel's cluster computes it, lies within K12's
+    tolerance of the plain version, which sums the heads' products one by
+    one; ``window_block_attention`` on CPU tensors is the plain version."""
     (xn, qkv_w, qkv_b, proj_w, tables), kw = vit_t_windows()
-    wb, n, e = xn.shape
-    heads, hd = kw["heads"], e // kw["heads"]
-    acc = attn_k.window_block_scratch(wb, n, e, heads, xn.device)
-    for h in range(heads):
-        wp = torch.zeros_like(proj_w)
-        wp[:, h * hd:(h + 1) * hd] = proj_w[:, h * hd:(h + 1) * hd]
-        acc[h] = attn_k.window_block_attention_plain(xn, qkv_w, qkv_b, wp, tables, **kw)
-    total = torch.zeros((wb, n, e))
-    for h in range(heads):
-        total = total + acc[h]
+    bf = torch.bfloat16
+    xn, qkv_w, proj_w, tables = (t.to(bf) for t in (xn, qkv_w, proj_w, tables))
+    e = xn.shape[-1]
+    heads_out = attn_k.window_block_attention_plain(xn, qkv_w, qkv_b, torch.eye(e, dtype=bf),
+                                                    tables, **kw)
+    assert heads_out.dtype == bf and heads_out.shape == xn.shape
+    ours = (heads_out.float() @ proj_w.float().T).to(bf)
     want = attn_k.window_block_attention_plain(xn, qkv_w, qkv_b, proj_w, tables, **kw)
-    assert torch.equal(total, want)
-    assert torch.equal(attn_k.window_block_attention(xn, qkv_w, qkv_b, proj_w, tables, **kw),
-                       want)
+    ref = want.float().abs().max().item()
+    err = (ours.float() - want.float()).abs().max().item()
+    assert ref > 0.1 and err <= K12_TOL * ref, (err, ref)
+    assert not torch.equal(heads_out, torch.zeros_like(heads_out))
+    got = attn_k.window_block_attention(xn, qkv_w, qkv_b, proj_w, tables, **kw)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_k12_stack_frames_are_read_per_instance():
+    """``chip_smoke.stack_frames`` reads each K12 instance's stack frame from
+    ``-Xptxas -v``'s report (the "Function properties" line's, not the
+    cumulative stack size) and no other kernel's; the build phase holds the
+    three instances to ``K12_MAX_STACK``."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    k12 = "_ZN12_GLOBAL__N_122block_attention_kernelILi{}ELi{}EEEv14CUtensorMap_st"
+    report = []
+    for (hd, hb), frame in zip(attn_k.BLOCK_INSTANCES, (0, 16, 640)):
+        f = k12.format(hd, hb)
+        report += [f"ptxas info    : Compiling entry function '{f}' for 'sm_90a'",
+                   f"ptxas info    : Function properties for {f}",
+                   f"    {frame} bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+                   f"ptxas info    : Used 255 registers, used 1 barriers, {frame + 8} bytes "
+                   "cumulative stack size"]
+    report += ["ptxas info    : Compiling entry function '_Z11round_kernelPKfPfi' for 'sm_90a'",
+               "ptxas info    : Function properties for _Z11round_kernelPKfPfi",
+               "    96 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"]
+    frames = cs.stack_frames("\n".join(report), "block_attention_kernel")
+    assert frames == {k12.format(80, 2): 640, k12.format(64, 2): 16, k12.format(16, 1): 0}
+    assert cs.K12_MAX_STACK == 0

@@ -157,20 +157,27 @@ def test_cuda_sources_are_registered_and_stand_alone():
         assert '#include "rel_attention.cuh"' in text
     assert "k13_cost_probe" in (build.CSRC / "cost_probe.cu").read_text()
     block = (build.CSRC / "block_attention.cu").read_text()
-    assert "k12_window_block_attention" in block and "mma_bf16" in block
-    # K12's head sum: a slice per head, summed in head order; no atomics
-    assert "atomicAdd" not in block and "for (int h = 0; h < heads; ++h)" in block
+    assert "k12_window_block_attention" in block
+    # K12: one thread-block cluster per window, every product on wgmma (the
+    # window kernel's attention included), the heads summed by one product
+    # over K = E through distributed shared memory: no mma.sync, no scratch
+    # pass, no atomics
+    assert "wgmma.mma_async" in block and '#include "window_attention.cuh"' in block
+    assert "cudaLaunchAttributeClusterDimension" in block and "cudaLaunchKernelEx" in block
+    assert "ld.shared::cluster" in block and "mapa.shared::cluster" in block
+    for gone in ("mma_bf16", "round_kernel", "atomicAdd", "ldmatrix", "cp_async"):
+        assert gone not in block, gone
     common = (build.CSRC / "common.cuh").read_text()
     # the int8 mma.sync product is gone with its last user, K7's int8 p.v pair
     assert "m16n8k32.row.col.s32.s8.s8.s32" not in common and "mma_s8" not in common
     # the bf16 mma.sync GEMM mainloop is gone with its last users, K1 and K3;
-    # the m16n8k16 product stays for K12's products and the global kernel's
-    # small rel-term product
+    # the m16n8k16 product stays for the global kernel's small rel-term
+    # product alone (K12's products moved to wgmma)
     assert "gemm_bf16_mainloop" not in common and "namespace gemm_bf16" not in common
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in common
     users = sorted(p.name for p in build.CSRC.glob("*.cu*")
                    if p.name != "common.cuh" and "mma_bf16(" in p.read_text())
-    assert users == ["block_attention.cu", "global_attention.cuh"], users
+    assert users == ["global_attention.cuh"], users
 
 
 def _c_function(text: str, name: str) -> str:

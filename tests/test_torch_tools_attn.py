@@ -301,13 +301,50 @@ def test_the_tools_run_on_the_card_only(monkeypatch, tool):
 
 
 def test_the_checkout_ab_runs_on_the_card_only(monkeypatch):
-    """``tools/ab_attention`` (K5 and the global family of two checkouts, in
-    turns, with the digests of their outputs) raises before it starts a turn
-    when there is no card."""
+    """``tools/ab_attention`` (K5, the global family and K12 of two checkouts,
+    in turns, with the digests of their outputs) raises before it starts a
+    turn when there is no card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setattr(ab_attention.subprocess, "run", None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ab_attention.run(str(ROOT))
+
+
+K12_SMALL = dict(wb=8, ws=5, e=32, heads=2, grid=8)
+
+
+def test_the_k12_case_is_seeded_and_zeroes_the_pad_tokens():
+    """``ab_attention.k12_case`` (the A/B tool's K12 inputs) makes the same
+    tensors for the same seed and others for another; the tokens of a window
+    that lie past the image's grid are zero and the others not, at a small
+    size (two images of 8 x 8 tokens in windows of 5 x 5: 2 x 2 windows each)."""
+    args, kw = ab_attention.k12_case("cpu", **K12_SMALL)
+    again, _ = ab_attention.k12_case("cpu", **K12_SMALL)
+    other, _ = ab_attention.k12_case("cpu", **K12_SMALL, seed=1)
+    assert kw == dict(ws=5, heads=2)
+    assert all(torch.equal(a, b) for a, b in zip(args, again))
+    assert not torch.equal(args[0], other[0]) and not torch.equal(args[1], other[1])
+    xn, qkv_w, qkv_b, proj_w, tables = args
+    assert xn.shape == (8, 25, 32) and xn.dtype == torch.bfloat16
+    assert qkv_w.shape == (96, 32) and qkv_b.shape == (96,) and qkv_b.dtype == torch.float32
+    assert proj_w.shape == (32, 32) and tables.shape == (18, 16)
+    for w in range(8):
+        i, j = divmod(w % 4, 2)
+        for t in range(25):
+            pad = i * 5 + t // 5 >= 8 or j * 5 + t % 5 >= 8
+            assert (xn[w, t] == 0).all().item() == pad, (w, t)
+    assert 0.01 < qkv_w.float().std().item() < 0.03
+
+
+def test_the_k12_case_runs_the_plain_version_on_cpu():
+    """On CPU tensors the tool's K12 case is K12's plain version, finite, and
+    the turn script builds K12's source and takes the case from this module."""
+    args, kw = ab_attention.k12_case("cpu", **K12_SMALL)
+    out = attn_k.window_block_attention(*args, **kw)
+    assert torch.equal(out, attn_k.window_block_attention_plain(*args, **kw))
+    assert torch.isfinite(out.float()).all() and out.float().abs().max().item() > 0
+    assert '"block_attention"' in ab_attention.TURN and "k12_case" in ab_attention.TURN
+    assert '"K12"' in ab_attention.TURN
 
 
 def test_a_group_asked_alone_draws_first():
