@@ -115,6 +115,26 @@
    once) and holds K12 at ViT-B's and ViT-L's geometry (``K12_SHAPES``:
    clusters of 6 and 8 blocks of two heads of 64) against its plain version,
    three calls giving the same bits, and stressed with its planted faults;
+4k. drives the pipeline path, the CLIs' own loops at full width, each run
+   counted: ``engine/embeddings.py:encode_images`` (the loop of
+   ``precompute_embeddings``) with the compact bf16 serving encoder at the
+   CLI's default batch of 8 over 24 seeded grayscale X-rays of 1280x640
+   (resized on the host by ``resize_longest_side_np`` in its loader
+   threads) into an in-memory store (K1 = K3 96, K5 84, K6 168, K7 12 and no
+   other), every written embedding bit for bit the bare ``encode`` of its
+   batch; a seeded full-width U-Net (base 64, 17 classes) on the 384x224
+   grid, card (TF32 convolutions, PyTorch's default) against CPU (fp32)
+   within ``UNET_TOL``; ``cli/save_refined_segmentations.py:refine_images``
+   at ``--img_batch`` 8 over the same 24 stems on those embeddings (K8 once
+   per batch and nothing else of the port's), the written masks (bit-packed
+   on the card, unpacked on the host) and Dice bit for bit
+   ``SegEnhance.enhance_batch`` on the same probability maps; the same two
+   steps in int8 (K2 = K4 96, K5 84, K6 168, K7-int8 12), and int8's drift
+   from bf16 through them (mean and min IoU of the 24 x 17 refined masks,
+   the largest ``estimated_dice`` difference); each run's images/s (the
+   precompute's beside the bare encoder's at batch 8), its phases
+   (``PhaseTimer``) and the card's idle share over it; the kernels line
+   gets each of its kernels at its first batch's call shapes;
 5. holds each kernel against its plain PyTorch version on the card, on the
    inputs each of its paths gives it (the flat rows and windows; the
    compact stream's: K1-K4 on 8416 rows, K5 on 32 windows and K6, both
@@ -416,6 +436,22 @@ ENHANCE_N = 16
 ENH_ORIGINAL_HW = (2304, 1344)   # the grid x 6
 ENH_INPUT_HW = (1024, 597)       # its resize-longest-side to 1024
 TWO_ROUNDS = [["box"], ["pos_points", "neg_points"]]
+# the pipeline path (the CLIs' own loops: engine/embeddings.py:encode_images,
+# cli/save_refined_segmentations.py:refine_images): PIPE_N seeded grayscale
+# X-rays of PIPE_HW through the precompute at the CLI's default batch and
+# dtype (bf16, --quantize unset; then int8), into an in-memory store, then
+# the sweep at the CLI's default --img_batch over the U-Net grid, with a
+# seeded full-width U-Net (base 64, 17 classes)
+PIPE_N, PIPE_BATCH = 24, 8
+PIPE_HW = (1280, 640)
+# the U-Net's cuDNN convolutions run in TF32 under PyTorch's default
+# (torch.backends.cudnn.allow_tf32), as the CLIs run them: every operand is
+# rounded to 10 mantissa bits (u = 2^-11), so each product is within ~2u of
+# fp32's, a sum of them within ~2u of its scale, and 19 convolutions with
+# instance norms between them within ~sqrt(19) * 2u = 4.4e-3 of the logits'
+# scale; UNET_TOL is twice that, of max |logit| on the CPU (fp32), and the
+# probabilities within a quarter of it (the sigmoid's slope is at most 1/4)
+UNET_TOL = 1e-2
 # K8 on stressed maps runs truncated at a cap that is not a multiple of the
 # check interval (16), and to the fixpoint, at the path's check interval and
 # at one that holds several of the register kernel's barrier groups
@@ -1591,6 +1627,12 @@ def phase_k8(torch, np, kccl, recorded, gen_np) -> dict:
             f"(must be >= {FAULT_MARGIN:g})")
         check(misses >= FAULT_MARGIN, f"K8: the stressed check cannot see '{what}'")
 
+    return k8_numbers(torch, kccl, mask, cap, check_every, steps, err)
+
+
+def k8_numbers(torch, kccl, mask, cap, check_every, steps, err) -> dict:
+    """K8's row numbers on one input: its time, its plain version's, and its
+    bound for this input's steps (the plain version's ``steps`` per map)."""
     ms = card_ms(torch, lambda: kccl.propagate(mask, cap, check_every))
     plain_ms = card_ms(torch, lambda: kccl.propagate_plain(mask, cap, check_every),
                        iters=2, warmup=1)
@@ -3413,6 +3455,337 @@ def phase_medsam(torch, cfg, model, make_serving_encoder, KERNEL_OPS, imgs) -> N
     check(torch.equal(emb, same), "the MedSAM encode differs from the encoder on its input")
 
 
+def pipeline_modules():
+    """The port's pipeline loops and stores, as one namespace (none of them
+    needs h5py, cv2, pandas, tqdm or PIL)."""
+    from types import SimpleNamespace
+
+    from samcarriestheburden_torch.cli.save_refined_segmentations import refine_images
+    from samcarriestheburden_torch.config import (GRAZ_IMG_MEAN, GRAZ_IMG_STD, UNET_INPUT_HW,
+                                                  UNetConfig)
+    from samcarriestheburden_torch.data.h5io import MemoryEmbeddings, MemoryMasks
+    from samcarriestheburden_torch.engine.embeddings import encode_images
+    from samcarriestheburden_torch.models.unet import build_unet, unet_probabilities
+    from samcarriestheburden_torch.ops.resize import resize_longest_side_np
+    from samcarriestheburden_torch.profiling import PhaseTimer
+
+    return SimpleNamespace(
+        refine_images=refine_images, UNetConfig=UNetConfig, GRAZ_IMG_MEAN=GRAZ_IMG_MEAN,
+        GRAZ_IMG_STD=GRAZ_IMG_STD, UNET_INPUT_HW=UNET_INPUT_HW, MemoryEmbeddings=MemoryEmbeddings,
+        MemoryMasks=MemoryMasks, encode_images=encode_images, build_unet=build_unet,
+        unet_probabilities=unet_probabilities, resize_longest_side_np=resize_longest_side_np,
+        PhaseTimer=PhaseTimer)
+
+
+def pipeline_images(np, torch, n: int, hw, grid_hw):
+    """``n`` seeded grayscale X-rays of ``hw`` as the precompute's reader
+    decodes them (HW uint8, ``cv2.IMREAD_GRAYSCALE``), and each on the U-Net
+    grid (bilinear, half-pixel centres, no antialiasing: the CLI's cv2
+    ``INTER_LINEAR``, here through torch as the card's machine has no cv2)."""
+    rng = np.random.default_rng(21)
+    gray = rng.integers(0, 256, (n, *hw), dtype=np.uint8)
+    stems = [f"xray{i:02d}" for i in range(n)]
+    grid = torch.nn.functional.interpolate(torch.from_numpy(gray)[:, None].float(),
+                                           size=grid_hw, mode="bilinear",
+                                           align_corners=False)
+    grid = grid[:, 0].round().clamp(0, 255).to(torch.uint8).numpy()
+    return stems, dict(zip(stems, gray)), dict(zip(stems, grid))
+
+
+def precompute_batches(np, torch, pipe, xrays, stems, size: int, dev):
+    """The padded (B, 3, S, S) batches and (B, 2) sizes ``encode_images``
+    makes of ``stems``, PIPE_BATCH at a time: each X-ray in three equal
+    channels (``cv2.COLOR_GRAY2RGB``), resized by ``resize_longest_side_np``."""
+    out = []
+    for start in range(0, len(stems), PIPE_BATCH):
+        imgs = torch.zeros((PIPE_BATCH, 3, size, size), dtype=torch.uint8)
+        sizes = torch.ones((PIPE_BATCH, 2), dtype=torch.int32)
+        for i, stem in enumerate(stems[start:start + PIPE_BATCH]):
+            r = pipe.resize_longest_side_np(np.repeat(xrays[stem][..., None], 3, axis=2), size)
+            imgs[i, :, :r.shape[0], :r.shape[1]] = torch.from_numpy(r.transpose(2, 0, 1))
+            sizes[i] = torch.tensor(r.shape[:2])
+        out.append((imgs.to(dev), sizes.to(dev)))
+    return out
+
+
+def run_precompute(torch, pipe, encode, packed, stems, xrays, size, dev, timer=None):
+    """``encode_images`` over the stems into a fresh in-memory store; returns it."""
+    store = pipe.MemoryEmbeddings(size)
+    pipe.encode_images(encode, packed, stems, xrays.__getitem__, store, img_size=size,
+                       device=dev, batch_size=PIPE_BATCH, timer=timer)
+    torch.cuda.synchronize()
+    return store
+
+
+def phase_pipeline_precompute(torch, np, kernels, pipe, model, make_serving_encoder,
+                              quantize, inputs):
+    """One precompute of the pipeline path (``quantize``: None for bf16, or
+    "int8"), counted; every written embedding against the bare ``encode``
+    call on the same padded batch, bit for bit; then its images/s against the
+    bare encoder's at the same batch, its phases and its idle share.
+    Returns the counted run's launches and the store."""
+    stems, xrays, batches = inputs
+    what = f"pipeline precompute ({quantize or 'bf16'})"
+    size, dev = model.img_size, model.device
+    encode, packed = make_serving_encoder(model, torch.bfloat16, quantize=quantize)
+    run_precompute(torch, pipe, encode, packed, stems[:PIPE_BATCH], xrays, size, dev)   # warm-up
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    store = run_precompute(torch, pipe, encode, packed, stems, xrays, size, dev)
+    t_once = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n_batches = len(batches)
+    enc = model.cfg.image_encoder
+    n_global = len(enc.global_attn_indexes)
+    n_windowed = enc.depth - n_global
+    want = dict.fromkeys(launches, 0)
+    want.update({"K5": n_windowed * n_batches, "K6": 2 * n_windowed * n_batches})
+    want.update({"K2": enc.depth * n_batches, "K4": enc.depth * n_batches,
+                 "K7-int8": n_global * n_batches} if quantize else
+                {"K1": enc.depth * n_batches, "K3": enc.depth * n_batches,
+                 "K7": n_global * n_batches})
+    log(f"{what} launches: {launches} ({t_once * 1e3:.1f} ms for {len(stems)} images in "
+        f"{n_batches} batches of {PIPE_BATCH}, first counted call)")
+    check(launches == want, f"{what} launches {launches}, expected {want}")
+    check(store.stems() == stems, f"{what} wrote {store.stems()}")
+
+    # every embedding is the bare encoder's on the same padded batch
+    worst = 0.0
+    for b, (imgs, sizes) in enumerate(batches):
+        bare = encode(packed, imgs, sizes).cpu().numpy()
+        for i, stem in enumerate(stems[b * PIPE_BATCH:(b + 1) * PIPE_BATCH]):
+            got = store.features(stem)
+            check(got.shape == (1, *bare.shape[1:]) and got.dtype == np.float32,
+                  f"{what}: {stem} has {got.shape} {got.dtype}")
+            worst = max(worst, float(np.abs(got - bare[i:i + 1]).max()))
+            original, input_size = store.sizes(stem)
+            check(tuple(original) == PIPE_HW and tuple(input_size) == tuple(
+                sizes[i].tolist()), f"{what}: {stem}'s sizes {original}, {input_size}")
+    log(f"{what}: every written embedding against the bare encode of its batch: max abs "
+        f"err {worst:.4g} (tol 0)")
+    check(worst == 0.0, f"{what}: a written embedding differs from the bare encode")
+    check(all(np.isfinite(store.features(s)).all() for s in stems),
+          f"{what}: non-finite embedding")
+
+    # throughput: the loop against the bare encoder at the same batch, with
+    # each batch's host dispatch and device span on one clock (events recorded
+    # around each encode call on the loop's stream); phases; idle share
+    timer = pipe.PhaseTimer(sync=False)
+    spans = []
+
+    def timed_encode(p, imgs, sizes):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        out = encode(p, imgs, sizes)
+        end.record()
+        spans.append((h0, time.perf_counter(), start, end))
+        return out
+
+    origin = torch.cuda.Event(enable_timing=True)
+    origin.record()
+    t0 = time.perf_counter()
+    run_precompute(torch, pipe, timed_encode, packed, stems, xrays, size, dev, timer)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    ips = len(stems) / (wall_ms / 1e3)
+    device = [(origin.elapsed_time(a), origin.elapsed_time(b)) for _, _, a, b in spans]
+    log(f"{what} timeline (ms from the run's start): " + "; ".join(
+        f"batch {i}: host dispatch {(h0 - t0) * 1e3:.1f}-{(h1 - t0) * 1e3:.1f}, device "
+        f"{d0:.1f}-{d1:.1f}" for i, ((h0, h1, _, _), (d0, d1)) in enumerate(zip(spans, device)))
+        + f"; wall {wall_ms:.1f}")
+    gaps = [b[0] - a[1] for a, b in zip(device, device[1:])]
+    span_ips = len(stems) / ((device[-1][1] - device[0][0]) / 1e3)
+    imgs, sizes = batches[0]
+    bare_ms = card_ms(torch, lambda: encode(packed, imgs, sizes), iters=5, warmup=1)
+    bare_ips = PIPE_BATCH / (bare_ms / 1e3)
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    encode(packed, imgs, sizes)
+    dispatch_ms = (time.perf_counter() - h0) * 1e3
+    torch.cuda.synchronize()
+    log(f"{what}: {ips:.3f} images/s through encode_images; the bare encoder "
+        f"{bare_ips:.3f} images/s ({bare_ms:.2f} ms per batch of {PIPE_BATCH}; its host "
+        f"dispatch alone {dispatch_ms:.2f} ms); ratio {ips / bare_ips:.4f}; the device's "
+        f"first batch starts {device[0][0]:.1f} ms in (the first load), the gaps between "
+        f"batches {', '.join(f'{g:.2f}' for g in gaps)} ms, {span_ips:.3f} images/s over "
+        f"the device's span (ratio {span_ips / bare_ips:.4f})")
+    log(f"{what} phases (host clock, sync=False): {json.dumps(timer.report())}")
+    idle = phase_profile(torch, lambda: run_precompute(torch, pipe, encode, packed, stems, xrays,
+                                                       size, dev), what, top=8)
+    return launches, store, {"images_per_s": ips, "bare_images_per_s": bare_ips,
+                             "device_span_images_per_s": span_ips,
+                             "first_batch_start_ms": device[0][0], "gaps_ms": gaps,
+                             "idle_share": idle, "phases": timer.report()}
+
+
+def phase_pipeline_sweep(torch, np, port, pipe, model, unet, store, inputs, what: str):
+    """One refinement sweep of the pipeline path over ``store``'s embeddings,
+    counted (K8 once per batch and nothing else of the port's); the written
+    masks (bit-packed on the card, unpacked on the host, through the
+    in-memory writer) and Dice against ``SegEnhance.enhance_batch`` called
+    directly on the same probability maps, bit for bit; then its images/s,
+    phases and idle share.  Returns the launches, the mask store, the
+    probability maps of each batch and K8's recorded input."""
+    stems, grid = inputs
+    head = port.SamMaskDecoderHead(None, "vit_h", store, device=model.device, params=model,
+                                   cfg=model.cfg)
+    enh = port.SegEnhance(port.SamSegRefiner(head, prompts2use=TWO_ROUNDS),
+                          "highest_probability", "dilation", "square", 8)
+    seen, k8_in = [], []
+    direct = enh.enhance_batch
+    propagate = port.kccl.propagate
+
+    def recording_enhance(segs, names):
+        seen.append((segs.clone(), list(names)))
+        return direct(segs, names)
+
+    def recording_propagate(mask, num_iterations, check_every=16):
+        k8_in.append((mask, num_iterations, check_every))
+        return propagate(mask, num_iterations, check_every)
+
+    def sweep(timer=None):
+        masks = pipe.MemoryMasks()
+        pipe.refine_images(unet, enh, stems, grid.__getitem__, masks, img_batch=PIPE_BATCH,
+                           timer=timer)
+        torch.cuda.synchronize()
+        return masks
+
+    sweep()                                               # warm-up
+    enh.enhance_batch = recording_enhance
+    port.kccl.propagate = recording_propagate
+    try:
+        port.kernels.reset_launches()
+        t0 = time.perf_counter()
+        masks = sweep()
+        t_once = time.perf_counter() - t0
+        launches = dict(port.kernels.LAUNCHES)
+    finally:
+        port.kccl.propagate = propagate
+        enh.enhance_batch = direct
+    n_batches = -(-len(stems) // PIPE_BATCH)
+    want = dict.fromkeys(launches, 0)
+    want["K8"] = n_batches
+    log(f"{what} launches: {launches} ({t_once * 1e3:.1f} ms for {len(stems)} images, "
+        f"first counted call)")
+    check(launches == want, f"{what} launches {launches}, expected {want}")
+    check(masks.stems() == stems and len(seen) == n_batches,
+          f"{what} wrote {masks.stems()} in {len(seen)} enhance_batch calls")
+
+    seeded = 0
+    for segs, names in seen:
+        refined, est = direct(segs, names)
+        refined, est = refined.cpu().numpy(), est.cpu().numpy()
+        seeded += int(np.isfinite(est).sum())
+        for i, stem in enumerate(names):
+            got = masks.masks(stem)
+            check(got.dtype == np.uint8 and got.shape == refined[i].shape,
+                  f"{what}: {stem}'s masks {got.dtype} {got.shape}")
+            check(np.array_equal(got, refined[i].astype(np.uint8)),
+                  f"{what}: {stem}'s written masks differ from enhance_batch's")
+            check(np.array_equal(masks.estimated_dice(stem), est[i], equal_nan=True),
+                  f"{what}: {stem}'s written estimated_dice differs from enhance_batch's")
+    total = len(stems) * port.N_CLASSES
+    log(f"{what}: the written masks and Dice equal enhance_batch's on the same probability "
+        f"maps, bit for bit; {seeded} of {total} classes seeded (decoded by SAM)")
+    check(seeded > 0, f"{what}: no class was seeded, so no mask was decoded")
+
+    timer = pipe.PhaseTimer(sync=False)
+    t0 = time.perf_counter()
+    sweep(timer)
+    ips = len(stems) / (time.perf_counter() - t0)
+    log(f"{what}: {ips:.3f} images/s through refine_images (img_batch {PIPE_BATCH})")
+    log(f"{what} phases (host clock, sync=False): {json.dumps(timer.report())}")
+    idle = phase_profile(torch, sweep, what, top=8)
+    return launches, masks, [s for s, _ in seen], k8_in[0], {
+        "images_per_s": ips, "idle_share": idle, "phases": timer.report()}
+
+
+def phase_pipeline(torch, np, kernels, port, model, make_serving_encoder):
+    """The pipeline path at full width (module docstring, 3b): the precompute
+    and the sweep in bf16, the U-Net on the card against the CPU, the same
+    two steps in int8 and int8's drift from bf16 through them.  Runs with
+    PyTorch's default convolution precision, as the CLIs do.  Returns
+    {path: launches}, the bf16 sweep's recorded K8 input and the first
+    padded batch of the precompute."""
+    pipe = pipeline_modules()
+    dev = model.device
+    stems, xrays, grid = pipeline_images(np, torch, PIPE_N, PIPE_HW, pipe.UNET_INPUT_HW)
+    batches = precompute_batches(np, torch, pipe, xrays, stems, model.img_size, dev)
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True                # PyTorch's default
+    try:
+        launches_e, store, num_e = phase_pipeline_precompute(
+            torch, np, kernels, pipe, model, make_serving_encoder, None, (stems, xrays, batches))
+
+        # the U-Net: seeded at full width; its output layer scaled so that each
+        # class covers a few percent of the pixels and classes rarely overlap,
+        # as a trained U-Net's do (at init every class covers about half of
+        # every image, so no class would have a seed)
+        unet = pipe.build_unet(pipe.UNetConfig(), device=dev, seed=0)
+        with torch.no_grad():
+            unet.outc.conv.weight.mul_(3)
+            unet.outc.conv.bias.fill_(-3)
+        x = torch.from_numpy(np.stack([grid[s] for s in stems[:2]]))
+        cpu_unet = pipe.build_unet(pipe.UNetConfig(), device="cpu", state_dict={
+            k: v.cpu() for k, v in unet.state_dict().items()})
+        xn = (x[:, None].float() / 255.0 - pipe.GRAZ_IMG_MEAN) / pipe.GRAZ_IMG_STD
+        with torch.no_grad():
+            logit_g = unet(xn.to(dev)).cpu()
+            logit_c = cpu_unet(xn)
+        prob_g = pipe.unet_probabilities(unet, x).cpu()
+        prob_c = pipe.unet_probabilities(cpu_unet, x)
+        scale = logit_c.abs().max().item()
+        l_err = (logit_g - logit_c).abs().max().item()
+        p_err = (prob_g - prob_c).abs().max().item()
+        log(f"U-Net (base 64, 17 classes, {tuple(x.shape)} uint8 on the grid) card (TF32 "
+            f"convolutions) vs CPU (fp32): logits max abs err {l_err:.4g} (tol {UNET_TOL} x "
+            f"{scale:.4g}), probabilities {p_err:.4g} (tol {UNET_TOL / 4 * scale:.4g})")
+        check(l_err <= UNET_TOL * scale and p_err <= UNET_TOL / 4 * scale,
+              "the U-Net on the card disagrees with the CPU")
+        del cpu_unet
+        u_ms = card_ms(torch, lambda: pipe.unet_probabilities(
+            unet, torch.from_numpy(np.stack([grid[s] for s in stems[:PIPE_BATCH]]))),
+            iters=5, warmup=1)
+        log(f"U-Net probabilities: {u_ms:.2f} ms per batch of {PIPE_BATCH} (uint8 host "
+            f"images copied up, TF32 convolutions)")
+
+        launches_s, masks, probs, k8_in, num_s = phase_pipeline_sweep(
+            torch, np, port, pipe, model, unet, store, (stems, grid), "pipeline sweep (bf16)")
+        launches_e8, store8, num_e8 = phase_pipeline_precompute(
+            torch, np, kernels, pipe, model, make_serving_encoder, "int8", (stems, xrays, batches))
+        launches_s8, masks8, probs8, _, num_s8 = phase_pipeline_sweep(
+            torch, np, port, pipe, model, unet, store8, (stems, grid), "pipeline sweep (int8)")
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+    same_probs = all(torch.equal(a, b) for a, b in zip(probs, probs8))
+    ious, diffs, nan_flips = [], [], 0
+    for stem in stems:
+        a, b = masks.masks(stem).astype(bool), masks8.masks(stem).astype(bool)
+        inter = (a & b).sum(axis=(1, 2))
+        union = (a | b).sum(axis=(1, 2))
+        ious.extend(np.where(union > 0, inter / np.maximum(union, 1), 1.0).tolist())
+        da, db = masks.estimated_dice(stem), masks8.estimated_dice(stem)
+        nan_flips += int((np.isnan(da) != np.isnan(db)).sum())
+        both = np.isfinite(da) & np.isfinite(db)
+        diffs.extend(np.abs(da[both] - db[both]).tolist())
+    drift = {"mean_iou": float(np.mean(ious)), "min_iou": float(np.min(ious)),
+             "max_dice_diff": float(max(diffs)) if diffs else None,
+             "dice_nan_flips": nan_flips, "same_unet_probabilities": same_probs}
+    log(f"int8 vs bf16 through embed + enhance ({len(stems)} x {port.N_CLASSES} refined "
+        f"masks): mean IoU {drift['mean_iou']:.6f}, min IoU {drift['min_iou']:.6f}; largest "
+        f"estimated_dice difference {drift['max_dice_diff']}; classes seeded in one and not "
+        f"the other {nan_flips}; U-Net probabilities the same bits in both sweeps: {same_probs}")
+    check(np.isfinite(ious).all(), "int8 drift: non-finite IoU")
+    numbers = {"precompute_bf16": num_e, "sweep_bf16": num_s, "precompute_int8": num_e8,
+               "sweep_int8": num_s8, "unet_batch_ms": u_ms, "int8_drift": drift}
+    log(f"pipeline numbers: {json.dumps(numbers)}")
+    return ({"pipeline": launches_e, "pipeline-int8": launches_e8,
+             "pipeline-sweep": launches_s, "pipeline-sweep-int8": launches_s8},
+            k8_in, batches[0])
+
+
 def smoke_images(torch, seed: int, dev):
     """B seeded uint8 images of INPUT_HW inside the padded square, and their sizes."""
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3581,6 +3954,11 @@ def main() -> int:
     del encode_c, packed_c, emb_c, encode_c8, packed_c8, emb_c8
     phase_medsam(torch, cfg, model, make_serving_encoder, KERNEL_OPS, imgs)
 
+    # 5e. the pipeline path: the precompute and the sweep through the CLIs'
+    # own loops (bf16, then int8), each counted; the U-Net card vs CPU
+    launches_pipe, k8_pipe, pipe_batch = phase_pipeline(
+        torch, np, kernels, port, model, make_serving_encoder)
+
     # 5d. the encoder's other block formulations: v1 (K9) and v2 (K12) at full
     # depth, v3 (K10, K11) as a run of blocks; every kernel they launch, K1, K3
     # and K7 too, recorded in the counted run with the launches of each of its
@@ -3688,6 +4066,32 @@ def main() -> int:
                     for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
     check(launches_c["K6"] == launches_c8["K6"] and launches_c["K5"] == launches_c8["K5"],
           "K5 and K6 launches differ between the compact paths")
+    # the pipeline path's rows: every kernel of its two counted precomputes at
+    # the call shapes of its first batch (recorded, as above, in a call of its
+    # own), with the launches of the counted run; K6's two shapes in one row
+    recorded_p = {}
+    for path, names, weights in (("pipeline", ("K1", "K3", "K5", "K7", "K6"), packed),
+                                 ("pipeline-int8", ("K2", "K4", "K5", "K7-int8", "K6"),
+                                  packed8)):
+        def pipe_key(name, args, kw, path=path):
+            return f"{name} {kw['rh']}x{kw['rw']} {path}" if name == "K6" else f"{name} {path}"
+        rec = recording_ops(KERNEL_OPS_INT8 if path.endswith("int8") else KERNEL_OPS,
+                            dict(zip(EncoderOps._fields, names)), kernels.LAUNCHES, pipe_key,
+                            recorded_p, {})
+        make_encode_batch(model, torch.bfloat16, ops=rec)(weights, *pipe_batch)
+        keys = sorted(k for k in recorded_p if k.endswith(" " + path))
+        check(sorted(k.split()[0] for k in keys) == sorted(names + ("K6",)),
+              f"the {path} path recorded {keys}")
+        k6_pipe = []
+        for key in keys:
+            name = key.split()[0]
+            (k6_pipe if name == "K6" else rows).append(
+                row_of(key, path, launches_pipe[path][name], *recorded_p[key], stress=False))
+        rows.append({**k6_pipe[0], "shape": [r["shape"] for r in k6_pipe],
+                     "max_abs_err": max(r["max_abs_err"] for r in k6_pipe),
+                     **{k: sum(r[k] for r in k6_pipe)
+                        for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
+    del recorded_p
     log(f"K6: {rows[-1]['ms']:.4f} ms for a block's two launches against a bound of "
         f"{rows[-1]['bound_ms']:.4f} ms by bytes: each launch fills the card at most once, so "
         f"launch latency, not the bound, sets its time")
@@ -3721,6 +4125,20 @@ def main() -> int:
     rows.append({"name": "K8", "path": "enhance", "shape": list(k8_input[0].shape),
                  "route": "cuda", "source": KERNELS["K8"][1],
                  "replaces": KERNELS["K8"][2], "launches": launches_enh["K8"], **k8})
+    # K8 on the pipeline sweep's first batch: labels, flags and steps bit for bit
+    mask_p, cap_p, every_p = k8_pipe
+    out_k = port.kccl.propagate(mask_p, cap_p, every_p)
+    out_p = port.kccl.propagate_plain(mask_p, cap_p, every_p)
+    log(f"K8 on the pipeline sweep's {tuple(mask_p.shape)}: labels, flags and steps equal "
+        f"to its plain version: {k8_equal(torch, out_k, out_p)}")
+    check(k8_equal(torch, out_k, out_p), "K8 disagrees with its plain version on the "
+          "pipeline sweep's maps")
+    rows.append({"name": "K8", "path": "pipeline-sweep", "shape": list(mask_p.shape),
+                 "route": "cuda", "source": KERNELS["K8"][1], "replaces": KERNELS["K8"][2],
+                 "launches": launches_pipe["pipeline-sweep"]["K8"],
+                 **k8_numbers(torch, port.kccl, mask_p, cap_p, every_p, out_p[2],
+                              (out_k[0].long() - out_p[0].long()).abs().max().item())})
+    del k8_pipe, mask_p, out_k, out_p
 
     # 6b. the bench's path at a reduced size, counted (K13 launches there); the
     # int8 p.v A/B tool, counted; K7-pv and K7-int8pv against their plain

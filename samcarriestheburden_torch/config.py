@@ -1,4 +1,5 @@
-"""Configuration dataclasses of the SAM model family.
+"""Configuration dataclasses of the SAM model family, the U-Net and the
+refinement engine, and the GrazPedWri dataset constants.
 
 Mirrors ``samcarriestheburden_tpu/config.py`` field for field, so a config
 serialised by either package loads in the other.  Kept as a separate copy:
@@ -10,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 class _ConfigBase:
@@ -18,6 +19,10 @@ class _ConfigBase:
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), sort_keys=True)
+
+    @classmethod
+    def from_json(cls, payload: str):
+        return cls(**json.loads(payload))
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
@@ -145,8 +150,66 @@ def sam_vit_t_config(img_size: int = 128) -> SamConfig:
     )
 
 
-#: The 17 wrist-bone classes of GrazPedWri (reference seg_grazpedwri_dataset.py:26-43).
-N_CLASSES = 17
+@dataclass(frozen=True)
+class UNetConfig(_ConfigBase):
+    """Classic 4-down/4-up U-Net (reference custom_arcitecture/classic_u_net.py:81-106)."""
+
+    n_channels: int = 1
+    n_classes: int = 17
+    bilinear: bool = False
+    n_last_channel: int = 64
+    base_channels: int = 64
+
+
+@dataclass(frozen=True)
+class RefineConfig(_ConfigBase):
+    """The authors' HPO-selected refinement knobs
+    (reference scripts/save_refined_segmentations.py:25-31)."""
+
+    prompts_first: Tuple[str, ...] = ("box",)
+    prompts_second: Optional[Tuple[str, ...]] = ("pos_points", "neg_points")
+    ccl_selection: Optional[str] = "highest_probability"  # 'largest' | 'highest_probability' | None
+    morph_op: str = "dilation"  # 'erosion' | 'dilation'
+    struct_element: str = "square"  # 'square' | 'disk' | 'diamond' | 'star'
+    radius: int = 8
+    max_neg_seeds: int = 16  # static padded capacity for vmapped prompts (N_CLASSES-1)
+
+    @classmethod
+    def from_json(cls, payload: str) -> "RefineConfig":
+        raw = json.loads(payload)
+        raw["prompts_first"] = tuple(raw["prompts_first"])
+        if raw.get("prompts_second") is not None:
+            raw["prompts_second"] = tuple(raw["prompts_second"])
+        return cls(**raw)
+
+
+#: Per-channel normalisation over the GrazPedWri training split
+#: (reference scripts/seg_grazpedwri_dataset.py:22-23).
+GRAZ_IMG_MEAN = 0.3505533917353781
+GRAZ_IMG_STD = 0.22763733675869177
+
+#: The 17 wrist-bone classes of GrazPedWri, sorted (reference seg_grazpedwri_dataset.py:26-43).
+BONE_LABEL: Tuple[str, ...] = tuple(sorted([
+    "Radius",
+    "Ulna",
+    "Os scaphoideum",
+    "Os lunatum",
+    "Os triquetrum",
+    "Os pisiforme",
+    "Os trapezium",
+    "Os trapezoideum",
+    "Os capitatum",
+    "Os hamatum",
+    "Ossa metacarpalia I",
+    "Ossa metacarpalia II",
+    "Ossa metacarpalia III",
+    "Ossa metacarpalia IV",
+    "Ossa metacarpalia V",
+    "Epiphyse Radius",
+    "Epiphyse Ulna",
+]))
+BONE_LABEL_MAPPING = {k: v for v, k in enumerate(BONE_LABEL)}
+N_CLASSES = len(BONE_LABEL)
 
 #: U-Net input resolution (H, W), the grid the refinement lands on
 #: (reference seg_grazpedwri_dataset.py:51).

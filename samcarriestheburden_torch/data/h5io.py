@@ -1,21 +1,30 @@
-"""HDF5 embedding store, the same schema as the JAX package's ``data/h5io.py``
-(reference scripts/generate_img_embeddings.py:31-70), so files written by
-either package read in the other:
+"""HDF5 artifact stores, the same schemas as the JAX package's
+``data/h5io.py``, so files written by either package read in the other:
 
-``img_embedding/<stem>/features`` float32 (1, 256, 64, 64) with per-image
-attrs ``original_size`` (2,) and ``input_size`` (2,); file attrs
-``checkpoint`` (the weights' file name) and ``img_encoder_img_size``.
+* embeddings (reference scripts/generate_img_embeddings.py:31-70):
+  ``img_embedding/<stem>/features`` float32 (1, 256, 64, 64) with per-image
+  attrs ``original_size`` (2,) and ``input_size`` (2,); file attrs
+  ``checkpoint`` (the weights' file name) and ``img_encoder_img_size``;
+* masks (reference scripts/save_segmentations.py:36-56,
+  save_refined_segmentations.py:49-81): ``segmentation_mask/<stem>`` (C, H,
+  W) with file attr ``labels`` (JSON label -> index) and an optional
+  per-image attr ``estimated_dice`` (C,).
 
 ``h5py`` is imported when a file is opened, not with this module: the port
-runs without it wherever no h5 file is read or written.
+runs without it wherever no h5 file is read or written, and
+:class:`MemoryEmbeddings` and :class:`MemoryMasks` hold the same records in
+memory.
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
-from typing import List, Optional, Set, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
+
+from samcarriestheburden_torch.config import BONE_LABEL_MAPPING
 
 
 class EmbeddingWriter:
@@ -96,15 +105,25 @@ class EmbeddingReader:
 class MemoryEmbeddings:
     """Embeddings held in memory (on any device), read as
     :class:`EmbeddingReader` reads an h5 file: ``features(stem)`` (1, C, G, G)
-    and ``sizes(stem)`` (original, input).  For runs that make their
-    embeddings themselves (the bench, ``chip_smoke.py``) and machines without
-    ``h5py``."""
+    and ``sizes(stem)`` (original, input); written as
+    :class:`EmbeddingWriter` writes one, ``write`` keeping a copy.  For runs
+    that make their embeddings themselves (the bench, ``chip_smoke.py``) and
+    machines without ``h5py``."""
 
-    def __init__(self, img_encoder_img_size: int, features: dict, sizes: dict,
-                 checkpoint: str = "random-weights"):
+    def __init__(self, img_encoder_img_size: int, features: Optional[dict] = None,
+                 sizes: Optional[dict] = None, checkpoint: str = "random-weights"):
         self.img_encoder_img_size = img_encoder_img_size
         self.checkpoint = checkpoint
-        self._features, self._sizes = features, sizes
+        self._features = {} if features is None else features
+        self._sizes = {} if sizes is None else sizes
+
+    def write(self, stem: str, features, original_size: Tuple[int, int],
+              input_size: Tuple[int, int]) -> None:
+        self._features[stem] = np.array(features, np.float32)
+        self._sizes[stem] = (np.asarray(original_size), np.asarray(input_size))
+
+    def existing_stems(self) -> Set[str]:
+        return set(self._features)
 
     def stems(self) -> List[str]:
         return list(self._features)
@@ -114,3 +133,85 @@ class MemoryEmbeddings:
 
     def sizes(self, stem: str):
         return self._sizes[stem]
+
+
+class MaskWriter:
+    def __init__(self, path, labels: Dict[str, int] = None, attrs: dict = None):
+        import h5py
+
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        self.f = h5py.File(path, "w")
+        self.f.attrs["labels"] = json.dumps(labels or BONE_LABEL_MAPPING)
+        for k, v in (attrs or {}).items():
+            self.f.attrs[k] = v
+
+    def write(self, stem: str, masks, estimated_dice=None, compression="gzip",
+              compression_opts=9) -> None:
+        ds = self.f.create_dataset(f"segmentation_mask/{stem}", data=np.asarray(masks),
+                                   compression=compression, compression_opts=compression_opts)
+        if estimated_dice is not None:
+            ds.attrs["estimated_dice"] = np.asarray(estimated_dice)
+
+    def close(self) -> None:
+        self.f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class MaskReader:
+    def __init__(self, path, check_labels: bool = True):
+        import h5py
+
+        self.f = h5py.File(path, "r")
+        self.labels = json.loads(self.f.attrs["labels"])
+        if check_labels and self.labels != BONE_LABEL_MAPPING:
+            self.f.close()
+            raise ValueError("Loaded labels do not match")
+        self.group = self.f["segmentation_mask"]
+
+    def stems(self) -> List[str]:
+        return list(self.group.keys())
+
+    def masks(self, stem: str) -> np.ndarray:
+        return self.group[stem][:]
+
+    def estimated_dice(self, stem: str) -> np.ndarray:
+        return np.asarray(self.group[stem].attrs.get("estimated_dice"))
+
+    def close(self) -> None:
+        self.f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class MemoryMasks:
+    """Masks held in memory, written as :class:`MaskWriter` writes a file
+    (``write`` keeping a copy) and read as :class:`MaskReader` reads one.
+    For machines without ``h5py`` (``chip_smoke.py``)."""
+
+    def __init__(self, labels: Dict[str, int] = None):
+        self.labels = dict(labels or BONE_LABEL_MAPPING)
+        self._masks: Dict[str, np.ndarray] = {}
+        self._dice: Dict[str, np.ndarray] = {}
+
+    def write(self, stem: str, masks, estimated_dice=None) -> None:
+        self._masks[stem] = np.array(masks)
+        if estimated_dice is not None:
+            self._dice[stem] = np.array(estimated_dice)
+
+    def stems(self) -> List[str]:
+        return list(self._masks)
+
+    def masks(self, stem: str) -> np.ndarray:
+        return self._masks[stem]
+
+    def estimated_dice(self, stem: str) -> np.ndarray:
+        return np.asarray(self._dice.get(stem))

@@ -17,6 +17,12 @@ Three sources:
   a reference SAM state dict (``sam_vit_h_4b8939.pth`` and the goldens'
   ``sd/`` keys), whose names are already this package's.
 
+* :func:`unet_state_dict_from_jax` maps the JAX package's U-Net pytree to
+  :class:`~samcarriestheburden_torch.models.unet.UNet`'s state dict (the
+  same conventions); :func:`unet_params_from_torch` is its inverse (JAX
+  ``unet_params_from_torch``), for files the JAX package reads;
+  :func:`load_reference_unet` reads a reference U-Net bundle.
+
 * :func:`encoder_pack_from_jax_prequantized` carries the JAX package's
   *prequantized* encoder blocks (its ``models/quantize.py`` pytree: int8
   ``qkv_hm`` with 128-lane head padding, int8 ``mlp.lin1``/``lin2``) across
@@ -30,7 +36,7 @@ from typing import Dict, List, Mapping
 import numpy as np
 import torch
 
-from samcarriestheburden_torch.config import ImageEncoderConfig, SamConfig
+from samcarriestheburden_torch.config import ImageEncoderConfig, SamConfig, UNetConfig
 from samcarriestheburden_torch.kernels.attention import prepare_rel_tables
 
 StateDict = Dict[str, torch.Tensor]
@@ -141,6 +147,83 @@ def sam_state_dict_from_jax(params: Mapping, cfg: SamConfig) -> StateDict:
     _prompt_encoder(sd, params["prompt_encoder"], "prompt_encoder.")
     _mask_decoder(sd, params["mask_decoder"], "mask_decoder.")
     return sd
+
+
+def _double_conv(sd: StateDict, prefix: str, p: Mapping) -> None:
+    # Sequential: 0 conv, 1 InstanceNorm, 2 LeakyReLU, 3 conv, 4 InstanceNorm
+    _conv(sd, prefix + ".double_conv.0", p["conv1"])
+    _ln(sd, prefix + ".double_conv.1", p["in1"])
+    _conv(sd, prefix + ".double_conv.3", p["conv2"])
+    _ln(sd, prefix + ".double_conv.4", p["in2"])
+
+
+#: (JAX key, state dict prefix) of every double conv of the U-Net
+UNET_BLOCKS = ([("inc", "inc")] + [(f"down{i}", f"down{i}.maxpool_conv.1") for i in range(1, 5)]
+               + [(f"up{i}", f"up{i}.conv") for i in range(1, 5)])
+
+
+def unet_state_dict_from_jax(params: Mapping, cfg: UNetConfig) -> StateDict:
+    """The JAX package's U-Net params (``unet.init`` / ``unet_params_from_torch``
+    layout, numpy leaves) -> a state dict for ``UNet(cfg)``: HWIO convs back
+    to OIHW, the transposed convs' flipped (kh, kw, in, out) back to
+    (in, out, kh, kw)."""
+    sd: StateDict = {}
+    for key, prefix in UNET_BLOCKS:
+        node = params[key]["conv"] if key.startswith("up") else params[key]
+        _double_conv(sd, prefix, node)
+        if key.startswith("up") and not cfg.bilinear:
+            _conv_t(sd, f"{key}.up", params[key]["up"])
+    _conv(sd, "outc.conv", params["outc"])
+    return sd
+
+
+def _np(t) -> np.ndarray:
+    return np.asarray(t.detach().cpu() if isinstance(t, torch.Tensor) else t, np.float32)
+
+
+def unet_params_from_torch(sd: Mapping, cfg: UNetConfig) -> dict:
+    """A U-Net state dict (this package's or the reference's names) -> the
+    JAX package's params pytree of numpy arrays (JAX
+    ``convert.unet_params_from_torch``)."""
+    def conv(prefix, bias=True):
+        p = {"w": np.ascontiguousarray(_np(sd[prefix + ".weight"]).transpose(2, 3, 1, 0))}
+        if bias and prefix + ".bias" in sd:
+            p["b"] = _np(sd[prefix + ".bias"])
+        return p
+
+    def double_conv(prefix):
+        return {"conv1": conv(prefix + ".double_conv.0", bias=False),
+                "in1": {"scale": _np(sd[prefix + ".double_conv.1.weight"]),
+                        "bias": _np(sd[prefix + ".double_conv.1.bias"])},
+                "conv2": conv(prefix + ".double_conv.3", bias=False),
+                "in2": {"scale": _np(sd[prefix + ".double_conv.4.weight"]),
+                        "bias": _np(sd[prefix + ".double_conv.4.bias"])}}
+
+    params = {}
+    for key, prefix in UNET_BLOCKS:
+        params[key] = {"conv": double_conv(prefix)} if key.startswith("up") \
+            else double_conv(prefix)
+        if key.startswith("up") and not cfg.bilinear:
+            w = _np(sd[f"{key}.up.weight"]).transpose(2, 3, 0, 1)      # (kh, kw, in, out)
+            params[key]["up"] = {"w": np.ascontiguousarray(w[::-1, ::-1]),
+                                 "b": _np(sd[f"{key}.up.bias"])}
+    params["outc"] = conv("outc.conv")
+    return params
+
+
+def load_reference_unet(path):
+    """A reference LoadableModel U-Net bundle (``{'config', 'model_state'}``,
+    reference custom_arcitecture/modelio.py:67-86) -> (UNetConfig, state
+    dict); the names are already this package's (JAX ``load_reference_unet``)."""
+    with open(path, "rb") as f:
+        bundle = torch.load(f, map_location="cpu", weights_only=True)
+    if not (isinstance(bundle, dict) and "model_state" in bundle):
+        raise ValueError(f"{path} is not a LoadableModel bundle")
+    raw = bundle["config"]
+    cfg = UNetConfig(n_channels=raw["n_channels"], n_classes=raw["n_classes"],
+                     bilinear=raw.get("bilinear", False),
+                     n_last_channel=raw.get("n_last_channel", 64))
+    return cfg, {k: torch.as_tensor(v).float() for k, v in bundle["model_state"].items()}
 
 
 def _int8_linear(p: Mapping, keep=None):

@@ -1,10 +1,11 @@
 """Mask geometry (JAX ``ops/mask_ops.py``, reference segment_anything/utils/amg.py).
 
-Only what the enhance path uses; the automatic-mask-generation helpers come
-with the AMG port."""
+Only what the enhance path and the refinement sweep use; the
+automatic-mask-generation helpers come with the AMG port."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -28,3 +29,22 @@ def batched_mask_to_box(masks: torch.Tensor) -> torch.Tensor:
     empty = (right < left) | (bottom < top)
     box = torch.stack([left, top, right, bottom], dim=-1)
     return torch.where(empty[..., None], 0, box).int()
+
+
+def packbits_device(masks: torch.Tensor) -> torch.Tensor:
+    """Pack a boolean mask's last axis into uint8 on its device, bit order
+    little-endian: ``np.unpackbits(..., bitorder="little")`` reads it.  The
+    host fetch is 8x smaller than the bool mask's.  The last axis must be a
+    multiple of 8."""
+    *lead, w = masks.shape
+    if w % 8:
+        raise ValueError(f"the last axis ({w}) must be a multiple of 8")
+    b = masks.reshape(*lead, w // 8, 8).to(torch.uint8)
+    weights = 1 << torch.arange(8, dtype=torch.uint8, device=masks.device)
+    return (b * weights).sum(dim=-1, dtype=torch.uint8)
+
+
+def unpackbits_host(packed, w: int) -> np.ndarray:
+    """Inverse of :func:`packbits_device` on the host; returns bool (..., w)."""
+    flat = np.unpackbits(np.asarray(packed), axis=-1, bitorder="little")
+    return flat[..., :w].astype(bool)

@@ -27,6 +27,12 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "samcarriestheburden_torch"
 CHIP_SMOKE = ROOT / "chip_smoke.py"
 FORBIDDEN = ("jax", "jaxlib", "samcarriestheburden_tpu")
+#: what the card's machine may lack: imported only inside the functions that use it
+HOST_ONLY = ("h5py", "cv2", "pandas", "tqdm", "PIL")
+#: the pseudo-label pipeline's modules
+PIPELINE_MODULES = ("cli", "cli.common", "cli.generate_img_embeddings", "cli.save_segmentations",
+                    "cli.save_refined_segmentations", "cli.select_pseudo_labels", "data.cvat",
+                    "models.unet", "models.modelio", "models.build", "profiling")
 
 
 def _port_modules():
@@ -37,7 +43,8 @@ def _port_modules():
 def test_every_module_imports_without_jax():
     modules = _port_modules()
     for name in ("kernels.attention", "kernels.quant", "models.quantize", "kernels.cost_probe",
-                 "bench", "tools.bench_int8pv", "tools.exp_attn", "tools.exp_attn2"):
+                 "bench", "tools.bench_int8pv", "tools.exp_attn", "tools.exp_attn2",
+                 *PIPELINE_MODULES):
         assert f"samcarriestheburden_torch.{name}" in modules
     code = ("import sys\n"
             + "".join(f"sys.modules[{name!r}] = None\n" for name in FORBIDDEN)
@@ -50,15 +57,20 @@ def test_every_module_imports_without_jax():
 
 
 def test_every_module_imports_without_h5py():
-    """The card's machine has no h5py: the port imports it only where an h5
-    file is opened (``data/h5io.py``), never with a module."""
+    """The card's machine has no h5py, and nothing promises cv2, pandas, tqdm
+    or PIL there: the port imports each only inside the function that opens
+    a file or shows progress (``data/h5io.py``, the CLIs,
+    ``engine/embeddings.py:load_image_rgb``), never with a module; and
+    ``chip_smoke.py`` drives the pipeline's loops without them."""
     modules = _port_modules()
-    for name in ("data.h5io", "engine.decoder_head", "engine.refinement", "kernels.ccl"):
+    for name in ("data.h5io", "engine.decoder_head", "engine.refinement", "kernels.ccl",
+                 *PIPELINE_MODULES):
         assert f"samcarriestheburden_torch.{name}" in modules
-    code = ("import sys\nsys.modules['h5py'] = None\n"
+    code = ("import sys\n"
+            + "".join(f"sys.modules[{name!r}] = None\n" for name in HOST_ONLY)
             + "import importlib\n"
             + f"for name in {modules!r}:\n    importlib.import_module(name)\n"
-            + "import chip_smoke\nchip_smoke.enhance_modules()\n")
+            + "import chip_smoke\nchip_smoke.enhance_modules()\nchip_smoke.pipeline_modules()\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -86,6 +98,9 @@ def test_the_parametrized_scan_covers_the_int8_modules():
     assert {"kernels/quant.py", "models/quantize.py", "models/convert.py", "bench.py",
             "tools/bench_int8pv.py", "kernels/cost_probe.py", "tools/exp_attn.py",
             "tools/exp_attn2.py"} <= scanned
+    # ... and the pipeline's modules, the CLIs among them
+    assert {name.replace(".", "/") + ".py" for name in PIPELINE_MODULES
+            if name != "cli"} <= scanned
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT))
@@ -325,13 +340,38 @@ def test_the_int8_wrappers_never_reach_the_compiler_on_cpu(monkeypatch):
     assert torch.isfinite(out).all() and tuple(att.shape) == (1, 4, e)
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    from samcarriestheburden_torch.cli import (generate_img_embeddings,
+                                               save_refined_segmentations, save_segmentations)
+    from samcarriestheburden_torch.config import UNetConfig
+    from samcarriestheburden_torch.engine.embeddings import encode_images, precompute_embeddings
+    from samcarriestheburden_torch.models.build import build_sam_vit_h, sam_model_registry
+    from samcarriestheburden_torch.models.modelio import ModelRegistry
+    from samcarriestheburden_torch.models.unet import build_unet
+
+    registry = ModelRegistry(tmp_path / "model_registry")
+    model_id = registry.register(UNetConfig(base_channels=4, n_last_channel=4), build_unet(
+        UNetConfig(base_channels=4, n_last_channel=4), device="cpu", seed=0))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_sam(sam_vit_t_config(), seed=0)
     assert resolve_device("cpu").type == "cpu"
+    for call in (build_sam_vit_h, sam_model_registry["vit_t"],
+                 lambda: build_unet(UNetConfig(), seed=0),
+                 lambda: registry.load(model_id),
+                 lambda: encode_images(None, None, [], None, None, img_size=128, device=None),
+                 lambda: precompute_embeddings(sam_model_registry["vit_t"](), [],
+                                               tmp_path / "emb.h5", "none"),
+                 lambda: generate_img_embeddings.main(["--model_type", "vit_t"]),
+                 lambda: save_segmentations.main(["--model_id", model_id,
+                                                  "--data_root", str(tmp_path)]),
+                 lambda: save_refined_segmentations.main(["--model_id", model_id,
+                                                          "--data_root", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert registry.load(model_id, device="cpu")[1].device.type == "cpu"
 
 
 def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
