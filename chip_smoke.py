@@ -135,6 +135,21 @@
    precompute's beside the bare encoder's at batch 8), its phases
    (``PhaseTimer``) and the card's idle share over it; the kernels line
    gets each of its kernels at its first batch's call shapes;
+4l. drives U-Net training at full width (``UNetConfig()``: base 64, 17
+   classes), counted: ``train_unet`` on 64 seeded X-ray-like images of
+   384x224 with 17 blob masks each (8 more to validate), batch 16, 48
+   samples an epoch, ``data_aug`` 0.03, two epochs in bf16 and two in fp32
+   (TF32 convolutions, PyTorch's default), checkpointing into a temporary
+   directory, every loss finite; the fp32 run resumed from its first epoch's
+   checkpoint in a fresh trainer equal to the uninterrupted run bit for bit
+   (deterministic cuDNN); one fp32 step on the card against the same step
+   on the CPU (the loss, the gradients, and the updated parameters as
+   AdamW's first step of the two gradients); bf16 against fp32 on the same
+   batch; both warps of a fixed theta on the card against the CPU's; ms per
+   step in bf16 and fp32 by CUDA events, images/s, the augmentation's share
+   of a step, each warp's time, peak memory, the idle share of one profiled
+   step and the ``train_epoch`` / ``evaluate`` phases; no kernel of the port
+   may launch in it;
 5. holds each kernel against its plain PyTorch version on the card, on the
    inputs each of its paths gives it (the flat rows and windows; the
    compact stream's: K1-K4 on 8416 rows, K5 on 32 windows and K6, both
@@ -452,6 +467,39 @@ PIPE_HW = (1280, 640)
 # scale; UNET_TOL is twice that, of max |logit| on the CPU (fp32), and the
 # probabilities within a quarter of it (the sigmoid's slope is at most 1/4)
 UNET_TOL = 1e-2
+# U-Net training (4l): the trainer at full width (UNetConfig(): base 64, 17
+# classes) on TRAIN_N seeded X-ray-like images of the U-Net grid with 17 blob
+# masks each (TRAIN_VAL more to validate), batch 16, 48 samples an epoch (3
+# steps), data_aug 0.03, TRAIN_EPOCHS epochs in bf16 and in fp32
+TRAIN_N, TRAIN_VAL = 64, 8
+TRAIN_BATCH, TRAIN_SAMPLES, TRAIN_AUG, TRAIN_EPOCHS = 16, 48, 0.03, 2
+# the card's fp32 step (TF32 convolutions) against the CPU's on a batch of
+# TRAIN_CPU_BATCH (the CPU's step at full width takes seconds a sample): the
+# loss within TRAIN_LOSS_RTOL (UNET_TOL's TF32 argument gives the logits
+# ~4.4e-3 of their scale; the loss, a mean over 17 x 86,016 terms per image,
+# averages that down); the gradients, all tensors as one vector, within
+# TRAIN_GRAD_RTOL, and an element's gradient of the other sign only where it
+# is within its tensor's largest card-vs-CPU difference of 0; the updated
+# parameters: AdamW's first step moves each element by lr * g / (|g| + eps),
+# lr whatever |g| is, so TF32's gradient error turns some elements around (a
+# tensor of instance-norm biases, zero before the step, may differ by most
+# of its norm): the difference must be that function of the two gradients,
+# within TRAIN_PARAM_RTOL of each tensor's norm (fp32 rounding of p + update)
+TRAIN_CPU_BATCH = 2
+TRAIN_LOSS_RTOL = 5e-3
+TRAIN_GRAD_RTOL = 5e-2
+TRAIN_PARAM_RTOL = 1e-5
+# bf16 against fp32 on the same params and batch: the forward rounds every
+# layer to 8 mantissa bits (logits ~1e-2 of their scale apart, read on the
+# CPU), and the loss averages that down (1e-4 apart on the CPU at base 16
+# and 64); the tolerance is a hundred times that reading
+TRAIN_BF16_LOSS_RTOL = 1e-2
+# the warp on the card against the CPU, the same theta: images within
+# WARP_ATOL (fp32 sums in another order), labels equal except where a sample
+# lands within WARP_TIE of a half pixel, where nearest's rounding may go the
+# other way on an ulp
+WARP_ATOL, WARP_TIE = 1e-5, 1e-4
+TRAIN_TIMED = 10              # steps timed by CUDA events, after 3 warm-ups
 # K8 on stressed maps runs truncated at a cap that is not a multiple of the
 # check interval (16), and to the fixpoint, at the path's check interval and
 # at one that holds several of the register kernel's barrier groups
@@ -1952,6 +2000,12 @@ def phase_bench(torch, kernels):
     check(line["metric"].endswith("_per_chip"), f"bench metric {line['metric']}")
     for name in ("K2", "K4", "K5", "K6", "K7-int8", "K8", "K13"):
         check(launches[name] >= 1, f"{name} was not launched on the bench's path")
+    d = line["detail"]
+    check(d["train_batch_hw"] == [16, [384, 224]] and all(
+        isinstance(v, float) and math.isfinite(v) and v > 0 for v in (
+            d["train_ms_per_step"], d["tflops_per_leg"]["train_step"], d["mfu"]["train_step"])),
+        f"the bench's train-step leg: {d['train_ms_per_step']}, {d['train_batch_hw']}, "
+        f"{d['tflops_per_leg']['train_step']}, {d['mfu']['train_step']}")
     return launches, line
 
 
@@ -3786,6 +3840,236 @@ def phase_pipeline(torch, np, kernels, port, model, make_serving_encoder):
             k8_in, batches[0])
 
 
+def training_modules():
+    """The port's training path, as one namespace (none of it needs h5py,
+    cv2, pandas, tqdm, PIL, matplotlib or orbax)."""
+    from types import SimpleNamespace
+
+    from samcarriestheburden_torch.config import (N_CLASSES, UNET_INPUT_HW, TrainConfig,
+                                                  UNetConfig)
+    from samcarriestheburden_torch.profiling import PhaseTimer
+    from samcarriestheburden_torch.train import augment
+    from samcarriestheburden_torch.train.loop import UNetTrainer, train_unet
+
+    return SimpleNamespace(N_CLASSES=N_CLASSES, UNET_INPUT_HW=UNET_INPUT_HW,
+                           TrainConfig=TrainConfig, UNetConfig=UNetConfig, PhaseTimer=PhaseTimer,
+                           augment=augment, UNetTrainer=UNetTrainer, train_unet=train_unet)
+
+
+def training_data(np, n: int, classes: int, hw, seed: int):
+    """``n`` X-ray-like images (N, 1, H, W) fp32 in [0, 1]: a dim noisy
+    background, ``classes`` bright elliptic blobs, one per class, and their
+    masks (N, classes, H, W) uint8."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    yy, xx = yy / h, xx / w
+    x = np.empty((n, 1, h, w), np.float32)
+    y = np.empty((n, classes, h, w), np.uint8)
+    for i in range(n):
+        cy, cx = rng.uniform(0.15, 0.85, (2, classes, 1, 1)).astype(np.float32)
+        ry, rx = rng.uniform(0.04, 0.12, (2, classes, 1, 1)).astype(np.float32)
+        y[i] = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+        bright = rng.uniform(0.2, 0.5, (classes, 1, 1)).astype(np.float32)
+        img = 0.15 + 0.05 * rng.standard_normal((h, w)).astype(np.float32) \
+            + (bright * y[i]).max(axis=0)
+        x[i, 0] = np.clip(img, 0, 1)
+    return x, y
+
+
+def phase_training(torch, np, kernels):
+    """U-Net training at full width (module docstring, 4l): ``train_unet``
+    in bf16 and in fp32 for TRAIN_EPOCHS epochs each, checkpointing; the
+    fp32 run resumed from its first epoch's checkpoint against itself; one
+    fp32 step on the card against the CPU's; bf16 against fp32; the warp on
+    the card against the CPU's; ms per step, the augmentation's share, the
+    idle share, peak memory and the phases; no kernel of the port launched.
+    Returns the numbers."""
+    import shutil
+    import tempfile
+
+    tm = training_modules()
+    dev = torch.device("cuda")
+    x, y = training_data(np, TRAIN_N + TRAIN_VAL, tm.N_CLASSES, tm.UNET_INPUT_HW, seed=31)
+    train, val = (x[:TRAIN_N], y[:TRAIN_N]), (x[TRAIN_N:], y[TRAIN_N:])
+    ucfg = tm.UNetConfig()
+
+    def cfg(**kw):
+        return tm.TrainConfig(batch_size=TRAIN_BATCH, data_sample_per_epoch=TRAIN_SAMPLES,
+                              data_aug=TRAIN_AUG, epochs=TRAIN_EPOCHS, **kw)
+
+    numbers = {}
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = True                # PyTorch's default: fp32 is TF32
+    kernels.reset_launches()
+    try:
+        # 1. train_unet in bf16 and in fp32, checkpointing into a temporary
+        # directory; fp32 with deterministic cuDNN, so that its resume is held
+        # bit for bit (cuDNN's default backward-weight algorithms may add in
+        # another order from call to call)
+        with tempfile.TemporaryDirectory() as tmp:
+            runs = {}
+            for dtype in ("bfloat16", "float32"):
+                torch.backends.cudnn.deterministic = dtype == "float32"
+                timer = tm.PhaseTimer()
+                t0 = time.perf_counter()
+                model, hist = tm.train_unet(train, val, ucfg, cfg(compute_dtype=dtype),
+                                            timer=timer, device=dev, checkpoint_every=1,
+                                            checkpoint_dir=Path(tmp) / dtype)
+                wall = time.perf_counter() - t0
+                runs[dtype] = (model, hist)
+                log(f"train_unet ({dtype}, {TRAIN_EPOCHS} epochs of {TRAIN_SAMPLES // TRAIN_BATCH}"
+                    f" steps of {TRAIN_BATCH} x 384 x 224, data_aug {TRAIN_AUG}) in {wall:.2f} s: "
+                    f"{json.dumps(hist)}; phases (synchronised): {json.dumps(timer.report())}")
+                check(len(hist) == TRAIN_EPOCHS and all(
+                    np.isfinite(h[k]) for h in hist for k in ("train_bce", "val_bce", "lr")),
+                    f"train_unet ({dtype}): a loss is not finite: {hist}")
+                numbers[f"phases_{dtype}"] = timer.report()
+            # resume: epoch 1's checkpoint into a fresh trainer, one more epoch
+            shutil.rmtree(Path(tmp) / "float32" / f"epoch_{TRAIN_EPOCHS:05d}")
+            resumed, hist_r = tm.train_unet(train, val, ucfg, cfg(), device=dev,
+                                            checkpoint_every=1,
+                                            checkpoint_dir=Path(tmp) / "float32")
+            model32, hist32 = runs["float32"]
+            same = [k for k, v in model32.state_dict().items()
+                    if torch.equal(v, resumed.state_dict()[k])]
+            log(f"resume from epoch {TRAIN_EPOCHS - 1} (fp32, deterministic cuDNN): "
+                f"{len(same)} of {len(model32.state_dict())} tensors the uninterrupted run's "
+                f"bits; its last epoch {hist_r} against {hist32[-1]}")
+            check(len(same) == len(model32.state_dict()) and hist_r == hist32[-1:],
+                  "the resumed run differs from the uninterrupted one")
+            torch.backends.cudnn.deterministic = flags[1]
+        del runs, model32, resumed
+
+        # 2. one fp32 step on the card against the CPU: the same params, batch, theta
+        tg = tm.UNetTrainer(ucfg, cfg(), device=dev)
+        tc = tm.UNetTrainer(ucfg, cfg(), device="cpu", init_params={
+            k: v.cpu() for k, v in tg.model.state_dict().items()})
+        theta = tm.augment.random_theta(torch.Generator().manual_seed(3), TRAIN_CPU_BATCH,
+                                        TRAIN_AUG)
+        xb = torch.from_numpy(train[0][:TRAIN_CPU_BATCH])
+        yb = torch.from_numpy(train[1][:TRAIN_CPU_BATCH]).float()
+        xa, ya = tc.augment(xb, yb, theta)
+        lr = tc.lr_at(0)
+        loss_g, _ = tg.step(xa.to(dev), ya.to(dev), lr)
+        loss_c, _ = tc.step(xa, ya, lr)
+        loss_err = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+        params_c = dict(tc.model.named_parameters())
+        g_diff, g_norm, worst_grad, worst_param, worst_resid = 0.0, 0.0, (0.0, ""), 0.0, 0.0
+        turned, total, unexplained = 0, 0, []
+        for name, pg in tg.model.named_parameters():
+            pc = params_c[name]
+            gg, gc = pg.grad.cpu(), pc.grad
+            g_err = (gg - gc).abs()
+            g_diff += float(g_err.square().sum())
+            g_norm += float(gc.square().sum())
+            worst_grad = max(worst_grad, ((g_err.norm() / gc.norm()).item(), name))
+            d = pg.detach().cpu() - pc.detach()
+            worst_param = max(worst_param, (d.norm() / pc.detach().norm()).item())
+            # AdamW's first step moves p by -lr * g / (|g| + eps) (its bias
+            # corrections cancel): the difference of the updated parameters is
+            # the difference of that function of the two gradients
+            resid = d + lr * (gg / (gg.abs() + 1e-8) - gc / (gc.abs() + 1e-8))
+            worst_resid = max(worst_resid, (resid.norm() / pc.detach().norm()).item())
+            flip = torch.sign(gg) != torch.sign(gc)
+            turned += int(flip.sum())
+            total += d.numel()
+            if (gc.abs()[flip] > g_err.max()).any():
+                unexplained.append(name)
+        grad_err = (g_diff / g_norm) ** 0.5
+        log(f"one fp32 step of {TRAIN_CPU_BATCH} (TF32 convolutions) card vs CPU: loss "
+            f"{loss_g.item():.6f} vs {loss_c.item():.6f} (rel err {loss_err:.3g}, tol "
+            f"{TRAIN_LOSS_RTOL}); gradients rel L2 {grad_err:.3g} (tol {TRAIN_GRAD_RTOL}), "
+            f"worst tensor {worst_grad[0]:.3g} ({worst_grad[1]}); {turned} of {total} "
+            f"gradient elements of the other sign, each within its tensor's largest "
+            f"difference of 0 (not: {unexplained}); updated parameters' worst tensor rel L2 "
+            f"{worst_param:.3g}, all of it AdamW's first step of the two gradients but "
+            f"{worst_resid:.3g} (tol {TRAIN_PARAM_RTOL})")
+        check(loss_err <= TRAIN_LOSS_RTOL, "the fp32 step's loss on the card disagrees with the CPU")
+        check(grad_err <= TRAIN_GRAD_RTOL and not unexplained,
+              "the fp32 step's gradients on the card disagree with the CPU")
+        check(worst_resid <= TRAIN_PARAM_RTOL,
+              "the fp32 step's update on the card is not AdamW's of its gradients")
+        numbers["card_vs_cpu"] = {"loss_rel_err": loss_err, "grad_rel_l2": grad_err,
+                                  "grad_worst_tensor": worst_grad, "sign_differs": turned,
+                                  "params": total, "param_worst_rel_l2": worst_param,
+                                  "update_residual": worst_resid}
+
+        # 3. bf16 against fp32: the same params and batch
+        t16 = tm.UNetTrainer(ucfg, cfg(compute_dtype="bfloat16"), device=dev,
+                             init_params=tc.model.state_dict())
+        t32 = tm.UNetTrainer(ucfg, cfg(), device=dev, init_params=tc.model.state_dict())
+        xd, yd = t32.device_data(*train)
+        idx = torch.arange(TRAIN_BATCH, device=dev)
+        theta_d = tm.augment.random_theta(torch.Generator().manual_seed(4), TRAIN_BATCH,
+                                          TRAIN_AUG).to(dev)
+        xa, ya = t32.augment(xd[idx], yd[idx].float(), theta_d)
+        with torch.no_grad():
+            l16 = t16.forward_loss(xa, ya, torch.ones(TRAIN_BATCH, device=dev))[0].item()
+            l32 = t32.forward_loss(xa, ya, torch.ones(TRAIN_BATCH, device=dev))[0].item()
+        bf16_err = abs(l16 - l32) / abs(l32)
+        log(f"bf16 vs fp32 (TF32), batch {TRAIN_BATCH}: loss {l16:.6f} vs {l32:.6f} (rel err "
+            f"{bf16_err:.3g}, tol {TRAIN_BF16_LOSS_RTOL})")
+        check(bf16_err <= TRAIN_BF16_LOSS_RTOL, "the bf16 loss disagrees with fp32's")
+        numbers["bf16_vs_fp32_loss_rel_err"] = bf16_err
+
+        # 4. the warp on the card against the CPU, both formulations, the same theta
+        xn = ((xd[idx] - 0.3505533917353781) / 0.22763733675869177).cpu()
+        yl = yd[idx].float().cpu()
+        grid = tm.augment.affine_grid(theta_d.cpu(), xn.shape[-2:])
+        gx = (grid[..., 0] + 1) * xn.shape[-1] / 2 - 0.5
+        gy = (grid[..., 1] + 1) * xn.shape[-2] / 2 - 0.5
+        tie = (((gx % 1) - 0.5).abs() < WARP_TIE) | (((gy % 1) - 0.5).abs() < WARP_TIE)
+        for method in tm.augment.METHODS:
+            xw_g, yw_g = tm.augment.warp_affine(xn.to(dev), yl.to(dev), theta_d, method)
+            xw_c, yw_c = tm.augment.warp_affine(xn, yl, theta_d.cpu(), method)
+            x_err = (xw_g.cpu() - xw_c).abs().max().item()
+            differ = (yw_g.cpu() != yw_c).any(dim=1)
+            log(f"warp ({method}) card vs CPU: images max abs err {x_err:.3g} (tol {WARP_ATOL}); "
+                f"labels differ at {int(differ.sum())} pixels, {int((differ & ~tie).sum())} "
+                f"of them off a rounding tie ({int(tie.sum())} ties)")
+            check(x_err <= WARP_ATOL and not (differ & ~tie).any(),
+                  f"the {method} warp on the card disagrees with the CPU")
+
+        # 5. time: ms per step (CUDA events), images/s, the augmentation's share,
+        # each warp, peak memory, the idle share of one profiled step
+        card = gpu_identity()
+        for dtype, trainer in (("bfloat16", t16), ("float32", t32)):
+            step_ms = card_ms(torch, lambda: trainer.train_step(xd, yd, idx, theta_d, lr),
+                              iters=TRAIN_TIMED, warmup=3)
+            aug_ms = card_ms(torch, lambda: trainer.augment(xd[idx], yd[idx].float(), theta_d),
+                             iters=TRAIN_TIMED, warmup=3)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            trainer.train_step(xd, yd, idx, theta_d, lr)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            log(f"train step ({dtype}, batch {TRAIN_BATCH} x 384 x 224, {trainer.aug_method} "
+                f"warp) on {card}: {step_ms:.3f} ms, {TRAIN_BATCH / (step_ms / 1e3):.1f} images/s; "
+                f"normalise + warp {aug_ms:.3f} ms ({aug_ms / step_ms:.3f} of the step); peak "
+                f"memory {peak:.3f} GB")
+            idle = phase_profile(torch, lambda: trainer.train_step(xd, yd, idx, theta_d, lr),
+                                 f"train step ({dtype})", top=10)
+            numbers[dtype] = {"step_ms": step_ms, "images_per_s": TRAIN_BATCH / (step_ms / 1e3),
+                              "augment_ms": aug_ms, "augment_share": aug_ms / step_ms,
+                              "peak_gb": peak, "idle_share": idle}
+        warps = {}
+        for method in tm.augment.METHODS:
+            warps[method] = card_ms(torch, lambda: tm.augment.warp_affine(
+                xd[idx], yd[idx].float(), theta_d, method), iters=TRAIN_TIMED, warmup=3)
+        log(f"warp of a batch of {TRAIN_BATCH} (1 image + 17 label channels): " + ", ".join(
+            f"{m} {t:.3f} ms" for m, t in warps.items())
+            + f"; the trainer's default is {t32.aug_method}")
+        numbers["warp_ms"] = warps
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = flags
+    launches = dict(kernels.LAUNCHES)
+    log(f"training launches: {launches}")
+    check(not any(launches.values()), f"the training path launched a port kernel: {launches}")
+    log(f"training numbers: {json.dumps(numbers)}")
+    return numbers
+
+
 def smoke_images(torch, seed: int, dev):
     """B seeded uint8 images of INPUT_HW inside the padded square, and their sizes."""
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -3958,6 +4242,10 @@ def main() -> int:
     # own loops (bf16, then int8), each counted; the U-Net card vs CPU
     launches_pipe, k8_pipe, pipe_batch = phase_pipeline(
         torch, np, kernels, port, model, make_serving_encoder)
+
+    # 5f. U-Net training at full width: bf16 and fp32 epochs, the resume, the
+    # card against the CPU, bf16 against fp32, the warp; no port kernel launched
+    phase_training(torch, np, kernels)
 
     # 5d. the encoder's other block formulations: v1 (K9) and v2 (K12) at full
     # depth, v3 (K10, K11) as a run of blocks; every kernel they launch, K1, K3

@@ -20,15 +20,21 @@ The legs and shapes are ``bench.py``'s, with zero weights by shape:
 * enhance: per batch of ``--enhance_batch`` images (distinct blobs and
   embeddings per slot) the CCL selection over the whole stack (K8), the
   square-8 dilation, and one batched two-round refinement with the decoder
-  head in the bench's dtype, landed on the 384 x 224 U-Net grid.
+  head in the bench's dtype, landed on the 384 x 224 U-Net grid;
+* train step: one ``UNetTrainer.train_step`` of the full-width U-Net
+  (``UNetConfig()``, 17 classes) on a batch of 16 grayscale 384 x 224 images
+  gathered on the device, normalised, warped (``data_aug`` 0.03), bf16
+  forward, fp32 loss and AdamW (``bench.py:416-438``).
 
 The embed and decode legs are timed with CUDA events over ``iters x 8``
-calls after 2 warm-ups; the enhance leg, which the host bounds, with the host
-clock around calls that end in ``synchronize()``.  MFU uses the analytic
-encoder count (:func:`analytic_encoder_flops`) and ``FlopCounterMode``'s count
-of the decode, over the H100's dense peaks; on another card the peaks are
-null.  ``--smoke`` runs the tiny vit_t config in fp32 at batch 1 on a 48 x 32
-grid.  ``--attention pallas`` runs the unfused formulation through K9,
+calls after 2 warm-ups, the train step over ``iters x 4``; the enhance leg,
+which the host bounds, with the host clock around calls that end in
+``synchronize()``.  MFU uses the analytic encoder count
+(:func:`analytic_encoder_flops`), ``FlopCounterMode``'s count of the decode
+and the analytic U-Net count (:func:`analytic_unet_flops`), over the H100's
+dense peaks; on another card the peaks are null.  ``--smoke`` runs the tiny
+vit_t config in fp32 at batch 1 on a 48 x 32 grid, and the train step in
+fp32 at batch 2 on that grid.  ``--attention pallas`` runs the unfused formulation through K9,
 ``xla`` the same with the plain attention; neither has an int8 mode.  No TPU
 figure is reported: ``vs_baseline`` and the CPU anchor are null.
 """
@@ -40,7 +46,7 @@ import json
 import subprocess
 import sys
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,12 +64,15 @@ from samcarriestheburden_torch.models.image_encoder import (attention_apply,
                                                             compact_window_groups)
 from samcarriestheburden_torch.models.sam import SamModel, build_sam
 from samcarriestheburden_torch.ops.ccl import remove_all_but_one_connected_component
+from samcarriestheburden_torch.train.augment import random_theta
+from samcarriestheburden_torch.train.loop import UNetTrainer
 
 #: dense peaks (TFLOP/s bf16, TOP/s int8) by card name: NVIDIA's H100 SXM data sheet
 PEAKS = {"H100": (989, 1979)}
 A100_BF16_TFLOPS = 312      # the hardware of the reference's cost estimate (SAM paper)
 DECLARED_FLOPS = 1234567    # the cost K13 declares (bench.py:104)
 INNER = 8
+TRAIN_INNER = 4             # bench.py's train-step timing (bench.py:437)
 TWO_ROUNDS = [["box"], ["pos_points", "neg_points"]]
 
 
@@ -89,6 +98,45 @@ def analytic_encoder_flops(cfg, compact: bool) -> float:
     flops += 2 * t * (3 * 16 * 16) * d                                    # patch embed
     flops += 2 * t * d * ie.out_chans + 2 * t * 9 * ie.out_chans * ie.out_chans  # neck
     return float(flops)
+
+
+def analytic_unet_flops(cfg: config.UNetConfig, hw) -> Tuple[float, float]:
+    """(forward, forward + backward) FLOPs of ONE image of ``hw`` through the
+    U-Net: 2 per multiply-add of every convolution and transposed
+    convolution (instance norms, activations, pooling and the loss not
+    counted); the backward twice the forward (the input's and the weights'
+    gradients), except the first convolution's input gradient, which
+    nothing needs.  ``FlopCounterMode`` counts the same."""
+    bc, factor = cfg.base_channels, 2 if cfg.bilinear else 1
+    h, w = hw
+    sizes = [(h, w)]
+    for _ in range(4):
+        sizes.append((sizes[-1][0] // 2, sizes[-1][1] // 2))
+
+    def conv(hw_out, cin, cout, k):
+        return 2.0 * hw_out[0] * hw_out[1] * cin * cout * k * k
+
+    def double(hw_out, cin, cout, mid=None):
+        mid = mid or cout
+        return conv(hw_out, cin, mid, 3) + conv(hw_out, mid, cout, 3)
+
+    first = conv(sizes[0], cfg.n_channels, bc, 3)
+    fwd = double(sizes[0], cfg.n_channels, bc)
+    chans = [bc, bc * 2, bc * 4, bc * 8, bc * 16 // factor]
+    for i in range(1, 5):
+        fwd += double(sizes[i], chans[i - 1], chans[i])
+    ups = [(bc * 16, bc * 8 // factor), (bc * 8, bc * 4 // factor),
+           (bc * 4, bc * 2 // factor), (bc * 2, cfg.n_last_channel)]
+    for i, (cin, cout) in enumerate(ups):
+        skip = sizes[3 - i]
+        if cfg.bilinear:
+            fwd += double(skip, cin, cout, cin // 2)
+        else:
+            below = sizes[4 - i]
+            fwd += conv((2 * below[0], 2 * below[1]), cin, cin // 2, 1)   # k=2, stride 2
+            fwd += double(skip, cin, cout)
+    fwd += conv(sizes[0], cfg.n_last_channel, cfg.n_classes, 1)
+    return fwd, 3 * fwd - first
 
 
 def flops_convention_check(device: torch.device) -> Dict[str, Optional[object]]:
@@ -294,6 +342,23 @@ def main(argv: Optional[List[str]] = None) -> dict:
     per_image = 1.0 / embed_per_sec + t_enhance
     value = 1.0 / per_image
 
+    # ---- the U-Net training step (bench.py:416-438): batch 16, 384 x 224,
+    # 17 classes, data_aug 0.03, bf16 forward ----------------------------------
+    tb = 2 if args.smoke else 16
+    thw = (48, 32) if args.smoke else config.UNET_INPUT_HW
+    tcfg = config.TrainConfig(batch_size=tb, data_aug=0.03,
+                              compute_dtype="float32" if args.smoke else "bfloat16")
+    ucfg = config.UNetConfig(n_last_channel=tcfg.n_last_channel)
+    trainer = UNetTrainer(ucfg, tcfg, device=device)
+    xd, yd = trainer.device_data(rng.standard_normal((tb, 1) + thw, dtype=np.float32),
+                                 rng.integers(0, 2, (tb, config.N_CLASSES) + thw, dtype=np.uint8))
+    t_idx = torch.arange(tb, device=device)
+    theta = random_theta(torch.Generator().manual_seed(0), tb, tcfg.data_aug).to(device)
+    t_train = time_device(lambda: trainer.train_step(xd, yd, t_idx, theta, tcfg.lr), device,
+                          args.iters, inner=TRAIN_INNER)
+    f_train = tb * analytic_unet_flops(ucfg, thw)[1]
+    del trainer, xd, yd
+
     # ---- flops and MFU -----------------------------------------------------------
     kind = torch.cuda.get_device_name(device) if on_card else None
     peaks = next((v for k, v in PEAKS.items() if kind and k in kind), None)
@@ -317,8 +382,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
             "embed_images_per_sec": round(embed_per_sec, 4),
             "refined_masks_per_sec": round(masks_per_sec, 2),
             "full_enhance_images_per_sec": round(1.0 / t_enhance, 2),
-            "train_ms_per_step": None,
-            "train_batch_hw": None,
+            "train_ms_per_step": round(1e3 * t_train, 2),
+            "train_batch_hw": [tb, list(thw)],
             "amg_device_points_per_sec": None,
             "amg_points_per_batch": None,
             "enhance_batch": eb,
@@ -339,7 +404,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                 "encoder_per_img_analytic": round(f_enc / batch / 1e12, 3),
                 "encoder_per_img_xla": None,
                 "refine_17class_2round": round(f_ref / 1e12, 4),
-                "train_step": None,
+                "train_step": round(f_train / 1e12, 4),
                 "amg_points_batch": None,
             },
             "mfu": {
@@ -347,7 +412,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                 "encoder_vs_int8_peak": mfu(f_enc, t_encode, peaks[1] if peaks and quantize
                                             else None),
                 "refine_decode": mfu(f_ref, t_refine, pk),
-                "train_step": None,
+                "train_step": mfu(f_train, t_train, pk),
                 "amg_batch": None,
             },
             "flops_convention": flops_convention_check(device),

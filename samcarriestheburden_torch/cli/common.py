@@ -1,4 +1,5 @@
-"""What the port's CLIs share (JAX ``cli/common.py``): the device choice,
+"""What the port's CLIs share (JAX ``cli/common.py``): the training flags
+(reference unet_training/hyper_params.py:3-19), the device choice,
 ``--profile`` and the multi-host flags."""
 
 from __future__ import annotations
@@ -8,7 +9,69 @@ import contextlib
 
 import torch
 
+from samcarriestheburden_torch.config import TrainConfig
 from samcarriestheburden_torch.device import resolve_device
+
+
+def hp_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="training")
+    # settings
+    p.add_argument("--gpu_id", type=int, default=None,
+                   help="accepted for reference-CLI parity; the port trains on the first card")
+    p.add_argument("--seed", type=int, default=42, help="seed for reproducibility")
+    # hyperparameters
+    p.add_argument("--lr", type=float, default=0.001, help="initial learning rate")
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--infer_batch_size", type=int, default=16,
+                   help="batch size during validation and testing")
+    p.add_argument("--weight_decay", type=float, default=0,
+                   help="weight decay used by optimizer")
+    p.add_argument("--epochs", type=int, default=350,
+                   help="number of epochs for training")
+    p.add_argument("--data_aug", type=float, default=0.03,
+                   help="strength of affine data augmentation.")
+    p.add_argument("--lr_scheduler", default=True,
+                   action=argparse.BooleanOptionalAction,
+                   help="whether to use learning rate scheduler")
+    # architecture
+    p.add_argument("--n_last_channel", type=int, default=64,
+                   help="number of channels before the last convolution")
+    # the JAX package's additions
+    p.add_argument("--data_root", type=str, default="data")
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="data-parallel device count (default 1: the port trains on one "
+                        "card; more raise, ROADMAP queue A item 5)")
+    p.add_argument("--cpu", action="store_true", help="run on the CPU; default: the card")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 forward pass (fp32 master params)")
+    p.add_argument("--data_placement", choices=["replicated", "sharded"],
+                   default="replicated",
+                   help="dataset residency: the whole split on the card (replicated); "
+                        "sharded is not ported and raises")
+    add_multihost_flags(p)
+    return p
+
+
+def train_config_from_args(args, **overrides) -> TrainConfig:
+    kw = dict(seed=args.seed, lr=args.lr, batch_size=args.batch_size,
+              infer_batch_size=args.infer_batch_size,
+              weight_decay=args.weight_decay, epochs=args.epochs,
+              data_aug=args.data_aug, lr_scheduler=args.lr_scheduler,
+              n_last_channel=args.n_last_channel,
+              compute_dtype="bfloat16" if getattr(args, "bf16", False) else "float32",
+              data_placement=getattr(args, "data_placement", "replicated"))
+    kw.update(overrides)
+    return TrainConfig(**kw)
+
+
+def maybe_mesh(args):
+    """None: the port trains on one device.  More than one raises
+    ``NotImplementedError`` (ROADMAP queue A item 5), as ``--multihost`` does."""
+    n = getattr(args, "num_devices", None) or 1
+    if n > 1:
+        raise NotImplementedError(f"--num_devices {n}: data-parallel training is not "
+                                  "ported (ROADMAP queue A item 5)")
+    return None
 
 
 def add_multihost_flags(p: argparse.ArgumentParser) -> None:

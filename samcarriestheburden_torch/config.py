@@ -1,5 +1,5 @@
-"""Configuration dataclasses of the SAM model family, the U-Net and the
-refinement engine, and the GrazPedWri dataset constants.
+"""Configuration dataclasses of the SAM model family, the U-Net, its training
+and the refinement engine, and the GrazPedWri dataset constants.
 
 Mirrors ``samcarriestheburden_tpu/config.py`` field for field, so a config
 serialised by either package loads in the other.  Kept as a separate copy:
@@ -162,6 +162,43 @@ class UNetConfig(_ConfigBase):
 
 
 @dataclass(frozen=True)
+class TrainConfig(_ConfigBase):
+    """Mirrors the shared argparse flags (reference unet_training/hyper_params.py:3-19
+    and training.py:14-19)."""
+
+    seed: int = 42
+    lr: float = 1e-3
+    batch_size: int = 16
+    infer_batch_size: int = 16
+    weight_decay: float = 0.0
+    epochs: int = 350
+    data_aug: float = 0.03
+    lr_scheduler: bool = True
+    n_last_channel: int = 64
+    data_sample_per_epoch: int = 48
+    num_train_samples: int = -1  # -1 == all
+    #: 'bootstrap' = sample with replacement (initial training, training.py:41-42);
+    #: 'shuffle' = shuffled full epochs with drop_last (pseudo-label training,
+    #: training_on_pseudo_labels.py:65-66)
+    sample_mode: str = "bootstrap"
+    #: forward-pass compute precision: 'float32' (reference parity; TF32
+    #: convolutions on the card, PyTorch's default) or 'bfloat16' (bf16
+    #: forward; params, loss and optimizer stay fp32)
+    compute_dtype: str = "float32"
+    #: augment a whole epoch before its steps and read its losses back once.
+    #: None = auto: on for the card, off for the CPU
+    epoch_scan: Optional[bool] = None
+    #: augmentation warp: None = auto ('gather', the 4-tap formulation, which
+    #: is the faster one on the H100 and on the CPU); 'matmul' / 'gather' to force
+    aug_method: Optional[str] = None
+    #: dataset residency: 'replicated' (the one-card port holds the whole
+    #: split on its card); 'sharded' is not ported (ROADMAP queue A item 5)
+    data_placement: str = "replicated"
+    #: data-parallel device count; the port trains on one card
+    num_devices: int = 1
+
+
+@dataclass(frozen=True)
 class RefineConfig(_ConfigBase):
     """The authors' HPO-selected refinement knobs
     (reference scripts/save_refined_segmentations.py:25-31)."""
@@ -210,6 +247,13 @@ BONE_LABEL: Tuple[str, ...] = tuple(sorted([
 ]))
 BONE_LABEL_MAPPING = {k: v for v, k in enumerate(BONE_LABEL)}
 N_CLASSES = len(BONE_LABEL)
+
+#: Per-class positive BCE weights (reference seg_grazpedwri_dataset.py:47-49).
+POS_CLASS_WEIGHT: Tuple[float, ...] = (
+    108.1348, 349.1551, 69.6342, 96.0886, 167.7897, 364.5914, 131.5362,
+    176.2591, 240.9182, 169.5408, 60.1363, 46.6512, 51.6916, 58.6216,
+    52.5956, 11.2623, 17.9409,
+)
 
 #: U-Net input resolution (H, W), the grid the refinement lands on
 #: (reference seg_grazpedwri_dataset.py:51).

@@ -21,7 +21,10 @@ Three sources:
   :class:`~samcarriestheburden_torch.models.unet.UNet`'s state dict (the
   same conventions); :func:`unet_params_from_torch` is its inverse (JAX
   ``unet_params_from_torch``), for files the JAX package reads;
-  :func:`load_reference_unet` reads a reference U-Net bundle.
+  :func:`load_reference_unet` reads a reference U-Net bundle;
+  :func:`adamw_state_from_jax` carries the JAX trainer's AdamW moments
+  across with the weights, so a run started by either package resumes in
+  the port.
 
 * :func:`encoder_pack_from_jax_prequantized` carries the JAX package's
   *prequantized* encoder blocks (its ``models/quantize.py`` pytree: int8
@@ -31,7 +34,7 @@ Three sources:
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+from typing import Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -209,6 +212,25 @@ def unet_params_from_torch(sd: Mapping, cfg: UNetConfig) -> dict:
                                  "b": _np(sd[f"{key}.up.bias"])}
     params["outc"] = conv("outc.conv")
     return params
+
+
+def adamw_state_from_jax(mu: Mapping, nu: Mapping, count, cfg: UNetConfig,
+                         param_names: Sequence[str]) -> dict:
+    """The JAX trainer's AdamW state (``optax.adamw``'s first and second
+    moments ``mu`` and ``nu``, U-Net pytrees of numpy arrays, and its step
+    ``count``) -> the ``state`` of a ``torch.optim.AdamW.state_dict()`` over
+    the U-Net's parameters in the order of ``param_names`` (``[n for n, _ in
+    UNet.named_parameters()]``).  The moments move through the weights'
+    layout change (HWIO to OIHW; the transposed convs un-flipped), which is a
+    permutation of each tensor.  optax's update, m̂ / (sqrt(v̂) + eps) with
+    both bias corrections at the same step, is torch AdamW's."""
+    m = unet_state_dict_from_jax(mu, cfg)
+    v = unet_state_dict_from_jax(nu, cfg)
+    if set(param_names) != set(m):
+        raise ValueError(f"parameter names {sorted(set(param_names) ^ set(m))} do not match")
+    return {i: {"step": torch.tensor(float(np.asarray(count))), "exp_avg": m[name],
+                "exp_avg_sq": v[name]}
+            for i, name in enumerate(param_names)}
 
 
 def load_reference_unet(path):

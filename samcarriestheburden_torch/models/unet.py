@@ -9,11 +9,18 @@ dict (``inc.double_conv.0.weight``, ``down1.maxpool_conv.1.double_conv.0
 .weight``, ``up1.up.weight``, ``outc.conv.weight``, ...) loads with
 ``load_state_dict``.
 
-Precision: fp32 tensors throughout; the convolutions are cuDNN's, so on
-the card they run in TF32 under PyTorch's default
-(``torch.backends.cudnn.allow_tf32``, which this module leaves as it finds
-it), as XLA runs fp32 convolutions at reduced precision on an accelerator.
-On the CPU they are plain fp32.
+Precision: the module computes in the dtype of its input and weights; the
+instance norms take their statistics in fp32 whatever that dtype and round
+the result back to it (JAX ``models/common.py:instance_norm``), so a bf16
+forward (the trainer's ``compute_dtype="bfloat16"``) rounds where JAX's
+does.  In fp32 the convolutions are cuDNN's, so on the card they run in
+TF32 under PyTorch's default (``torch.backends.cudnn.allow_tf32``, which
+this module leaves as it finds it), as XLA runs fp32 convolutions at
+reduced precision on an accelerator.  On the CPU they are plain fp32.
+
+Gradient checkpointing (the reference's ``use_checkpointing``, JAX
+``apply(remat=True)``): ``forward(x, remat=True)`` recomputes each double
+conv in the backward pass instead of keeping its activations.
 """
 
 from __future__ import annotations
@@ -23,10 +30,20 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from samcarriestheburden_torch.config import GRAZ_IMG_MEAN, GRAZ_IMG_STD, UNetConfig
 from samcarriestheburden_torch.device import resolve_device
 from samcarriestheburden_torch.models.common import random_init_
+
+
+class InstanceNorm(nn.InstanceNorm2d):
+    """InstanceNorm2d(affine) with fp32 statistics and affine whatever the
+    input dtype, rounded back to it once (JAX ``instance_norm``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.instance_norm(x.float(), weight=self.weight.float(), bias=self.bias.float(),
+                               eps=self.eps).to(x.dtype)
 
 
 class DoubleConv(nn.Module):
@@ -37,13 +54,15 @@ class DoubleConv(nn.Module):
         mid_ch = mid_ch or out_ch
         self.double_conv = nn.Sequential(
             nn.Conv2d(in_ch, mid_ch, 3, padding=1, bias=False),
-            nn.InstanceNorm2d(mid_ch, affine=True, eps=1e-5),
+            InstanceNorm(mid_ch, affine=True, eps=1e-5),
             nn.LeakyReLU(0.01),
             nn.Conv2d(mid_ch, out_ch, 3, padding=1, bias=False),
-            nn.InstanceNorm2d(out_ch, affine=True, eps=1e-5),
+            InstanceNorm(out_ch, affine=True, eps=1e-5),
             nn.LeakyReLU(0.01))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        if remat:
+            return checkpoint(self.double_conv, x, use_reentrant=False)
         return self.double_conv(x)
 
 
@@ -52,8 +71,9 @@ class Down(nn.Module):
         super().__init__()
         self.maxpool_conv = nn.Sequential(nn.MaxPool2d(2), DoubleConv(in_ch, out_ch))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.maxpool_conv(x)
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        pool, conv = self.maxpool_conv
+        return conv(pool(x), remat)
 
 
 class Up(nn.Module):
@@ -69,7 +89,7 @@ class Up(nn.Module):
             self.up = nn.ConvTranspose2d(in_ch, in_ch // 2, 2, stride=2)
             self.conv = DoubleConv(in_ch, out_ch)
 
-    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor, remat: bool = False) -> torch.Tensor:
         if self.bilinear:
             x1 = F.interpolate(x1, scale_factor=2, mode="bilinear", align_corners=True)
         else:
@@ -77,7 +97,7 @@ class Up(nn.Module):
         dh = x2.shape[-2] - x1.shape[-2]
         dw = x2.shape[-1] - x1.shape[-1]
         x1 = F.pad(x1, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
-        return self.conv(torch.cat([x2, x1], dim=1))
+        return self.conv(torch.cat([x2, x1], dim=1), remat)
 
 
 class OutConv(nn.Module):
@@ -110,17 +130,18 @@ class UNet(nn.Module):
     def device(self) -> torch.device:
         return self.outc.conv.weight.device
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, n_channels, H, W) -> (B, n_classes, H, W) logits."""
-        x1 = self.inc(x)
-        x2 = self.down1(x1)
-        x3 = self.down2(x2)
-        x4 = self.down3(x3)
-        x5 = self.down4(x4)
-        y = self.up1(x5, x4)
-        y = self.up2(y, x3)
-        y = self.up3(y, x2)
-        y = self.up4(y, x1)
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """(B, n_channels, H, W) -> (B, n_classes, H, W) logits; ``remat``
+        checkpoints each double conv (the same logits and gradients)."""
+        x1 = self.inc(x, remat)
+        x2 = self.down1(x1, remat)
+        x3 = self.down2(x2, remat)
+        x4 = self.down3(x3, remat)
+        x5 = self.down4(x4, remat)
+        y = self.up1(x5, x4, remat)
+        y = self.up2(y, x3, remat)
+        y = self.up3(y, x2, remat)
+        y = self.up4(y, x1, remat)
         return self.outc(y)
 
 

@@ -56,6 +56,38 @@ def test_the_compact_layout_counts_fewer_rows_at_vit_h():
     assert bench.analytic_encoder_flops(cfg, True) < bench.analytic_encoder_flops(cfg, False)
 
 
+@pytest.mark.parametrize("cfg, hw", [
+    (dict(base_channels=4, n_last_channel=4), (48, 32)),
+    (dict(base_channels=4, n_last_channel=6, bilinear=True), (50, 34)),
+    (dict(base_channels=8, n_last_channel=8, n_classes=3), (37, 45))])
+def test_analytic_unet_flops_equal_flop_counter_mode(cfg, hw):
+    """The train leg's analytic count (2 per multiply-add of every
+    convolution, the backward twice the forward but for the first
+    convolution's input gradient) is what ``FlopCounterMode`` counts, odd
+    sizes and the bilinear variant included."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from samcarriestheburden_torch.models.unet import build_unet
+
+    ucfg = config.UNetConfig(**cfg)
+    model = build_unet(ucfg, device="cpu", seed=0).train()
+    x = torch.randn(2, 1, *hw)
+    with FlopCounterMode(display=False) as fc:
+        model(x)
+    fwd = fc.get_total_flops()
+    with FlopCounterMode(display=False) as fc:
+        model(x).sum().backward()
+    assert (fwd, fc.get_total_flops()) == tuple(2 * f for f in bench.analytic_unet_flops(ucfg, hw))
+
+
+def test_the_full_width_train_step_count():
+    """``UNetConfig()`` at 384 x 224: 126.42 GF forward, 379.15 GF forward +
+    backward a image, 6.07 TF a step of 16, 6.13 ms at the bf16 dense peak."""
+    fwd, step = bench.analytic_unet_flops(config.UNetConfig(), config.UNET_INPUT_HW)
+    assert (round(fwd / 1e9, 2), round(step / 1e9, 2)) == (126.42, 379.15)
+    assert round(16 * step / 989e12 * 1e3, 2) == 6.13
+
+
 def test_flops_convention_on_the_cpu():
     conv = bench.flops_convention_check(torch.device("cpu"))
     assert conv == {"matmul_2mnk_ratio": 1.0, "custom_kernel_cost_counted": True,
@@ -92,7 +124,11 @@ def test_smoke_line_on_the_cpu(capsys):
     d = line["detail"]
     assert d["platform"] == "cpu" and d["device_kind"] is None and d["peak_tflops"] is None
     assert d["vs_baseline_est"] is None and line["vs_baseline"] is None
-    assert d["mfu"]["encoder"] is None and d["train_ms_per_step"] is None
+    assert d["mfu"]["encoder"] is None and d["mfu"]["train_step"] is None
+    # the train-step leg: fp32 at batch 2 on the 48 x 32 grid, full width
+    assert d["train_ms_per_step"] > 0 and d["train_batch_hw"] == [2, [48, 32]]
+    assert d["tflops_per_leg"]["train_step"] == round(
+        2 * bench.analytic_unet_flops(config.UNetConfig(), (48, 32))[1] / 1e12, 4)
     assert d["flops_convention"]["ok"] is True
     assert d["encoder_batch"] == 1 and d["enhance_batch"] == 1 and d["seg_grid_hw"] == [48, 32]
     assert d["tflops_per_leg"]["refine_17class_2round"] >= 0

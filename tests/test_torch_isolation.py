@@ -28,11 +28,17 @@ PORT = ROOT / "samcarriestheburden_torch"
 CHIP_SMOKE = ROOT / "chip_smoke.py"
 FORBIDDEN = ("jax", "jaxlib", "samcarriestheburden_tpu")
 #: what the card's machine may lack: imported only inside the functions that use it
-HOST_ONLY = ("h5py", "cv2", "pandas", "tqdm", "PIL")
+HOST_ONLY = ("h5py", "cv2", "pandas", "tqdm", "PIL", "matplotlib", "orbax")
 #: the pseudo-label pipeline's modules
 PIPELINE_MODULES = ("cli", "cli.common", "cli.generate_img_embeddings", "cli.save_segmentations",
                     "cli.save_refined_segmentations", "cli.select_pseudo_labels", "data.cvat",
                     "models.unet", "models.modelio", "models.build", "profiling")
+#: U-Net training's modules, the training and data CLIs among them
+TRAINING_MODULES = ("train", "train.augment", "train.loop", "train.checkpoint", "train.logging",
+                    "data.datasets", "cli.train", "cli.train_on_pseudo_labels",
+                    "cli.make_synthetic_dataset", "cli.define_successively_data_subsets",
+                    "cli.copy_and_process_imgs", "cli.import_reference_data",
+                    "cli.sanity_check_saved_segmentation")
 
 
 def _port_modules():
@@ -44,7 +50,7 @@ def test_every_module_imports_without_jax():
     modules = _port_modules()
     for name in ("kernels.attention", "kernels.quant", "models.quantize", "kernels.cost_probe",
                  "bench", "tools.bench_int8pv", "tools.exp_attn", "tools.exp_attn2",
-                 *PIPELINE_MODULES):
+                 *PIPELINE_MODULES, *TRAINING_MODULES):
         assert f"samcarriestheburden_torch.{name}" in modules
     code = ("import sys\n"
             + "".join(f"sys.modules[{name!r}] = None\n" for name in FORBIDDEN)
@@ -57,20 +63,22 @@ def test_every_module_imports_without_jax():
 
 
 def test_every_module_imports_without_h5py():
-    """The card's machine has no h5py, and nothing promises cv2, pandas, tqdm
-    or PIL there: the port imports each only inside the function that opens
-    a file or shows progress (``data/h5io.py``, the CLIs,
-    ``engine/embeddings.py:load_image_rgb``), never with a module; and
-    ``chip_smoke.py`` drives the pipeline's loops without them."""
+    """The card's machine has no h5py, and nothing promises cv2, pandas, tqdm,
+    PIL, matplotlib or orbax there: the port imports each only inside the
+    function that opens a file, plots or shows progress (``data/h5io.py``,
+    ``data/datasets.py``, the CLIs, ``engine/embeddings.py:load_image_rgb``),
+    never with a module; and ``chip_smoke.py`` drives the pipeline's loops
+    and the trainer without them."""
     modules = _port_modules()
     for name in ("data.h5io", "engine.decoder_head", "engine.refinement", "kernels.ccl",
-                 *PIPELINE_MODULES):
+                 *PIPELINE_MODULES, *TRAINING_MODULES):
         assert f"samcarriestheburden_torch.{name}" in modules
     code = ("import sys\n"
             + "".join(f"sys.modules[{name!r}] = None\n" for name in HOST_ONLY)
             + "import importlib\n"
             + f"for name in {modules!r}:\n    importlib.import_module(name)\n"
-            + "import chip_smoke\nchip_smoke.enhance_modules()\nchip_smoke.pipeline_modules()\n")
+            + "import chip_smoke\nchip_smoke.enhance_modules()\nchip_smoke.pipeline_modules()\n"
+            + "chip_smoke.training_modules()\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -101,6 +109,9 @@ def test_the_parametrized_scan_covers_the_int8_modules():
     # ... and the pipeline's modules, the CLIs among them
     assert {name.replace(".", "/") + ".py" for name in PIPELINE_MODULES
             if name != "cli"} <= scanned
+    # ... and U-Net training's
+    assert {name.replace(".", "/") + ".py" for name in TRAINING_MODULES
+            if name != "train"} | {"train/__init__.py"} <= scanned
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT))
@@ -342,12 +353,14 @@ def test_the_int8_wrappers_never_reach_the_compiler_on_cpu(monkeypatch):
 
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from samcarriestheburden_torch.cli import (generate_img_embeddings,
-                                               save_refined_segmentations, save_segmentations)
-    from samcarriestheburden_torch.config import UNetConfig
+                                               save_refined_segmentations, save_segmentations,
+                                               train, train_on_pseudo_labels)
+    from samcarriestheburden_torch.config import TrainConfig, UNetConfig
     from samcarriestheburden_torch.engine.embeddings import encode_images, precompute_embeddings
     from samcarriestheburden_torch.models.build import build_sam_vit_h, sam_model_registry
     from samcarriestheburden_torch.models.modelio import ModelRegistry
     from samcarriestheburden_torch.models.unet import build_unet
+    from samcarriestheburden_torch.train.loop import UNetTrainer, train_unet
 
     registry = ModelRegistry(tmp_path / "model_registry")
     model_id = registry.register(UNetConfig(base_channels=4, n_last_channel=4), build_unet(
@@ -368,7 +381,12 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
                  lambda: save_segmentations.main(["--model_id", model_id,
                                                   "--data_root", str(tmp_path)]),
                  lambda: save_refined_segmentations.main(["--model_id", model_id,
-                                                          "--data_root", str(tmp_path)])):
+                                                          "--data_root", str(tmp_path)]),
+                 lambda: UNetTrainer(UNetConfig(base_channels=4), TrainConfig()),
+                 lambda: train_unet(None, None, UNetConfig(base_channels=4), TrainConfig()),
+                 lambda: train.main(["--data_root", str(tmp_path)]),
+                 lambda: train_on_pseudo_labels.main(["--pseudo_label", "raw", "--model_id",
+                                                      model_id, "--data_root", str(tmp_path)])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert registry.load(model_id, device="cpu")[1].device.type == "cpu"
