@@ -67,8 +67,9 @@
    memory of one batch; the bf16 refined masks against the fp32 ones;
 4e. drives the port's bench in-process at a reduced size
    (``samcarriestheburden_torch.bench.main(BENCH_ARGS)``), counted: its one
-   JSON line parses, with a finite value and ``flops_convention.ok``, and K13
-   launched; then the int8 p.v A/B tool (``tools/bench_int8pv.run``),
+   JSON line parses, with a finite value and ``flops_convention.ok``, K13
+   launched, and the train-step and AMG legs' fields finite and positive;
+   then the int8 p.v A/B tool (``tools/bench_int8pv.run``),
    counted: K7, K7-int8, K7-pv and K7-int8pv launched; then K7-pv and
    K7-int8pv against their plain versions at the tool's two shapes and at
    ``PV_SHAPES`` (grids whose n is no multiple of 64, head dims 16 to 80);
@@ -150,6 +151,31 @@
    of a step, each warp's time, peak memory, the idle share of one profiled
    step and the ``train_epoch`` / ``evaluate`` phases; no kernel of the port
    may launch in it;
+4m. drives the random walk through its entry point, counted: RW_N seeded
+   X-ray-like images of 384x224 (blob edges where the 17 maps of
+   ``enhance_probs`` cross 0.5), each through ``SegEnhance(
+   RndWalkSegRefiner(...), "highest_probability", "erosion", "disk",
+   RW_RADIUS).enhance`` on the card (``_load_image`` handed the image: no
+   cv2 there), K8 once an image and no other kernel of the port; the CG's
+   iterations by class, ms per image by CUDA events, the idle share; the
+   card against the CPU on RW_CPU_N images (the CCL output bit for bit, the
+   probabilities within RW_PROB_TOL, the masks equal off ties at 0.5); the
+   kernels line gets K8 at its first image's maps (path ``rndwalk_enhance``);
+4n. drives the predictor and AMG on ViT-H (seeded weights, bf16 encoder
+   kernels, fp32 decoder) over one seeded 1024x716 RGB image at 32 points a
+   side, counted (K1 = K3 = 32, K5 28, K6 56, K7 4, no other: one encode):
+   at the defaults (with random weights no mask passes them), with the
+   thresholds at 0 and small regions of AMG_MIN_AREA (every mask to NMS,
+   RLE and the regions; the device NMS against a host brute force on the
+   run's own boxes, native RLE against numpy, the native CCL's areas against
+   ``scipy.ndimage.label``, all exact; twice, the records equal and not
+   empty), and with one crop layer, the thresholds at 0 and a raised mask
+   threshold (the sub-crops' masks through the uncrop, the crop NMS and the
+   small regions);
+   ``_process_batch`` on the card against the CPU from the same embedding,
+   equal off logit ties; points/s, the run's phases, the idle share and
+   peak memory; the kernels line gets each encoder kernel at its call shapes
+   (path ``amg_predictor``);
 5. holds each kernel against its plain PyTorch version on the card, on the
    inputs each of its paths gives it (the flat rows and windows; the
    compact stream's: K1-K4 on 8416 rows, K5 on 32 windows and K6, both
@@ -192,6 +218,7 @@ import json
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from functools import partial
 from pathlib import Path
 
@@ -500,6 +527,37 @@ TRAIN_BF16_LOSS_RTOL = 1e-2
 # other way on an ulp
 WARP_ATOL, WARP_TIE = 1e-5, 1e-4
 TRAIN_TIMED = 10              # steps timed by CUDA events, after 3 warm-ups
+# the random walk (4m): RW_N seeded X-ray-like images of the U-Net grid (blob
+# edges where the 17 probability maps of enhance_probs are above 0.5), each
+# through SegEnhance(RndWalkSegRefiner(RW_BG_RADIUS, RW_SIGMA),
+# "highest_probability", "erosion", "disk", RW_RADIUS).enhance; RW_CPU_N of
+# them also on the CPU (seconds an image there).  The CG stops at a relative
+# residual of 1e-3, and card and CPU round their sums in other orders, so a
+# class may stop a step apart: the probabilities within RW_PROB_TOL (the
+# port against JAX on the CPU: 1.2e-5 at that tol), the masks equal except
+# where the CPU's probability lies within RW_PROB_TOL of 0.5
+RW_N, RW_CPU_N = 16, 2
+RW_BG_RADIUS, RW_SIGMA, RW_RADIUS = 12, 10.0, 2
+RW_PROB_TOL = 1e-3
+# the predictor and AMG (4n): ViT-H with the seeded weights, bf16 encoder
+# kernels, fp32 decoder, on one seeded RGB image of AMG_HW (the X-ray's
+# resize-longest-side input) at AMG_POINTS points a side (1024 points, 16
+# batches of 64); once at the defaults, once with the IoU and stability
+# thresholds at 0 and small regions of AMG_MIN_AREA pixels removed (every
+# decoded mask reaches NMS, RLE and the small-region pass), twice more with
+# them to compare the records, once with one crop layer and small regions
+AMG_HW = (1024, 716)
+AMG_POINTS, AMG_MIN_AREA = 32, 100
+# the run at thresholds 0 at AMG_ZERO_POINTS a side (768 masks): the random
+# weights' masks are noise (~87k runs a mask), so the host's unpacking and
+# RLE take ~0.9 s a batch of 192 where a trained model's take a fraction
+AMG_ZERO_POINTS = 16
+# the crop layer's run (thresholds 0, a raised mask threshold) at
+# AMG_CROP_POINTS a side: 5 crops of 192 masks each
+AMG_CROP_POINTS = 8
+# the device NMS also on NMS_STRESS_N seeded boxes with duplicates and tied
+# scores (the random weights' masks all fill the image: their boxes are equal)
+NMS_STRESS_N = 3072
 # K8 on stressed maps runs truncated at a cap that is not a multiple of the
 # check interval (16), and to the fixpoint, at the path's check interval and
 # at one that holds several of the register kernel's barrier groups
@@ -2006,6 +2064,12 @@ def phase_bench(torch, kernels):
             d["train_ms_per_step"], d["tflops_per_leg"]["train_step"], d["mfu"]["train_step"])),
         f"the bench's train-step leg: {d['train_ms_per_step']}, {d['train_batch_hw']}, "
         f"{d['tflops_per_leg']['train_step']}, {d['mfu']['train_step']}")
+    check(d["amg_points_per_batch"] == 64 and all(
+        isinstance(v, float) and math.isfinite(v) and v > 0 for v in (
+            d["amg_device_points_per_sec"], d["tflops_per_leg"]["amg_points_batch"],
+            d["mfu"]["amg_batch"])),
+        f"the bench's AMG leg: {d['amg_device_points_per_sec']}, {d['amg_points_per_batch']}, "
+        f"{d['tflops_per_leg']['amg_points_batch']}, {d['mfu']['amg_batch']}")
     return launches, line
 
 
@@ -4070,6 +4134,528 @@ def phase_training(torch, np, kernels):
     return numbers
 
 
+def rndwalk_amg_modules():
+    """The port's random walk, predictor and AMG, as one namespace (none of
+    them needs h5py, cv2, pandas, tqdm, PIL or matplotlib)."""
+    from types import SimpleNamespace
+
+    from samcarriestheburden_torch import native
+    from samcarriestheburden_torch.engine import amg, refinement
+    from samcarriestheburden_torch.engine.predictor import SamPredictor
+    from samcarriestheburden_torch.ops import random_walk, regions, rle
+
+    return SimpleNamespace(
+        native=native, amg=amg, refinement=refinement, SamPredictor=SamPredictor,
+        SamAutomaticMaskGenerator=amg.SamAutomaticMaskGenerator, random_walk=random_walk,
+        regions=regions, rle=rle, RndWalkSegRefiner=refinement.RndWalkSegRefiner,
+        SegEnhance=refinement.SegEnhance)
+
+
+def rndwalk_inputs(np, n: int, classes: int, hw):
+    """(probabilities (n, classes, H, W), images (n, H, W) uint8): the
+    enhance path's maps and X-ray-like images whose bright blobs have their
+    edges where some class's probability crosses 0.5."""
+    probs = enhance_probs(np, np.random.default_rng(21), n, classes, hw)
+    rng = np.random.default_rng(22)
+    imgs = 40 + rng.uniform(0, 8, (n,) + tuple(hw)) + 100 * (probs.max(axis=1) > 0.5)
+    return probs, imgs.astype(np.uint8)
+
+
+def phase_rndwalk(torch, np, kernels, rw, port, dev):
+    """4m: the random walk through ``SegEnhance.enhance`` on the card, image
+    by image, counted (K8 once an image, no other kernel of the port); the
+    CG iterations by class; ms per image by CUDA events and the idle share;
+    the card against the CPU on RW_CPU_N images.  Returns the launches and
+    K8's recorded input of the first image."""
+    n_classes = port.N_CLASSES
+    h, w = port.UNET_INPUT_HW
+    probs, imgs = rndwalk_inputs(np, RW_N, n_classes, (h, w))
+    stems = [f"xray{i:02d}" for i in range(RW_N)]
+
+    def make(device):
+        refiner = rw.RndWalkSegRefiner(RW_BG_RADIUS, RW_SIGMA, device=device)
+        refiner._load_image = lambda stem, hw: imgs[stems.index(stem)]   # no cv2 here
+        return rw.SegEnhance(refiner, "highest_probability", "erosion", "disk", RW_RADIUS)
+
+    iters = []
+    solve = rw.random_walk.solve_seeded
+
+    def counted_walk(img, initial, **kw):
+        p, k = solve(img, initial, **kw)
+        iters.append(k)
+        return p
+
+    recorded = []
+    propagate = port.kccl.propagate
+
+    def record(mask, num_iterations, check_every=16):
+        if not recorded:
+            recorded.append((mask, num_iterations, check_every))
+        return propagate(mask, num_iterations, check_every)
+
+    enh = make(None if dev.type == "cuda" else dev)
+    check(enh._device() == dev, "the random walk must run on the card by default")
+    probs_d = torch.from_numpy(probs).to(dev)
+    enh.enhance(probs_d[0], stems[0])                  # warm-up
+    walk = rw.refinement.random_walk_probs
+    rw.refinement.random_walk_probs, port.kccl.propagate = counted_walk, record
+    try:
+        kernels.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        masks = [enh.enhance(probs_d[i], stems[i])[0] for i in range(RW_N)]
+        end.record()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        rw.refinement.random_walk_probs, port.kccl.propagate = walk, propagate
+    ms = start.elapsed_time(end) / RW_N
+    log(f"random walk launches: {launches}")
+    want = dict.fromkeys(launches, 0)
+    want["K8"] = RW_N
+    check(launches == want, f"random walk launches {launches}, expected {want}")
+    its = torch.stack(iters).cpu()                     # (RW_N, classes + 1)
+    log(f"random walk CG iterations by class (background first), over {RW_N} images: max "
+        f"{its.max(0).values.tolist()}, mean {[round(v, 1) for v in its.float().mean(0).tolist()]}"
+        f"; {int((its == 0).sum())} of {its.numel()} systems stopped at once (b = 0 or "
+        f"converged), the largest {int(its.max())}")
+    check(bool((its > 0).any()), "no class of the random walk iterated")
+    for m in masks:
+        check(tuple(m.shape) == (n_classes, h, w) and m.dtype == torch.bool,
+              f"random walk mask {tuple(m.shape)} {m.dtype}")
+    kept = torch.stack(masks).float().mean().item()
+    log(f"random walk: {ms:.3f} ms per image of {n_classes} classes at {h} x {w} (CUDA events "
+        f"over {RW_N} images), {kept:.4f} of pixels kept")
+    idle = phase_profile(torch, lambda: [enh.enhance(probs_d[i], stems[i]) for i in range(2)],
+                         "random walk (2 images)", top=8)
+
+    # the card against the CPU on the same inputs, the walks' probabilities
+    # captured as the refiner solves them
+    enh_c = make("cpu")
+    worst, differ, ties = 0.0, 0, 0
+    solved = []
+
+    def captured_walk(img, initial, **kw):
+        solved.append(walk(img, initial, **kw))
+        return solved[-1]
+
+    rw.refinement.random_walk_probs = captured_walk
+    try:
+        for i in range(RW_CPU_N):
+            got, _ = enh.enhance(probs_d[i], stems[i])
+            seg = enh.refiner.last_input_seg
+            want_m, _ = enh_c.enhance(torch.from_numpy(probs[i]), stems[i])
+            check(torch.equal(seg.cpu(), enh_c.refiner.last_input_seg), f"image {i}: the CCL "
+                  f"output differs between the card and the CPU")
+            p_g, p_c = solved[-2].cpu(), solved[-1]
+            worst = max(worst, (p_g - p_c).abs().max().item())
+            d = got.cpu() != want_m
+            differ += int(d.sum())
+            ties += int((d & ((p_c[1:] - 0.5).abs() > RW_PROB_TOL)).sum())
+    finally:
+        rw.refinement.random_walk_probs = walk
+    log(f"random walk card vs CPU, {RW_CPU_N} images: probabilities max abs err {worst:.4g} "
+        f"(tol {RW_PROB_TOL}); {differ} mask pixels differ, {ties} of them where the CPU's "
+        f"probability is more than {RW_PROB_TOL} from 0.5 (must be 0)")
+    check(worst <= RW_PROB_TOL and ties == 0, "the random walk disagrees between card and CPU")
+    return launches, recorded[0], {"ms_per_image": ms, "idle": idle,
+                                   "max_iterations": int(its.max())}
+
+
+def amg_image(np):
+    """One seeded HWC uint8 RGB image of AMG_HW: noise with bright and dark
+    ellipses, so the masks have edges to find."""
+    rng = np.random.default_rng(31)
+    h, w = AMG_HW
+    yy, xx = np.mgrid[:h, :w]
+    img = rng.uniform(60, 90, (h, w, 3))
+    for _ in range(24):
+        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+        ry, rx = rng.uniform(20, 200), rng.uniform(20, 200)
+        inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+        img[inside] = rng.uniform(0, 255, 3)
+    return img.astype(np.uint8)
+
+
+def brute_nms(np, boxes, scores, thresh) -> "np.ndarray":
+    """Greedy NMS on the host, one box at a time: the box IoU in float32 with
+    ``ops/nms.py:box_iou``'s operations in its order, so equal to the bit."""
+    boxes = boxes.astype(np.float32)
+    order = sorted(range(len(boxes)), key=lambda i: (-float(scores[i]), i))
+    area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    keep = np.zeros(len(boxes), bool)
+    kept = []
+    for i in order:
+        if kept:
+            k = np.asarray(kept)
+            lt = np.maximum(boxes[k, :2], boxes[i, :2])
+            rb = np.minimum(boxes[k, 2:], boxes[i, 2:])
+            wh = np.clip(rb - lt, 0, None)
+            inter = wh[:, 0] * wh[:, 1]
+            union = area[k] + area[i] - inter
+            iou = np.where(union > 0, inter / np.where(union > 0, union, 1), 0)
+            if (iou > np.float32(thresh)).any():
+                continue
+        keep[i] = True
+        kept.append(i)
+    return keep
+
+
+def records_equal(np, a, b) -> bool:
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        for k in x:
+            if isinstance(x[k], np.ndarray):
+                if not np.array_equal(x[k], y[k]):
+                    return False
+            elif x[k] != y[k]:
+                return False
+    return True
+
+
+def phase_amg(torch, np, kernels, rw, model, cfg):
+    """4n: the predictor and AMG on ViT-H, counted (the encoder's launches
+    by kernel, once per image), at the defaults, with the thresholds at 0 and
+    small regions (twice: the records equal), and with a crop layer at the
+    thresholds at 0; ``_process_batch`` on the card against the CPU from the
+    same embedding; the device NMS against a host brute force on the run's
+    own boxes; native RLE against numpy; the native CCL's areas against
+    scipy; points/s, the phases
+    of a run, the idle share and peak memory.  Returns the launches, the
+    encoder's recorded inputs and the numbers for the log."""
+    from scipy import ndimage
+
+    dev = model.device
+    image = amg_image(np)
+    gen = rw.SamAutomaticMaskGenerator(model, points_per_side=AMG_POINTS)
+    check(gen.predictor.dtype == (torch.bfloat16 if dev.type == "cuda" else torch.float32),
+          "the predictor's encoder must default to bf16 on the card")
+    enc_inputs = []
+    encode = gen.predictor._encode
+
+    def recorded_encode(packed, imgs, sizes):
+        enc_inputs.append((imgs, sizes))
+        return encode(packed, imgs, sizes)
+
+    gen.predictor._encode = recorded_encode
+    gen.generate(image)                                  # warm-up: the decoder's libraries
+    torch.cuda.synchronize()
+
+    # the phases of one run: the encode, the device legs (CUDA events), the
+    # host legs (host clock, less their waits for the card)
+    t = {"encode": 0.0, "device": 0.0, "host": 0.0, "wait": 0.0}
+    set_image, device_batch, host_batch = (gen.predictor.set_image, gen._device_batch,
+                                           gen._host_batch)
+    events = []
+    wait = rw.amg._Fetched.wait
+
+    def timed_set_image(*a, **k):
+        t0 = time.perf_counter()
+        set_image(*a, **k)
+        torch.cuda.synchronize()
+        t["encode"] += time.perf_counter() - t0
+
+    def timed_device(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = device_batch(*a, **k)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    def timed_host(*a, **k):
+        t0 = time.perf_counter()
+        out = host_batch(*a, **k)
+        t["host"] += time.perf_counter() - t0
+        return out
+
+    def timed_wait(self):
+        t0 = time.perf_counter()
+        out = wait(self)
+        t["wait"] += time.perf_counter() - t0
+        return out
+
+    gen.predictor.set_image, gen._device_batch, gen._host_batch = (timed_set_image, timed_device,
+                                                                   timed_host)
+    rw.amg._Fetched.wait = timed_wait
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        enc_inputs.clear()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        recs = gen.generate(image)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        gen.predictor.set_image, gen._device_batch, gen._host_batch = (set_image, device_batch,
+                                                                       host_batch)
+        rw.amg._Fetched.wait = wait
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    t["device"] = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    enc = cfg.image_encoder
+    n_windowed = enc.depth - len(enc.global_attn_indexes)
+    log(f"amg predictor launches: {launches}")
+    check(len(enc_inputs) == 1, f"one image must be encoded once, not {len(enc_inputs)} times")
+    others = {k: v for k, v in launches.items() if k not in ("K1", "K3", "K5", "K6", "K7")}
+    check(launches["K1"] == launches["K3"] == enc.depth and launches["K5"] == n_windowed
+          and launches["K7"] == len(enc.global_attn_indexes)
+          and launches["K6"] == 2 * n_windowed and not any(others.values()),
+          f"amg predictor launches {launches}: expected K1 = K3 = {enc.depth}, K5 = "
+          f"{n_windowed}, K6 = {2 * n_windowed} (the two edge strips of each windowed "
+          f"block), K7 = {len(enc.global_attn_indexes)}, no other")
+    n_points = AMG_POINTS ** 2
+    # random weights: no mask passes the default thresholds, so this run's
+    # host legs filter everything away; the records are checked below, on
+    # the run with the thresholds at 0
+    log(f"amg at the defaults: {len(recs)} masks from {n_points} points in {wall * 1e3:.1f} ms "
+        f"({n_points / wall:.1f} points/s): encode {t['encode'] * 1e3:.1f} ms, {len(events)} "
+        f"device batches {t['device'] * 1e3:.1f} ms on the card ({n_points / t['device']:.1f} "
+        f"points/s; their spans on the card), host legs {t['host'] * 1e3:.1f} ms of which "
+        f"{t['wait'] * 1e3:.1f} waiting for the card, the rest (NMS, records) "
+        f"{(wall - t['encode'] - t['host']) * 1e3:.1f} ms;"
+        f" peak memory {peak_gb:.3f} GB")
+    idle = phase_profile(torch, lambda: gen.generate(image), "amg (defaults)", top=10)
+
+    # thresholds at 0 and small regions: every mask to NMS, RLE and the regions
+    nms_calls, rle_checked, ccl_checked = [], [], []
+    nms_keep = gen._nms_keep
+
+    def checked_nms(boxes, scores, thresh):
+        keep = nms_keep(boxes, scores, thresh)
+        nms_calls.append((np.asarray(boxes, np.float32), np.asarray(scores, np.float32),
+                          thresh, keep))
+        return keep
+
+    mask_to_rle = rw.amg.mask_to_rle
+
+    def checked_rle(masks):
+        out = mask_to_rle(masks)
+        if not rle_checked:
+            rle_checked.append(len(masks))
+            check(out == rw.rle.mask_to_rle(masks, use_native=False),
+                  "native RLE disagrees with numpy")
+            for m in masks[:32]:
+                for working in (~m, m):
+                    labels, areas = rw.native.connected_components_with_areas(working)
+                    ref, n = ndimage.label(working, structure=np.ones((3, 3), int))
+                    check(len(areas) == n + 1 and sorted(areas[1:].tolist())
+                          == sorted(np.bincount(ref.ravel())[1:].tolist())
+                          and int(areas[0]) == int((~working).sum()),
+                          "the native CCL's areas disagree with scipy.ndimage.label")
+                    ccl_checked.append(n)
+        return out
+
+    gen._nms_keep, rw.amg.mask_to_rle = checked_nms, checked_rle
+    gen.pred_iou_thresh = gen.stability_score_thresh = 0.0
+    gen.min_mask_region_area = AMG_MIN_AREA
+    gen.point_grids = rw.amg.build_all_layer_point_grids(AMG_ZERO_POINTS, 0, 1)
+    try:
+        t0 = time.perf_counter()
+        recs0 = gen.generate(image)
+        wall0 = time.perf_counter() - t0
+    finally:
+        gen._nms_keep, rw.amg.mask_to_rle = nms_keep, mask_to_rle
+    again = gen.generate(image)
+    check(len(recs0) > 0 and records_equal(np, recs0, again),
+          f"two AMG runs on the same image with the thresholds at 0 disagree or give no "
+          f"record ({len(recs0)} and {len(again)} records)")
+    for r in recs0:
+        check(r["segmentation"].shape == AMG_HW and r["area"] == int(r["segmentation"].sum()),
+              "an AMG record's mask or area is wrong")
+    for boxes, scores, thresh, keep in nms_calls:
+        want = brute_nms(np, boxes, scores, thresh)
+        log(f"amg NMS on {len(boxes)} boxes at {thresh}: {int(keep.sum())} kept; the host's "
+            f"brute force keeps the same: {np.array_equal(keep, want)}")
+        check(np.array_equal(keep, want), "the device NMS disagrees with the host's brute force")
+    check(len(nms_calls) == 1 and len(nms_calls[0][0]) == 3 * AMG_ZERO_POINTS ** 2,
+          "with the thresholds at 0 every mask must reach the NMS")
+    rng = np.random.default_rng(32)
+    xy = rng.uniform(0, 600, (NMS_STRESS_N, 2)).astype(np.float32).round()
+    boxes = np.concatenate([xy, xy + rng.uniform(8, 300, (NMS_STRESS_N, 2)).round()], 1)
+    boxes[1::7] = boxes[::7][:len(boxes[1::7])]                 # duplicates
+    scores = rng.integers(0, 64, NMS_STRESS_N).astype(np.float32) / 64   # ties
+    for thresh in (0.3, 0.7):
+        keep = nms_keep(boxes, scores, thresh)
+        want = brute_nms(np, boxes, scores, thresh)
+        log(f"amg NMS on {NMS_STRESS_N} stressed boxes at {thresh}: {int(keep.sum())} kept; "
+            f"the host's brute force keeps the same: {np.array_equal(keep, want)}")
+        check(np.array_equal(keep, want), "the device NMS disagrees with the host's brute "
+              "force on stressed boxes")
+    log(f"amg with thresholds 0 at {AMG_ZERO_POINTS} points a side and small regions of "
+        f"{AMG_MIN_AREA}: {len(recs0)} masks in "
+        f"{wall0 * 1e3:.1f} ms; native RLE equal to numpy on a batch of {rle_checked[0]} masks; "
+        f"native CCL areas equal to scipy on {len(ccl_checked)} masks "
+        f"({sum(ccl_checked)} components)")
+
+    # one crop layer, small regions, the thresholds at 0: the masks of the
+    # sub-crops through the uncrop, the crop NMS and the small regions.  The
+    # random weights' masks are noise that fills every crop, so the crop-edge
+    # filter would drop every mask of a sub-crop; the model's mask threshold
+    # is raised for this run to the median of the masks' largest logits over
+    # one batch of the whole image, which leaves each mask a few small blobs
+    gen.crop_n_layers = 1
+    gen.point_grids = rw.amg.build_all_layer_point_grids(AMG_CROP_POINTS, 1, 1)
+    gen.predictor.set_image(image)
+    points = gen.point_grids[0][:gen.points_per_batch] * np.array(AMG_HW)[None, ::-1]
+    coords = gen.predictor.transform.apply_coords(points, AMG_HW)
+    logits = gen.predictor.predict_batched(
+        torch.from_numpy(coords[:, None, :]).to(dev),
+        torch.ones((len(points), 1), dtype=torch.int32, device=dev),
+        multimask_output=True, return_logits=True)[0]
+    crop_thr = logits.flatten(2).amax(-1).median().item()
+    del logits
+    gen.predictor.reset_image()
+    full = (0, 0, AMG_HW[1], AMG_HW[0])
+    uncropped, crop_nms, small = [], [], []
+    in_crop = [False]
+    process_crop, small_regions = gen._process_crop, gen.postprocess_small_regions
+
+    def traced_crop(*a, **k):
+        in_crop[0] = True
+        try:
+            return process_crop(*a, **k)
+        finally:
+            in_crop[0] = False
+
+    def traced_host(fetched, crop_box, orig_size):
+        out = host_batch(fetched, crop_box, orig_size)
+        if tuple(crop_box) != full and len(out) > 0:
+            x0, y0, x1, y1 = crop_box
+            for rle in out["rles"][:8]:
+                m = rw.rle.rle_to_mask(rle)
+                check(m.shape == AMG_HW and not m[:y0].any() and not m[y1:].any()
+                      and not m[:, :x0].any() and not m[:, x1:].any(),
+                      f"an uncropped mask of crop {crop_box} reaches outside it")
+            uncropped.append(len(out))
+        return out
+
+    def traced_nms(boxes, scores, thresh):
+        keep = nms_keep(boxes, scores, thresh)
+        if not in_crop[0]:
+            crop_nms.append((np.asarray(boxes, np.float32), np.asarray(scores, np.float32),
+                             thresh, keep))
+        return keep
+
+    def traced_small(mask_data, *a, **k):
+        small.append(len(mask_data))
+        return small_regions(mask_data, *a, **k)
+
+    gen._process_crop, gen._host_batch, gen._nms_keep = traced_crop, traced_host, traced_nms
+    gen.postprocess_small_regions = traced_small
+    model.cfg = replace(cfg, mask_threshold=crop_thr)
+    kernels.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        recs_c = gen.generate(image)
+        wall_c = time.perf_counter() - t0
+    finally:
+        gen._process_crop, gen._host_batch, gen._nms_keep = process_crop, host_batch, nms_keep
+        del gen.postprocess_small_regions
+        model.cfg = cfg
+    crops = {tuple(r["crop_box"]) for r in recs_c}
+    log(f"amg with one crop layer at {AMG_CROP_POINTS} points a side, thresholds 0, the mask "
+        f"threshold at {crop_thr:.6g} and small regions of {AMG_MIN_AREA}: {sum(uncropped)} masks of the sub-crops uncropped, "
+        f"{[len(c[0]) for c in crop_nms]} boxes into the crop NMS "
+        f"({[int(c[3].sum()) for c in crop_nms]} kept), {small} masks into the small "
+        f"regions, {len(recs_c)} records from {len(crops)} crops in {wall_c * 1e3:.1f} ms, "
+        f"K1 launched {kernels.LAUNCHES['K1']} times (5 encodes of {enc.depth})")
+    check(kernels.LAUNCHES["K1"] == 5 * enc.depth, "one crop layer must encode 5 crops")
+    check(sum(uncropped) > 0 and len(crop_nms) == 1 and len(crop_nms[0][0]) > 0
+          and small and small[0] > 0 and len(recs_c) > 0,
+          "the crop layer's run must take masks through the uncrop, the crop NMS and the "
+          "small regions")
+    for boxes, scores, thresh, keep in crop_nms:
+        check(np.array_equal(keep, brute_nms(np, boxes, scores, thresh)),
+              "the crop NMS disagrees with the host's brute force")
+    for r in recs_c:
+        check(r["segmentation"].shape == AMG_HW and r["area"] == int(r["segmentation"].sum()),
+              "a crop layer's record's mask or area is wrong")
+
+    # _process_batch on the card against the CPU from the same embedding
+    check_process_batch(torch, np, rw, gen, model, cfg, image)
+    return launches, enc_inputs[0], {"points_per_sec": n_points / wall,
+                                     "device_points_per_sec": n_points / t["device"],
+                                     "idle": idle, "peak_gb": peak_gb}
+
+
+def check_process_batch(torch, np, rw, gen, model, cfg, image):
+    """One batch of 64 grid points through ``_process_batch`` on the card and
+    on the CPU, from the card's embedding set into both predictors (the bf16
+    encoder's drift stays out), thresholds at 0: every record equal, except
+    that a mask pixel, and so the stability score and the box, may differ
+    where the CPU's logit lies within DECODE_RTOL x max |logit| of a
+    threshold (the mask's, or the stability score's at +-1)."""
+    from samcarriestheburden_torch.models.sam import build_sam
+
+    gen.crop_n_layers = 0
+    gen.pred_iou_thresh = gen.stability_score_thresh = 0.0
+    gen.point_grids = rw.amg.build_all_layer_point_grids(AMG_POINTS, 0, 1)
+    gen.predictor.set_image(image)
+    cpu_model = build_sam(cfg, device="cpu", state_dict={
+        k: v.cpu() for k, v in model.state_dict().items()})
+    cpu = rw.SamAutomaticMaskGenerator(cpu_model, points_per_side=AMG_POINTS,
+                                       pred_iou_thresh=0.0, stability_score_thresh=0.0)
+    p, pc = gen.predictor, cpu.predictor
+    pc.features, pc.input_size, pc.original_size = p.features.cpu(), p.input_size, p.original_size
+    pc.is_image_set = True
+    orig = image.shape[:2]
+    crop_box = [0, 0, orig[1], orig[0]]
+    points = gen.point_grids[0][:gen.points_per_batch] * np.array(orig)[None, ::-1]
+    logits = {}
+
+    def capture(pred, key):
+        fn = pred.predict_batched
+
+        def call(*a, **k):
+            out = fn(*a, **k)
+            logits[key] = out[0].float().cpu().reshape(-1, *orig)
+            return out
+        return call
+
+    p.predict_batched, pc.predict_batched = capture(p, "card"), capture(pc, "cpu")
+    try:
+        got = gen._process_batch(points, orig, crop_box, orig)
+        want = cpu._process_batch(points, orig, crop_box, orig)
+    finally:
+        del p.predict_batched, pc.predict_batched
+    again = gen._process_batch(points, orig, crop_box, orig)
+    same = all(np.array_equal(got[k], again[k]) for k in ("iou_preds", "stability_score",
+                                                         "boxes", "points")) \
+        and got["rles"] == again["rles"]
+    log(f"_process_batch twice on the card: the same {len(got)} records: {same}")
+    check(same, "_process_batch differs between two calls on the card")
+    scale = max(1.0, logits["cpu"].abs().max().item())
+    tol = DECODE_RTOL * scale
+    lerr = (logits["card"] - logits["cpu"]).abs().max().item()
+    logits = logits["cpu"]
+    check(len(got) == len(want) == 3 * len(points), "the batch's records differ in number")
+    iou_err = np.abs(got["iou_preds"] - want["iou_preds"]).max()
+    thr = p.model.mask_threshold
+    off = gen.stability_score_offset
+    n_differ = stab_bad = box_bad = 0
+    for i in range(len(got)):
+        m, mc = rw.rle.rle_to_mask(got["rles"][i]), rw.rle.rle_to_mask(want["rles"][i])
+        li = logits[i].numpy()
+        tie = np.abs(li - thr) <= tol
+        differ = m != mc
+        n_differ += int(differ.sum())
+        check(not (differ & ~tie).any(), f"record {i}: a mask pixel differs away from a tie")
+        ties = int((np.abs(li - thr - off) <= tol).sum() + (np.abs(li - thr + off) <= tol).sum())
+        union = max(int((li > thr - off).sum()) - ties, 1)
+        stab_bad += abs(got["stability_score"][i] - want["stability_score"][i]) > \
+            ties / union + 1e-6
+        box_bad += not differ.any() and not np.array_equal(got["boxes"][i], want["boxes"][i])
+    log(f"_process_batch card vs CPU from the same embedding, {len(got)} records: logits max "
+        f"abs err {lerr:.4g} (tol {DECODE_RTOL} x {scale:.4g}), IoU {iou_err:.4g}; {n_differ} "
+        f"mask pixels differ, all at threshold ties; stability scores off their ties: "
+        f"{stab_bad}, boxes of equal masks differing: {box_bad}")
+    check(lerr <= tol and iou_err <= tol and stab_bad == 0 and box_bad == 0
+          and np.array_equal(got["points"], want["points"]),
+          "_process_batch disagrees between the card and the CPU")
+
+
 def smoke_images(torch, seed: int, dev):
     """B seeded uint8 images of INPUT_HW inside the padded square, and their sizes."""
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -4105,6 +4691,7 @@ def main() -> int:
         from samcarriestheburden_torch.models.sam import build_sam, two_round_decode
         from samcarriestheburden_torch.tools import bench_int8pv
         port = enhance_modules()
+        rw = rndwalk_amg_modules()
     except ImportError as exc:
         raise SmokeError(f"the port is not importable here: {exc}") from exc
 
@@ -4247,6 +4834,15 @@ def main() -> int:
     # card against the CPU, bf16 against fp32, the warp; no port kernel launched
     phase_training(torch, np, kernels)
 
+    # 5g. (4m) the random walk through SegEnhance on the card, image by image,
+    # counted (K8 an image); the card against the CPU
+    launches_rw, k8_rw, _ = phase_rndwalk(torch, np, kernels, rw, port, dev)
+
+    # 5h. (4n) the predictor and AMG on ViT-H, counted (the encoder's
+    # kernels, once per image); NMS, RLE, the native CCL and _process_batch
+    # each against their references
+    launches_amg, amg_encode, _ = phase_amg(torch, np, kernels, rw, model, cfg)
+
     # 5d. the encoder's other block formulations: v1 (K9) and v2 (K12) at full
     # depth, v3 (K10, K11) as a run of blocks; every kernel they launch, K1, K3
     # and K7 too, recorded in the counted run with the launches of each of its
@@ -4380,6 +4976,25 @@ def main() -> int:
                      **{k: sum(r[k] for r in k6_pipe)
                         for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
     del recorded_p
+    # the predictor's encode in AMG (4n): each kernel at the call shapes of the
+    # counted run's image (recorded in a call of its own), with its launches
+    recorded_a = {}
+
+    def amg_key(name, args, kw):
+        return f"{name} {kw['rh']}x{kw['rw']} amg" if name == "K6" else f"{name} amg"
+    amg_names = dict(zip(EncoderOps._fields, ("K1", "K3", "K5", "K7", "K6")))
+    rec = recording_ops(KERNEL_OPS, amg_names, kernels.LAUNCHES, amg_key, recorded_a, {})
+    make_encode_batch(model, torch.bfloat16, ops=rec)(packed, *amg_encode)
+    k6_amg = []
+    for key in sorted(recorded_a):
+        name = key.split()[0]
+        (k6_amg if name == "K6" else rows).append(
+            row_of(key, "amg_predictor", launches_amg[name], *recorded_a[key], stress=False))
+    rows.append({**k6_amg[0], "shape": [r["shape"] for r in k6_amg],
+                 "max_abs_err": max(r["max_abs_err"] for r in k6_amg),
+                 **{k: sum(r[k] for r in k6_amg)
+                    for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
+    del recorded_a, amg_encode
     log(f"K6: {rows[-1]['ms']:.4f} ms for a block's two launches against a bound of "
         f"{rows[-1]['bound_ms']:.4f} ms by bytes: each launch fills the card at most once, so "
         f"launch latency, not the bound, sets its time")
@@ -4427,6 +5042,20 @@ def main() -> int:
                  **k8_numbers(torch, port.kccl, mask_p, cap_p, every_p, out_p[2],
                               (out_k[0].long() - out_p[0].long()).abs().max().item())})
     del k8_pipe, mask_p, out_k, out_p
+    # K8 on the random walk's first image (4m): labels, flags and steps bit for bit
+    mask_r, cap_r, every_r = k8_rw
+    out_k = port.kccl.propagate(mask_r, cap_r, every_r)
+    out_p = port.kccl.propagate_plain(mask_r, cap_r, every_r)
+    log(f"K8 on the random walk's {tuple(mask_r.shape)}: labels, flags and steps equal to its "
+        f"plain version: {k8_equal(torch, out_k, out_p)}")
+    check(k8_equal(torch, out_k, out_p), "K8 disagrees with its plain version on the random "
+          "walk's maps")
+    rows.append({"name": "K8", "path": "rndwalk_enhance", "shape": list(mask_r.shape),
+                 "route": "cuda", "source": KERNELS["K8"][1], "replaces": KERNELS["K8"][2],
+                 "launches": launches_rw["K8"],
+                 **k8_numbers(torch, port.kccl, mask_r, cap_r, every_r, out_p[2],
+                              (out_k[0].long() - out_p[0].long()).abs().max().item())})
+    del k8_rw, mask_r, out_k, out_p
 
     # 6b. the bench's path at a reduced size, counted (K13 launches there); the
     # int8 p.v A/B tool, counted; K7-pv and K7-int8pv against their plain

@@ -24,14 +24,20 @@ The legs and shapes are ``bench.py``'s, with zero weights by shape:
 * train step: one ``UNetTrainer.train_step`` of the full-width U-Net
   (``UNetConfig()``, 17 classes) on a batch of 16 grayscale 384 x 224 images
   gathered on the device, normalised, warped (``data_aug`` 0.03), bf16
-  forward, fp32 loss and AdamW (``bench.py:416-438``).
+  forward, fp32 loss and AdamW (``bench.py:416-438``);
+* AMG: one batch of 64 grid points (8 with ``--smoke``) on the refine leg's
+  shared features: prompt encoding, the three-mask decode with the image
+  side shared, ``postprocess_masks`` to the encoder's square, the stability
+  score and the mask areas, in fp32 (``bench.py:440-461``): the points/s the
+  card can score, without the host's filtering and RLE.
 
 The embed and decode legs are timed with CUDA events over ``iters x 8``
-calls after 2 warm-ups, the train step over ``iters x 4``; the enhance leg,
+calls after 2 warm-ups, the train step over ``iters x 4``, the AMG batch
+over ``iters x 2``; the enhance leg,
 which the host bounds, with the host clock around calls that end in
 ``synchronize()``.  MFU uses the analytic encoder count
 (:func:`analytic_encoder_flops`), ``FlopCounterMode``'s count of the decode
-and the analytic U-Net count (:func:`analytic_unet_flops`), over the H100's
+and of the AMG batch, and the analytic U-Net count (:func:`analytic_unet_flops`), over the H100's
 dense peaks; on another card the peaks are null.  ``--smoke`` runs the tiny
 vit_t config in fp32 at batch 1 on a 48 x 32 grid, and the train step in
 fp32 at batch 2 on that grid.  ``--attention pallas`` runs the unfused formulation through K9,
@@ -64,6 +70,7 @@ from samcarriestheburden_torch.models.image_encoder import (attention_apply,
                                                             compact_window_groups)
 from samcarriestheburden_torch.models.sam import SamModel, build_sam
 from samcarriestheburden_torch.ops.ccl import remove_all_but_one_connected_component
+from samcarriestheburden_torch.ops.mask_ops import calculate_stability_score
 from samcarriestheburden_torch.train.augment import random_theta
 from samcarriestheburden_torch.train.loop import UNetTrainer
 
@@ -73,6 +80,7 @@ A100_BF16_TFLOPS = 312      # the hardware of the reference's cost estimate (SAM
 DECLARED_FLOPS = 1234567    # the cost K13 declares (bench.py:104)
 INNER = 8
 TRAIN_INNER = 4             # bench.py's train-step timing (bench.py:437)
+AMG_INNER = 2               # the AMG leg's (bench.py:459-460)
 TWO_ROUNDS = [["box"], ["pos_points", "neg_points"]]
 
 
@@ -342,6 +350,26 @@ def main(argv: Optional[List[str]] = None) -> dict:
     per_image = 1.0 / embed_per_sec + t_enhance
     value = 1.0 / per_image
 
+    # ---- the AMG leg (bench.py:440-461): one batch of grid points on shared
+    # features, prompt encoding, decode, postprocess, stability and areas on
+    # the card; the host's RLE and filtering are not in it ------------------------
+    ppb = 8 if args.smoke else 64
+    amg_pts = torch.from_numpy(rng.uniform(0, size, (ppb, 1, 2)).astype(np.float32)).to(device)
+    amg_labels = torch.ones((ppb, 1), dtype=torch.int32, device=device)
+
+    def amg_batch():
+        sparse, dense = model.encode_prompts(points=(amg_pts, amg_labels))
+        low_res, iou = model.decode_masks(features, model.get_dense_pe(), sparse, dense, True,
+                                          image_shared=True)
+        masks = model.postprocess_masks(low_res, (size, size), (size, size))
+        stab = calculate_stability_score(masks, 0.0, 1.0)
+        return iou, stab, (masks > 0).sum(dim=(-2, -1))
+
+    t_amg = time_device(amg_batch, device, args.iters, inner=AMG_INNER)
+    with FlopCounterMode(display=False) as fc:
+        amg_batch()
+    f_amg = float(fc.get_total_flops())
+
     # ---- the U-Net training step (bench.py:416-438): batch 16, 384 x 224,
     # 17 classes, data_aug 0.03, bf16 forward ----------------------------------
     tb = 2 if args.smoke else 16
@@ -384,8 +412,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
             "full_enhance_images_per_sec": round(1.0 / t_enhance, 2),
             "train_ms_per_step": round(1e3 * t_train, 2),
             "train_batch_hw": [tb, list(thw)],
-            "amg_device_points_per_sec": None,
-            "amg_points_per_batch": None,
+            "amg_device_points_per_sec": round(ppb / t_amg, 1),
+            "amg_points_per_batch": ppb,
             "enhance_batch": eb,
             "seg_grid_hw": list(seg_hw),
             "encoder_batch": batch,
@@ -405,7 +433,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                 "encoder_per_img_xla": None,
                 "refine_17class_2round": round(f_ref / 1e12, 4),
                 "train_step": round(f_train / 1e12, 4),
-                "amg_points_batch": None,
+                "amg_points_batch": round(f_amg / 1e12, 4),
             },
             "mfu": {
                 "encoder": mfu(f_enc, t_encode, pk),
@@ -413,7 +441,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                             else None),
                 "refine_decode": mfu(f_ref, t_refine, pk),
                 "train_step": mfu(f_train, t_train, pk),
-                "amg_batch": None,
+                "amg_batch": mfu(f_amg, t_amg, pk),
             },
             "flops_convention": flops_convention_check(device),
             "reference_implied_a100_mfu": round(

@@ -8,7 +8,9 @@ one or two rounds: round 1 decodes all N x C prompt sets at once from their
 boxes (or points), each image's side projected once, round 2 from points
 with round 1's logits as the mask prompt, and the logits land on the U-Net
 grid through one :func:`postprocess_to_grid` call (the JAX package's vmapped
-``refine_batch``, with the batch written out).
+``refine_batch``, with the batch written out).  :class:`RndWalkSegRefiner`
+solves a seeded random walk over the image instead (``ops/random_walk.py``,
+CG on the device in place of the reference's host-side pyamg).
 
 Reference quirks kept: the morphology's result only fills
 ``last_preprocessed_seg`` and the refiner gets the CCL output
@@ -31,7 +33,9 @@ from samcarriestheburden_torch.engine.postprocess import postprocess_to_grid
 from samcarriestheburden_torch.engine.prompts import extract_prompt_arrays, neg_seed_table
 from samcarriestheburden_torch.ops.ccl import remove_all_but_one_connected_component
 from samcarriestheburden_torch.ops.dice import jaccard_to_dice
-from samcarriestheburden_torch.ops.morphology import dilation, erosion, get_struct_element
+from samcarriestheburden_torch.ops.morphology import (dilation, erode_mask_with_disc_struct,
+                                                      erosion, get_struct_element)
+from samcarriestheburden_torch.ops.random_walk import random_walk_probs
 
 
 class SegRefiner(ABC):
@@ -223,3 +227,51 @@ class SamSegRefiner(SegRefiner):
                            for f in file_names])
         return self._refine_batched(segs.bool(), feats, *self._sizes(file_names),
                                     tuple(segs.shape[-2:]))
+
+
+# ---------------------------------------------------------------------------
+# Random-walk refiner (reference seg_refinement.py:119-203)
+# ---------------------------------------------------------------------------
+
+
+class RndWalkSegRefiner(SegRefiner):
+    def __init__(self, background_erosion_radius: int, laplace_sigma: float,
+                 laplace_lambda: float = 1.0, img_path: str = "data/img_only_front_all_left",
+                 device=None):
+        """``device``: where the walk is solved (None: the card; raises
+        without one).  The image of ``file_name`` is read from ``img_path``
+        and resized to the mask's grid by :meth:`_load_image`."""
+        self.background_erosion_radius = background_erosion_radius
+        self.laplace_lambda = laplace_lambda
+        self.laplace_sigma = laplace_sigma
+        self.last_input_seg = None
+        self.img_path = Path(img_path)
+        self.device = resolve_device(device)
+
+    def _load_image(self, file_name: str, hw) -> np.ndarray:
+        """(H, W) uint8: the grayscale PNG, bilinear to ``hw`` (cv2, as the
+        reference reads it)."""
+        import cv2
+
+        img = cv2.imread(str(self.img_path / (file_name + ".png")), cv2.IMREAD_GRAYSCALE)
+        if img is None:
+            raise FileNotFoundError(self.img_path / (file_name + ".png"))
+        return cv2.resize(img, (hw[1], hw[0]))
+
+    def refine(self, seg, file_name: str):
+        """(C, H, W) mask of one image -> (refined (C, H, W) bool, None).
+
+        The seeds are the mask's own values (the reference passes the CCL
+        output, probabilities), with the background, eroded by a disk of
+        ``background_erosion_radius``, as one more class; the walk's
+        probabilities are thresholded at 0.5."""
+        seg = torch.as_tensor(seg).to(self.device)
+        self.last_input_seg = seg
+        img = torch.as_tensor(self._load_image(file_name, tuple(seg.shape[-2:]))).to(self.device)
+        background = ~seg.bool().any(dim=0)
+        if self.background_erosion_radius > 1:
+            background = erode_mask_with_disc_struct(
+                background[None], radius=self.background_erosion_radius)[0]
+        initial = torch.cat([background[None].to(seg.dtype), seg], dim=0)
+        p_hat = random_walk_probs(img, initial, sigma=self.laplace_sigma, lam=self.laplace_lambda)
+        return p_hat[1:] > 0.5, None

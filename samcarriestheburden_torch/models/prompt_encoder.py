@@ -67,6 +67,13 @@ class PromptEncoder(nn.Module):
         grid = torch.stack(torch.meshgrid(x, y, indexing="xy"), dim=-1)  # (H, W, 2) as (x, y)
         return self.pe_layer.encode(grid).permute(2, 0, 1)[None]
 
+    def pe_with_coords(self, coords: torch.Tensor, image_size: Tuple[int, int]) -> torch.Tensor:
+        """Encode unnormalised (..., 2) xy coords against an (H, W)
+        ``image_size`` (reference prompt_encoder.py:207-214)."""
+        norm = coords / torch.tensor([image_size[1], image_size[0]], dtype=coords.dtype,
+                                     device=coords.device)
+        return self.pe_layer.encode(norm)
+
     def embed_unified_points(self, coords: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """(B, N, 2) coords + (B, N) labels -> (B, N, embed_dim).  Points get
         the reference's +0.5 pixel-centre shift (prompt_encoder.py:80,95)."""

@@ -56,6 +56,10 @@ class SamModel(nn.Module):
     def mask_threshold(self) -> float:
         return self.cfg.mask_threshold
 
+    @property
+    def image_format(self) -> str:
+        return self.cfg.image_format
+
     def preprocess(self, x: torch.Tensor) -> torch.Tensor:
         """Normalise pixels and pad bottom/right to the encoder's square input."""
         x = (x.float() - self.pixel_mean) / self.pixel_std

@@ -4,6 +4,10 @@
   (segment_anything/utils/transforms.py:93-102).
 * ``resize_bilinear`` — half-pixel centres (torch ``align_corners=False``),
   no antialiasing: JAX ``jax.image.resize(method='linear', antialias=False)``.
+* ``resize_nearest`` — torch's ``nearest-exact`` and legacy ``nearest``
+  conventions as JAX computes them: fp32 source indices, then a gather.
+* ``apply_coords``, ``apply_boxes`` — prompts into the resized frame
+  (reference ResizeLongestSide, transforms.py:33-53).
 * ``resize_longest_side_np`` — host-side uint8 resize, PIL's antialiased
   bilinear resize (which the reference uses) bit for bit, in numpy.
 """
@@ -33,6 +37,45 @@ def resize_bilinear(image: torch.Tensor, out_hw: Tuple[int, int], *,
     y = F.interpolate(x, size=tuple(out_hw), mode="bilinear",
                       align_corners=False, antialias=antialias)
     return y.reshape(*lead, *out_hw)
+
+
+def _nearest_indices(out_size: int, in_size: int, exact: bool, device) -> torch.Tensor:
+    """Source index of each output index, JAX's rule: ``floor((i + 0.5) *
+    scale)`` (``exact``) or ``floor(i * scale)``, in fp32 with ``scale``
+    rounded to fp32 first.  ``F.interpolate`` computes its nearest indices
+    otherwise and picks other pixels at some sizes."""
+    scale = torch.tensor(in_size / out_size, dtype=torch.float32, device=device)
+    i = torch.arange(out_size, dtype=torch.float32, device=device)
+    src = torch.floor((i + 0.5) * scale if exact else i * scale)
+    return src.long().clamp(0, in_size - 1)
+
+
+def resize_nearest(image: torch.Tensor, out_hw: Tuple[int, int], *,
+                   exact: bool = True) -> torch.Tensor:
+    """Nearest-neighbour resize of the last two axes.  ``exact=True`` is torch
+    ``mode='nearest-exact'`` (the reference at seg_refinement.py:111),
+    ``exact=False`` the legacy ``mode='nearest'`` (seg_grazpedwri_dataset.py:
+    176), both with the JAX package's fp32 indices."""
+    h_idx = _nearest_indices(out_hw[0], image.shape[-2], exact, image.device)
+    w_idx = _nearest_indices(out_hw[1], image.shape[-1], exact, image.device)
+    return image[..., h_idx, :][..., :, w_idx]
+
+
+def apply_coords(coords, original_size: Tuple[int, int], target_length: int) -> torch.Tensor:
+    """Scale (..., 2) xy coords from ``original_size`` (H, W) into the
+    resized-longest-side frame (reference transforms.py:33-45); fp32, on
+    ``coords``' device."""
+    old_h, old_w = original_size
+    new_h, new_w = get_preprocess_shape(old_h, old_w, target_length)
+    coords = torch.as_tensor(coords, dtype=torch.float32)
+    return coords * torch.tensor([new_w / old_w, new_h / old_h], dtype=torch.float32,
+                                 device=coords.device)
+
+
+def apply_boxes(boxes, original_size: Tuple[int, int], target_length: int) -> torch.Tensor:
+    """Scale (..., 4) xyxy boxes (reference transforms.py:47-53)."""
+    boxes = torch.as_tensor(boxes, dtype=torch.float32)
+    return apply_coords(boxes.reshape(-1, 2, 2), original_size, target_length).reshape(boxes.shape)
 
 
 def scale_coords(coords, original_size, target_size) -> torch.Tensor:

@@ -132,6 +132,9 @@ def test_smoke_line_on_the_cpu(capsys):
     assert d["flops_convention"]["ok"] is True
     assert d["encoder_batch"] == 1 and d["enhance_batch"] == 1 and d["seg_grid_hw"] == [48, 32]
     assert d["tflops_per_leg"]["refine_17class_2round"] >= 0
+    # the AMG leg: one batch of 8 grid points at the smoke size
+    assert d["amg_points_per_batch"] == 8 and d["amg_device_points_per_sec"] > 0
+    assert d["tflops_per_leg"]["amg_points_batch"] >= 0 and d["mfu"]["amg_batch"] is None
     assert elapsed < 30, elapsed
 
 

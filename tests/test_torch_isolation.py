@@ -39,6 +39,11 @@ TRAINING_MODULES = ("train", "train.augment", "train.loop", "train.checkpoint", 
                     "cli.make_synthetic_dataset", "cli.define_successively_data_subsets",
                     "cli.copy_and_process_imgs", "cli.import_reference_data",
                     "cli.sanity_check_saved_segmentation")
+#: the random walk and HPO, the predictor and AMG (queue A items 3 and 4)
+RNDWALK_AMG_MODULES = ("ops.random_walk", "ops.seg_preprocessing", "hpo", "hpo.study",
+                       "hpo.objectives", "hpo.visualize", "cli.hpo", "ops.mask_ops",
+                       "ops.resize", "ops.nms", "native", "ops.rle", "ops.regions",
+                       "engine.predictor", "engine.amg", "cli.amg")
 
 
 def _port_modules():
@@ -50,7 +55,7 @@ def test_every_module_imports_without_jax():
     modules = _port_modules()
     for name in ("kernels.attention", "kernels.quant", "models.quantize", "kernels.cost_probe",
                  "bench", "tools.bench_int8pv", "tools.exp_attn", "tools.exp_attn2",
-                 *PIPELINE_MODULES, *TRAINING_MODULES):
+                 *PIPELINE_MODULES, *TRAINING_MODULES, *RNDWALK_AMG_MODULES):
         assert f"samcarriestheburden_torch.{name}" in modules
     code = ("import sys\n"
             + "".join(f"sys.modules[{name!r}] = None\n" for name in FORBIDDEN)
@@ -71,17 +76,32 @@ def test_every_module_imports_without_h5py():
     and the trainer without them."""
     modules = _port_modules()
     for name in ("data.h5io", "engine.decoder_head", "engine.refinement", "kernels.ccl",
-                 *PIPELINE_MODULES, *TRAINING_MODULES):
+                 *PIPELINE_MODULES, *TRAINING_MODULES, *RNDWALK_AMG_MODULES):
         assert f"samcarriestheburden_torch.{name}" in modules
     code = ("import sys\n"
             + "".join(f"sys.modules[{name!r}] = None\n" for name in HOST_ONLY)
             + "import importlib\n"
             + f"for name in {modules!r}:\n    importlib.import_module(name)\n"
             + "import chip_smoke\nchip_smoke.enhance_modules()\nchip_smoke.pipeline_modules()\n"
-            + "chip_smoke.training_modules()\n")
+            + "chip_smoke.training_modules()\nchip_smoke.rndwalk_amg_modules()\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_the_amg_and_random_walk_pull_in_no_host_only_package():
+    """Importing the AMG engine and the random walk loads none of cv2, pandas
+    or matplotlib (the HPO objectives and the CLIs import them inside the
+    functions that read files or plot)."""
+    code = ("import sys\n"
+            "import samcarriestheburden_torch.engine.amg, samcarriestheburden_torch.ops.random_walk\n"
+            "import samcarriestheburden_torch.hpo.objectives, samcarriestheburden_torch.cli.hpo\n"
+            "import samcarriestheburden_torch.cli.amg, samcarriestheburden_torch.hpo.visualize\n"
+            "print(sorted(m for m in ('cv2', 'pandas', 'matplotlib') if m in sys.modules))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
@@ -112,6 +132,9 @@ def test_the_parametrized_scan_covers_the_int8_modules():
     # ... and U-Net training's
     assert {name.replace(".", "/") + ".py" for name in TRAINING_MODULES
             if name != "train"} | {"train/__init__.py"} <= scanned
+    # ... and the random walk's, HPO's, the predictor's and AMG's
+    assert {name.replace(".", "/") + ".py" for name in RNDWALK_AMG_MODULES
+            if name != "hpo"} | {"hpo/__init__.py"} <= scanned
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT))
@@ -352,9 +375,12 @@ def test_the_int8_wrappers_never_reach_the_compiler_on_cpu(monkeypatch):
 
 
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
-    from samcarriestheburden_torch.cli import (generate_img_embeddings,
+    from samcarriestheburden_torch.cli import amg as amg_cli
+    from samcarriestheburden_torch.cli import (generate_img_embeddings, hpo,
                                                save_refined_segmentations, save_segmentations,
                                                train, train_on_pseudo_labels)
+    from samcarriestheburden_torch.engine.refinement import RndWalkSegRefiner
+    from samcarriestheburden_torch.hpo import objectives
     from samcarriestheburden_torch.config import TrainConfig, UNetConfig
     from samcarriestheburden_torch.engine.embeddings import encode_images, precompute_embeddings
     from samcarriestheburden_torch.models.build import build_sam_vit_h, sam_model_registry
@@ -386,7 +412,15 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
                  lambda: train_unet(None, None, UNetConfig(base_channels=4), TrainConfig()),
                  lambda: train.main(["--data_root", str(tmp_path)]),
                  lambda: train_on_pseudo_labels.main(["--pseudo_label", "raw", "--model_id",
-                                                      model_id, "--data_root", str(tmp_path)])):
+                                                      model_id, "--data_root", str(tmp_path)]),
+                 lambda: RndWalkSegRefiner(4, 10.0),
+                 lambda: objectives.build_preprocess_study(model_id, str(tmp_path)),
+                 lambda: objectives.build_sam_refine_study(model_id, str(tmp_path)),
+                 lambda: objectives.build_rndwalk_study(model_id, str(tmp_path)),
+                 lambda: hpo.main(["--study", "rndwalk", "--model_id", model_id,
+                                   "--data_root", str(tmp_path)]),
+                 lambda: amg_cli.main(["--input", str(tmp_path), "--output", str(tmp_path / "o"),
+                                       "--model-type", "vit_t", "--checkpoint", "x.pth"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert registry.load(model_id, device="cpu")[1].device.type == "cpu"
