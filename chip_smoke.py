@@ -176,6 +176,37 @@
    equal off logit ties; points/s, the run's phases, the idle share and
    peak memory; the kernels line gets each encoder kernel at its call shapes
    (path ``amg_predictor``);
+4o. multi-process scale-out (``samcarriestheburden_torch/parallel/``): two
+   ranks of ``python -m samcarriestheburden_torch.parallel.worker`` on
+   ``cuda:0`` over gloo (NCCL refuses two ranks on one card; both chosen by
+   name), each with its own process: the full-width U-Net (4l's) trains on
+   MP_TRAIN_N seeded 384x224 images for one epoch of steps of 16, 16, 16 and
+   15 (8 a rank; the last padded, the pad rows weighed 0), in float64 (the
+   harness's double) and in fp32 with TF32 off in both data placements; the
+   ranks' losses and parameters equal bit for bit, and each step, from the
+   same state, against a single-process trainer on the same card (the loss
+   within MP_LOSS_RTOL; every all-reduced gradient tensor within
+   MP_GRAD_RTOL in relative L2 in float64, reported in fp32, whose rounding
+   on this model is above it); three planted faults
+   (a rank that keeps its own gradient, DDP's mean of local means on the
+   padded batch, θ drawn per rank; float64, over a step of 16 and a padded
+   one of 15) must each fail a check; three bf16 steps
+   timed (ms a step, beside 4l's one process); then ``encode_images`` over
+   each rank's strided half of MP_XRAYS seeded 1024x716 X-rays at ViT-H,
+   compact bf16 and int8, at batch 1 and MP_BATCH, counted (each rank's
+   launches exact: K1 = K3 32, K5 28, K6 56, K7 4 a call; int8 K2 = K4 32,
+   K5 28, K6 56, K7-int8 4), the union against one process at batch 1 bit for
+   bit and at 2 x MP_BATCH within the encoder's tolerance; images/s of both
+   ranks against one process over MP_TIMED images, with idle shares; the
+   sweep (``refine_images`` at --img_batch 8) over each rank's half of
+   MP_SWEEP seeded maps on those embeddings (K8 once a batch a rank), the
+   union of masks and ``estimated_dice`` bit for bit one process's; ccl's
+   ``method="scan"`` (plain PyTorch) to the fixpoint on one process's K8
+   maps, K8's labels bit for bit; then a one-rank NCCL group on the card
+   (init, an all-reduce, a broadcast and a gather checked, one training
+   step).  A rank's failure or a timeout kills the ranks and fails the run;
+   the kernels line's pipeline rows get each rank's launches
+   (``rank_launches``);
 5. holds each kernel against its plain PyTorch version on the card, on the
    inputs each of its paths gives it (the flat rows and windows; the
    compact stream's: K1-K4 on 8416 rows, K5 on 32 windows and K6, both
@@ -558,6 +589,41 @@ AMG_CROP_POINTS = 8
 # the device NMS also on NMS_STRESS_N seeded boxes with duplicates and tied
 # scores (the random weights' masks all fill the image: their boxes are equal)
 NMS_STRESS_N = 3072
+# multi-process scale-out (4o): two ranks on the one card over gloo (NCCL
+# refuses two ranks on one card) and a one-rank NCCL group.  Training: the
+# full-width U-Net on MP_TRAIN_N seeded 384 x 224 images, global batch 16 (8
+# a rank) for MP_TRAIN_SAMPLES samples (steps of 16, 16, 16 and 15: the last
+# padded to 16), each step held from the same state against a
+# single-process trainer on the card over the same global batch, padded as
+# the ranks pad it (the pad rows weighed 0: JAX's loss with a mesh).  In
+# float64 (the harness's double model, data and AdamW; the instance norms
+# still round through fp32) the loss within MP_LOSS_RTOL and every
+# all-reduced gradient tensor within MP_GRAD_RTOL (relative L2), and each
+# planted fault must fail a check.  In fp32 with TF32 off, both placements:
+# the loss within MP_LOSS_RTOL, the gradients' distance reported: fp32
+# cannot hold MP_GRAD_RTOL on this model, whose fp32 gradients are 3.4e-3
+# (median tensor; worst 6.1e-3) from fp64 on the H100, so two cuDNN
+# algorithm choices (batch 15 against a padded 16: up to 1.8e-3; 8 against
+# 16 under the whole script's memory pressure: 1.2e-3 to 4.0e-3) part by
+# more than it; the fp32 runs print both readings (the worker's
+# precision_probe; PERF.md)
+MP_TRAIN_N, MP_TRAIN_BATCH, MP_TRAIN_SAMPLES = 64, 16, 63
+MP_LOSS_RTOL, MP_GRAD_RTOL = 1e-5, 1e-4
+MP_BF16_STEPS = 3
+# precompute: MP_XRAYS seeded X-rays of AMG_HW at ViT-H, each rank its
+# strided half, at batch 1 (bit for bit against one process at batch 1) and
+# MP_BATCH (against one process at batch 2 * MP_BATCH within the encoder's
+# tolerance); throughput over MP_TIMED images at PIPE_BATCH
+MP_XRAYS, MP_BATCH, MP_TIMED = 8, 4, 32
+# the sweep: MP_SWEEP seeded maps of the U-Net grid (stem i reads X-ray i
+# mod MP_XRAYS's embedding), each rank its strided half at --img_batch 8
+MP_SWEEP = 16
+# the phase's limit for each spawn of ranks (their start, about 8 s a process, included)
+MP_TIMEOUT_S = 300
+# one process's readings on the H100 at 700 W that PERF.md keeps: 4k's precompute
+# (24 X-rays of 1280 x 640 at batch 8) and 4l's bf16 training step
+MP_ONE_PROCESS = {"precompute_bf16_ips": 49.897, "precompute_int8_ips": 40.704,
+                  "train_bf16_ms": 47.85}
 # K8 on stressed maps runs truncated at a cap that is not a multiple of the
 # check interval (16), and to the fixpoint, at the path's check interval and
 # at one that holds several of the register kernel's barrier groups
@@ -4656,6 +4722,312 @@ def check_process_batch(torch, np, rw, gen, model, cfg, image):
           "_process_batch disagrees between the card and the CPU")
 
 
+def parallel_modules():
+    """The port's multi-process path, as one namespace (none of it needs h5py,
+    cv2, pandas, tqdm or PIL)."""
+    from types import SimpleNamespace
+
+    from samcarriestheburden_torch.ops.ccl import connected_components
+    from samcarriestheburden_torch.parallel import _harness
+    from samcarriestheburden_torch.parallel.dryrun import run_workers
+
+    return SimpleNamespace(connected_components=connected_components, harness=_harness,
+                           run_workers=run_workers)
+
+
+def mp_training_checks(np, recs, faults) -> dict:
+    """4o's training readings, run by run: both ranks' losses and parameters
+    bit for bit, and rank 0's step against the single-process trainer from
+    the same state; in float64 every check must pass on a correct run and
+    each planted fault must fail one; in fp32 the gradients' distance is
+    reported (MP_GRAD_RTOL's comment).  Returns the readings."""
+    r0, r1 = ([r for r in rs if r["job"] == "train" and r.get("ms_per_step") is None]
+              for rs in recs)
+    readings = {}
+    for a, b in zip(r0, r1):
+        run = ("float64" if a["float64"] else "fp32") + f", {a['placement']}" \
+            + (f", fault {a['fault']}" if a["fault"] else "")
+        same_losses = [s["loss"] for s in a["steps"]] == [s["loss"] for s in b["steps"]]
+        same_params = a["digest"] == b["digest"]
+        loss_rel = [s["loss_rel"] for s in a["steps"]]
+        grad_rel = [s["grad_rel"] for s in a["steps"]]
+        failures = [name for name, bad in (
+            ("the ranks' losses differ", not same_losses),
+            ("the ranks' parameters differ", not same_params),
+            ("a loss beyond MP_LOSS_RTOL", max(loss_rel) > MP_LOSS_RTOL),
+            ("a gradient beyond MP_GRAD_RTOL", a["float64"] and max(grad_rel) > MP_GRAD_RTOL))
+            if bad]
+        log(f"4o training ({run}): step losses {[s['loss'] for s in a['steps']]}; the ranks' "
+            f"losses equal {same_losses}, parameters equal {same_params}; rank 0 against one "
+            f"process from the same state, per step: loss rel err "
+            f"{[f'{v:.3g}' for v in loss_rel]} (tol {MP_LOSS_RTOL}), worst gradient tensor rel "
+            f"L2 {[f'{v:.3g}' for v in grad_rel]} "
+            + (f"(tol {MP_GRAD_RTOL}" if a["float64"] else "(reported; fp32")
+            + f"; tensor {[s['grad_worst'] for s in a['steps']]})"
+            + (f"; caught by: {failures}" if a["fault"] else "")
+            + "".join(f"; step {i + 1}: one process's fp32 gradient against itself in {k} "
+                      f"(worst, median tensor) {[f'{v:.3g}' for v in st[key]]}"
+                      for i, st in enumerate(a["steps"])
+                      for key, k in (("fp32_vs_fp64", "float64"),
+                                     ("padded_vs_real_rows", "the real rows alone"))
+                      if key in st))
+        if a["fault"]:
+            check(bool(failures), f"4o: the planted fault {a['fault']} was not caught")
+        else:
+            check(not failures, f"4o training ({run}): {failures}")
+        readings[run] = {"losses": [s["loss"] for s in a["steps"]], "loss_rel": loss_rel,
+                         "grad_rel": grad_rel, "epoch_loss": a["epoch_loss"],
+                         "caught_by": failures,
+                         "probe": [{k: st[k] for k in ("fp32_vs_fp64", "padded_vs_real_rows")
+                                    if k in st} for st in a["steps"]]}
+    check(len(readings) == 3 + len(faults), f"4o: training runs {sorted(readings)}")
+    rep, sh = readings["fp32, replicated"], readings["fp32, sharded"]
+    rel = abs(rep["epoch_loss"] - sh["epoch_loss"]) / abs(rep["epoch_loss"])
+    log(f"4o training: sharded against replicated placement (fp32): epoch loss rel err "
+        f"{rel:.3g} (tol 1e-6), step losses equal {rep['losses'] == sh['losses']}")
+    check(rel <= 1e-6, "4o: the sharded placement's loss differs from the replicated one's")
+    return readings
+
+
+def mp_launch_want(model, quantize, calls: int) -> dict:
+    """Each encoder call's launches on the compact serving path, times ``calls``."""
+    enc = model.cfg.image_encoder
+    n_global = len(enc.global_attn_indexes)
+    n_windowed = enc.depth - n_global
+    want = {"K5": n_windowed, "K6": 2 * n_windowed}
+    want.update({"K2": enc.depth, "K4": enc.depth, "K7-int8": n_global} if quantize else
+                {"K1": enc.depth, "K3": enc.depth, "K7": n_global})
+    return {k: v * calls for k, v in want.items()}
+
+
+def phase_multiprocess(torch, np, port, model, make_serving_encoder):
+    """4o (module docstring): two gloo ranks on the one card train, precompute
+    and sweep; each result against one process on the same card; a one-rank
+    NCCL group.  Returns the ranks' launches by path and the numbers."""
+    import tempfile
+
+    mp = parallel_modules()
+    pipe = pipeline_modules()
+    dev = model.device
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    grid_hw = list(pipe.UNET_INPUT_HW)
+    train_fp32 = dict(base=64, n_last=64, classes=port.N_CLASSES, hw=grid_hw, n=MP_TRAIN_N,
+                      batches=[MP_TRAIN_BATCH], samples=MP_TRAIN_SAMPLES, data_aug=TRAIN_AUG,
+                      dtype="float32", placements=["replicated", "sharded"], faults=[],
+                      reference=True, tf32=False, probe=True)
+    train_fp64 = dict(train_fp32, float64=True, placements=["replicated"], probe=False)
+    # the faults over two steps, the second padded (where DDP's mean shows)
+    train_faults = dict(train_fp64, placements=[], faults=list(mp.harness.PLANTED_FAULTS),
+                        samples=2 * MP_TRAIN_BATCH - 1)
+    train_bf16 = dict(train_fp32, dtype="bfloat16", placements=["replicated"],
+                      reference=False, samples=MP_TRAIN_BATCH, time_steps=MP_BF16_STEPS,
+                      tf32=True)
+    pre = dict(model="vit_h", n=MP_XRAYS, hw=list(AMG_HW), batches=[1, MP_BATCH],
+               quantize=[None, "int8"], sweep=MP_SWEEP, sweep_hw=grid_hw, img_batch=PIPE_BATCH,
+               timed=MP_TIMED, timed_batch=PIPE_BATCH, dtype="bfloat16")
+    numbers = {}
+    with tempfile.TemporaryDirectory() as out:
+        # 1. the two gloo ranks on cuda:0: training, then the precompute and the sweep
+        log("4o: two ranks on cuda:0 over gloo (NCCL refuses two ranks on one card), one "
+            "process each, python -m samcarriestheburden_torch.parallel.worker")
+        t0 = time.perf_counter()
+        recs = mp.run_workers(["train", "precompute"], 2, backend="gloo", device="cuda",
+                              cards=[0, 0], out=out, timeout=MP_TIMEOUT_S,
+                              spec={"train": [train_fp64, train_faults, train_fp32,
+                                              train_bf16],
+                                    "precompute": pre})
+        log(f"4o: the two ranks ran in {time.perf_counter() - t0:.1f} s")
+        numbers["training"] = mp_training_checks(np, recs, mp.harness.PLANTED_FAULTS)
+        bf16 = [next(r for r in rs if r.get("ms_per_step") is not None) for rs in recs]
+        numbers["train_bf16_ms_per_step"] = [r["ms_per_step"] for r in bf16]
+        log(f"4o training (bf16, two ranks of global batch {MP_TRAIN_BATCH}, gloo all-reduce "
+            f"through the host): {bf16[0]['ms_per_step']:.2f} ms per step on rank 0, "
+            f"{bf16[1]['ms_per_step']:.2f} on rank 1 (4l, one process: "
+            f"{MP_ONE_PROCESS['train_bf16_ms']} ms in PERF.md)")
+        check(all(np.isfinite(r["epoch_loss"]) for r in bf16), "4o: non-finite bf16 loss")
+
+        # 2. the precompute: each rank's launches exact; the union against one process
+        back = torch.backends
+        flags = (back.cudnn.allow_tf32, back.cuda.matmul.allow_tf32)
+        back.cudnn.allow_tf32, back.cuda.matmul.allow_tf32 = True, False   # PyTorch's defaults
+        try:
+            pre_numbers, emb = mp_precompute_checks(torch, np, mp, pipe, model,
+                                                    make_serving_encoder, recs, out)
+            numbers.update(pre_numbers)
+            launches, sweep_numbers = mp_sweep_checks(torch, np, port, mp, pipe, model, emb,
+                                                      recs, out, pre)
+            numbers.update(sweep_numbers)
+        finally:
+            back.cudnn.allow_tf32, back.cuda.matmul.allow_tf32 = flags
+        launches.update({tag: [next(r["launches"] for r in rs if r.get("tag") == tag_w)
+                               for rs in recs]
+                         for tag, tag_w in (("pipeline", f"bf16_b{MP_BATCH}"),
+                                            ("pipeline-int8", f"int8_b{MP_BATCH}"))})
+
+    # 3. a one-rank NCCL group on the card: init, collectives, one training step
+    nccl = mp.run_workers("nccl", 1, backend="nccl", device="cuda", cards=[0],
+                          timeout=MP_TIMEOUT_S,
+                          spec=dict(train_fp32, placements=["replicated"], reference=False,
+                                    samples=MP_TRAIN_BATCH))[0]
+    rec = next(r for r in nccl if r["job"] == "nccl")
+    step = next(r for r in nccl if r["job"] == "train")
+    log(f"4o: one-rank NCCL group ({rec['backend']}, {rec['device']}): all-reduce, broadcast "
+        f"and row gather on the card {'equal' if rec['all_reduce_ok'] else 'WRONG'}; one "
+        f"training step, loss {step['epoch_loss']:.6f}")
+    check(rec["backend"] == "nccl" and rec["all_reduce_ok"], "4o: the NCCL group failed")
+    check(bool(np.isfinite(step["epoch_loss"])), "4o: the NCCL rank's step is not finite")
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"4o numbers: {json.dumps(numbers)}")
+    log(f"4o: phase time {numbers['phase_s']:.1f} s")
+    return launches, numbers
+
+
+def mp_precompute_checks(torch, np, mp, pipe, model, make_serving_encoder, recs, out):
+    """4o's precompute: each rank's launches, exact; the union of the ranks'
+    embeddings against one process (batch 1: bit for bit; MP_BATCH against
+    2 * MP_BATCH: within the encoder's tolerance); images/s and idle shares.
+    Returns the numbers and one process's bf16 store at batch 1."""
+    xrays = mp.harness.seeded_xrays(MP_XRAYS, AMG_HW)
+    stems = list(xrays)
+    size, dev = model.img_size, model.device
+    numbers = {}
+    for quantize in (None, "int8"):
+        mode = quantize or "bf16"
+        for bs in (1, MP_BATCH):
+            tag = f"{mode}_b{bs}"
+            union = {}
+            for rank, rs in enumerate(recs):
+                rec = next(r for r in rs if r.get("tag") == tag and r["job"] == "precompute")
+                want = mp_launch_want(model, quantize, rec["calls"])
+                log(f"4o precompute ({tag}) rank {rank}: {rec['calls']} encoder calls over "
+                    f"{rec['stems']}, launches {rec['launches']}")
+                check(rec["launches"] == want, f"4o precompute ({tag}) rank {rank}: launches "
+                      f"{rec['launches']}, expected {want}")
+                check(rec["stems"] == stems[rank::2], f"4o: rank {rank} encoded {rec['stems']}")
+                with np.load(Path(out) / f"emb_{tag}_rank{rank}.npz") as f:
+                    union.update({k: f[k] for k in f.files})
+            check(sorted(union) == stems, f"4o precompute ({tag}): the union has {sorted(union)}")
+            encode, packed = make_serving_encoder(model, torch.bfloat16, quantize=quantize)
+            one = pipe.MemoryEmbeddings(size)
+            pipe.encode_images(encode, packed, stems, xrays.__getitem__, one, img_size=size,
+                               device=dev, batch_size=1 if bs == 1 else 2 * bs)
+            torch.cuda.synchronize()
+            err = max(float(np.abs(union[s] - one.features(s)).max()) for s in stems)
+            tol = 0.0 if bs == 1 else \
+                (ENCODER_INT8_TOL_MAX if quantize else ENCODER_TOL_MAX)
+            log(f"4o precompute ({mode}): the union of the two ranks at batch {bs} against one "
+                f"process at batch {1 if bs == 1 else 2 * bs}: max abs err {err:.4g} "
+                f"(tol {tol})")
+            check(err <= tol, f"4o precompute ({tag}): the ranks' embeddings differ from one "
+                  "process's")
+            numbers[f"precompute_{tag}_max_abs_err"] = err
+            if (quantize, bs) == (None, 1):
+                store_bf16 = one
+        # throughput: two ranks (from their records) against one process, same images
+        timed = [next(r for r in rs if r["job"] == "precompute_timed" and r["tag"] == mode)
+                 for rs in recs]
+        two_ips = timed[0]["images_per_s"]
+        busy = [r["busy_ms"] for r in timed]
+        wall = max(r["profiled_wall_ms"] for r in timed)
+        # the card time-slices the two processes' contexts; where their
+        # kernels' summed device time exceeds the wall, CUPTI counted the
+        # switched-out time too and the idle share cannot be read this way
+        two_idle = None if None in busy or sum(busy) > wall else 1 - sum(busy) / wall
+        images = mp.harness.seeded_xrays(MP_TIMED, AMG_HW, seed=33)
+
+        def run_one():
+            pipe.encode_images(encode, packed, list(images), images.__getitem__,
+                               pipe.MemoryEmbeddings(size), img_size=size, device=dev,
+                               batch_size=PIPE_BATCH)
+            torch.cuda.synchronize()
+        run_one()
+        t0 = time.perf_counter()
+        run_one()
+        one_ips = MP_TIMED / (time.perf_counter() - t0)
+        one_idle = phase_profile(torch, run_one, f"4o precompute ({mode}, one process)", top=4)
+        key = "precompute_bf16_ips" if quantize is None else "precompute_int8_ips"
+        log(f"4o precompute ({mode}, {MP_TIMED} images at batch {PIPE_BATCH}): two ranks on one "
+            f"card {two_ips:.3f} images/s (idle share {two_idle}: the ranks' kernels "
+            f"{busy} ms in a profiled wall of {wall:.1f} ms; None: not measured), one process "
+            f"{one_ips:.3f} images/s (idle share {one_idle}); ratio {two_ips / one_ips:.4f} "
+            f"(4k's one process at 24 images in PERF.md: {MP_ONE_PROCESS[key]})")
+        numbers[f"precompute_{mode}"] = {"two_ranks_images_per_s": two_ips,
+                                         "two_ranks_idle_share": two_idle,
+                                         "one_process_images_per_s": one_ips,
+                                         "one_process_idle_share": one_idle,
+                                         "rank_busy_ms": busy, "two_ranks_profiled_wall_ms": wall}
+        del encode, packed
+    return numbers, store_bf16
+
+
+def mp_sweep_checks(torch, np, port, mp, pipe, model, emb, recs, out, pre):
+    """4o's sweep: each rank's launches (K8 once per batch, nothing else of
+    the port's); the union of masks and ``estimated_dice`` against one
+    process (over ``emb``, its embeddings), bit for bit; then
+    ``method="scan"`` on the one process's K8 maps against K8's labels at
+    the fixpoint.  Returns the ranks' sweep launches and the numbers."""
+    xrays = mp.harness.seeded_xrays(MP_XRAYS, AMG_HW)
+    stems, grid, source = mp.harness.sweep_inputs(pre, xrays)
+    size, dev = model.img_size, model.device
+    union_m, union_d, launches = {}, {}, []
+    for rank, rs in enumerate(recs):
+        rec = next(r for r in rs if r["job"] == "sweep")
+        log(f"4o sweep rank {rank}: {rec['stems']} in {rec['batches']} batch(es), launches "
+            f"{rec['launches']}")
+        check(rec["launches"] == {"K8": rec["batches"]} and rec["stems"] == stems[rank::2],
+              f"4o sweep rank {rank}: launches {rec['launches']}, stems {rec['stems']}")
+        launches.append(rec["launches"])
+        with np.load(Path(out) / f"sweep_rank{rank}.npz") as f:
+            union_m.update({k[2:]: f[k] for k in f.files if k.startswith("m_")})
+            union_d.update({k[2:]: f[k] for k in f.files if k.startswith("d_")})
+    store = pipe.MemoryEmbeddings(size, {s: emb.features(source[s]) for s in stems},
+                                  {s: emb.sizes(source[s]) for s in stems})
+    unet = mp.harness.seeded_unet(dev)
+    head = port.SamMaskDecoderHead(None, "vit_h", store, device=dev, params=model, cfg=model.cfg)
+    enh = port.SegEnhance(port.SamSegRefiner(head, prompts2use=TWO_ROUNDS),
+                          "highest_probability", "dilation", "square", 8)
+    k8_in = []
+    propagate = port.kccl.propagate
+
+    def recording_propagate(mask, num_iterations, check_every=16):
+        k8_in.append((mask, num_iterations, check_every))
+        return propagate(mask, num_iterations, check_every)
+    port.kccl.propagate = recording_propagate
+    try:
+        masks = pipe.MemoryMasks()
+        pipe.refine_images(unet, enh, stems, grid.__getitem__, masks, img_batch=PIPE_BATCH)
+        torch.cuda.synchronize()
+    finally:
+        port.kccl.propagate = propagate
+    check(sorted(union_m) == sorted(stems), f"4o sweep: the union has {sorted(union_m)}")
+    same = all(np.array_equal(union_m[s], masks.masks(s)) and
+               np.array_equal(union_d[s], masks.estimated_dice(s), equal_nan=True)
+               for s in stems)
+    seeded = sum(int(np.isfinite(masks.estimated_dice(s)).sum()) for s in stems)
+    log(f"4o sweep: the union of the two ranks' masks and estimated_dice against one process "
+        f"(--img_batch {PIPE_BATCH}, {len(stems)} maps): equal bit for bit {same}; {seeded} "
+        f"of {len(stems) * port.N_CLASSES} classes seeded")
+    check(same, "4o sweep: the ranks' masks or Dice differ from one process's")
+    check(seeded > 0, "4o sweep: no class was seeded, so no mask was decoded")
+
+    # ccl scan on the sweep's K8 maps: the fixpoint is K8's, bit for bit (plain PyTorch)
+    t0 = time.perf_counter()
+    equal = True
+    for mask, cap, every in k8_in:
+        labels_k8 = propagate(mask, cap, every)[0]
+        labels_scan, done = mp.connected_components(mask, cap, method="scan",
+                                                    return_converged=True)
+        equal &= bool(done) and torch.equal(labels_scan, labels_k8)
+    torch.cuda.synchronize()
+    log(f"4o: ccl method='scan' (plain PyTorch, no kernel) on the sweep's {len(k8_in)} K8 "
+        f"input(s) of {tuple(k8_in[0][0].shape)}: converged and equal to K8's labels bit for "
+        f"bit {equal} ({time.perf_counter() - t0:.2f} s)")
+    check(equal, "4o: ccl scan's fixpoint differs from K8's labels")
+    return {"pipeline-sweep": launches}, {"sweep_equal": same, "sweep_seeded": seeded}
+
+
 def smoke_images(torch, seed: int, dev):
     """B seeded uint8 images of INPUT_HW inside the padded square, and their sizes."""
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -4843,6 +5215,10 @@ def main() -> int:
     # each against their references
     launches_amg, amg_encode, _ = phase_amg(torch, np, kernels, rw, model, cfg)
 
+    # 5i. (4o) multi-process scale-out: two gloo ranks on the card train,
+    # precompute and sweep, each against one process; a one-rank NCCL group
+    launches_mp, _ = phase_multiprocess(torch, np, port, model, make_serving_encoder)
+
     # 5d. the encoder's other block formulations: v1 (K9) and v2 (K12) at full
     # depth, v3 (K10, K11) as a run of blocks; every kernel they launch, K1, K3
     # and K7 too, recorded in the counted run with the launches of each of its
@@ -4976,6 +5352,12 @@ def main() -> int:
                      **{k: sum(r[k] for r in k6_pipe)
                         for k in ("ms", "plain_ms", "bound_ms", "library_ms")}})
     del recorded_p
+    # 4o's ranks: each kernel's launches on each of the two ranks in their
+    # counted precompute (MP_BATCH a call) and sweep; the multi-process path
+    # adds launches to these rows and no row
+    for row in rows:
+        if row["path"] in launches_mp:
+            row["rank_launches"] = [r.get(row["name"], 0) for r in launches_mp[row["path"]]]
     # the predictor's encode in AMG (4n): each kernel at the call shapes of the
     # counted run's image (recorded in a call of its own), with its launches
     recorded_a = {}
@@ -5039,6 +5421,7 @@ def main() -> int:
     rows.append({"name": "K8", "path": "pipeline-sweep", "shape": list(mask_p.shape),
                  "route": "cuda", "source": KERNELS["K8"][1], "replaces": KERNELS["K8"][2],
                  "launches": launches_pipe["pipeline-sweep"]["K8"],
+                 "rank_launches": [r["K8"] for r in launches_mp["pipeline-sweep"]],
                  **k8_numbers(torch, port.kccl, mask_p, cap_p, every_p, out_p[2],
                               (out_k[0].long() - out_p[0].long()).abs().max().item())})
     del k8_pipe, mask_p, out_k, out_p

@@ -5,7 +5,8 @@ python -m samcarriestheburden_torch.cli.amg --checkpoint <ckpt> \\
     --model-type vit_h --input <img-or-dir> --output <dir> [--cpu]
 
 Runs on ``--device`` (default: the card; raises without one); ``--cpu``
-means the CPU.  The multi-host flags are accepted and raise (not ported).
+means the CPU.  Under ``--multihost`` each process takes a strided slice of
+the images (per-image outputs: no merge step) on its own card.
 Images are read and masks written with cv2, imported inside :func:`main`
 and :func:`write_masks_to_folder`.
 """
@@ -91,7 +92,8 @@ def main(argv=None) -> None:
     from samcarriestheburden_torch.cli.common import setup_backend
     from samcarriestheburden_torch.device import resolve_device
 
-    # --multihost raises, --cpu is the CPU; else --device, None being the card
+    # --multihost joins the group (the rank's card, or the CPU under --cpu);
+    # --cpu is the CPU; else --device, None being the card
     device = setup_backend(args) if args.cpu or args.multihost else resolve_device(args.device)
     import cv2
 
@@ -108,6 +110,11 @@ def main(argv=None) -> None:
     else:
         targets = [os.path.join(args.input, f) for f in sorted(os.listdir(args.input))
                    if not os.path.isdir(os.path.join(args.input, f))]
+    from samcarriestheburden_torch.parallel import distributed as pdist
+
+    if pdist.is_multiprocess():
+        # per-image work and per-image outputs: each process takes a strided slice
+        targets = pdist.process_shard(targets)
 
     os.makedirs(args.output, exist_ok=True)
     for t in targets:

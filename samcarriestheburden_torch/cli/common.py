@@ -1,6 +1,6 @@
 """What the port's CLIs share (JAX ``cli/common.py``): the training flags
 (reference unet_training/hyper_params.py:3-19), the device choice,
-``--profile`` and the multi-host flags."""
+``--profile``, the multi-process flags and the data mesh."""
 
 from __future__ import annotations
 
@@ -39,15 +39,17 @@ def hp_parser() -> argparse.ArgumentParser:
     # the JAX package's additions
     p.add_argument("--data_root", type=str, default="data")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="data-parallel device count (default 1: the port trains on one "
-                        "card; more raise, ROADMAP queue A item 5)")
+                   help="data-parallel device count (default: every process of the group, "
+                        "one card each; more than the group raises: start one process per "
+                        "card, torchrun --nproc-per-node N)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU; default: the card")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 forward pass (fp32 master params)")
     p.add_argument("--data_placement", choices=["replicated", "sharded"],
                    default="replicated",
-                   help="dataset residency: the whole split on the card (replicated); "
-                        "sharded is not ported and raises")
+                   help="dataset residency on the ranks: the whole split on every card "
+                        "(replicated, small splits) or each rank's block of it (sharded, "
+                        "large datasets)")
     add_multihost_flags(p)
     return p
 
@@ -65,18 +67,42 @@ def train_config_from_args(args, **overrides) -> TrainConfig:
 
 
 def maybe_mesh(args):
-    """None: the port trains on one device.  More than one raises
-    ``NotImplementedError`` (ROADMAP queue A item 5), as ``--multihost`` does."""
-    n = getattr(args, "num_devices", None) or 1
-    if n > 1:
-        raise NotImplementedError(f"--num_devices {n}: data-parallel training is not "
-                                  "ported (ROADMAP queue A item 5)")
-    return None
+    """The data mesh over the process group, None for one process (JAX
+    ``maybe_mesh``: the device count reduced by ``gcd`` with the batch size,
+    so that a batch splits without padding).  The port runs one card per
+    process, so the mesh is the group: ``--num_devices`` above the group's
+    size raises ``ValueError`` (start one process per card: ``torchrun
+    --nproc-per-node N``), and so does a count, or a ``gcd``, below it,
+    which would leave ranks idle.  Nothing runs silently on fewer cards."""
+    import math
+
+    from samcarriestheburden_torch.parallel.distributed import process_count
+
+    world = process_count()
+    n = getattr(args, "num_devices", None) or world
+    if n > world:
+        raise ValueError(f"--num_devices {n} with {world} process(es): the port runs one "
+                         f"card per process; start {n} (torchrun --nproc-per-node {n} -m "
+                         "samcarriestheburden_torch.cli.<cli>, or --multihost on each)")
+    batch = getattr(args, "batch_size", None)
+    if batch is not None:
+        n = math.gcd(n, batch)
+    if world == 1:
+        return None
+    if n != world:
+        raise ValueError(f"a mesh of {n} device(s) (--num_devices and the batch size "
+                         f"{batch}) in a group of {world} processes would leave ranks idle: "
+                         f"use a batch size that {world} divides")
+    from samcarriestheburden_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n)
 
 
 def add_multihost_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process run (not ported: raises; ROADMAP queue A item 5)")
+                   help="join a process group first (torchrun's environment, or "
+                        "--coordinator/--num_processes/--process_id); each process runs on "
+                        "its own card (cuda:<local rank>) unless --cpu")
     p.add_argument("--coordinator", type=str, default=None,
                    help="coordinator address host:port (multi-host)")
     p.add_argument("--num_processes", type=int, default=None)
@@ -113,8 +139,35 @@ def profiled(profile_dir):
 
 def setup_backend(args) -> torch.device:
     """The device of a CLI run: the CPU under ``--cpu``, else the card (raises
-    without one: nothing falls back to the CPU).  ``--multihost`` raises
-    ``NotImplementedError``."""
+    without one: nothing falls back to the CPU).  ``--multihost`` first
+    joins the process group (``parallel/distributed.py:initialize``, JAX
+    ``setup_backend``) and returns this rank's device: ``cuda:<local rank>``
+    over NCCL, or the CPU over gloo under ``--cpu``."""
+    cpu = getattr(args, "cpu", False)
     if getattr(args, "multihost", False):
-        raise NotImplementedError("multi-process runs are not ported (ROADMAP queue A item 5)")
-    return resolve_device("cpu" if getattr(args, "cpu", False) else None)
+        from samcarriestheburden_torch.parallel.distributed import initialize
+
+        return initialize(getattr(args, "coordinator", None),
+                          getattr(args, "num_processes", None),
+                          getattr(args, "process_id", None),
+                          backend="gloo" if cpu else "nccl",
+                          device="cpu" if cpu else "cuda")
+    if cpu:
+        return resolve_device("cpu")
+    from samcarriestheburden_torch.parallel.distributed import is_multiprocess, local_device
+
+    # a later CLI call in a process that joined a group runs on the rank's card
+    return resolve_device(local_device() if is_multiprocess() else None)
+
+
+def on_rank0(fn):
+    """``fn()`` on rank 0 only (the registry's and the logger's writes), its
+    value broadcast to every rank, the others waiting for it; ``fn()`` where
+    there is one process."""
+    from samcarriestheburden_torch.parallel import distributed as pdist
+
+    if not pdist.is_multiprocess():
+        return fn()
+    box = [fn() if pdist.process_index() == 0 else None]
+    torch.distributed.broadcast_object_list(box, src=0)
+    return box[0]

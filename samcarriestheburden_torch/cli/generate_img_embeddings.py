@@ -24,14 +24,16 @@ def main(argv=None):
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16")
     p.add_argument("--num_devices", type=int, default=None,
-                   help="1 only: multi-device precompute is not ported (raises)")
+                   help="devices of the run: one card per process, so at most the "
+                        "process group's size (more raise)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (the kernels' plain versions); default: the card")
     p.add_argument("--limit", type=int, default=None, help="encode only N images")
     p.add_argument("--resume", action="store_true",
                    help="continue an interrupted run (skip stems already in the h5)")
     p.add_argument("--merge_shards", action="store_true",
-                   help="merge <output>.part* files of a multi-host run (not ported: raises)")
+                   help="merge <output>.part* files from a multi-process run into <output> "
+                        "and exit")
     p.add_argument("--quantize", choices=["int8"], default=None,
                    help="int8 serving mode: one-time weight prequantization + the int8 "
                         "encoder kernels (models/quantize.py)")
@@ -47,14 +49,27 @@ def main(argv=None):
     add_multihost_flags(p)
     args = p.parse_args(argv)
 
-    if args.merge_shards or (args.num_devices or 1) > 1:
-        raise NotImplementedError("multi-device precompute and shard merging are not ported "
-                                  "(ROADMAP queue A item 5)")
     device = setup_backend(args)
+    if args.merge_shards:
+        from samcarriestheburden_torch.engine.embeddings import merge_embedding_shards
+
+        out = args.output or f"data/graz_{args.sam_type}_img_embedding.h5"
+        merge_embedding_shards(out)
+        print(f"merged shards into {out}")
+        return
     import torch
 
     from samcarriestheburden_torch.engine.embeddings import precompute_embeddings
     from samcarriestheburden_torch.models.build import sam_model_registry
+    from samcarriestheburden_torch.parallel.distributed import process_count
+
+    # each process encodes whole batches on its own card, so --num_devices
+    # is the group's size
+    world = process_count()
+    if args.num_devices not in (None, world):
+        raise ValueError(f"--num_devices {args.num_devices} with {world} process(es): each "
+                         "process encodes on its own card; start one per card (torchrun "
+                         f"--nproc-per-node {args.num_devices})")
 
     ckpt = args.checkpoint or {"sam": "data/sam_vit_h_4b8939.pth",
                                "medsam": "data/medsam_vit_b.pth"}[args.sam_type]

@@ -31,7 +31,8 @@ def refine_images(unet, seg_processor, stems: Sequence[str], read: Callable[[str
     estimated_dice=(C,))``.
 
     ``img_batch`` images per ``enhance_batch`` call (1: the reference's
-    per-image ``enhance``).  Batch i's masks are bit-packed on the device
+    per-image ``enhance``; a refiner without an estimate, the random walk,
+    writes a NaN row).  Batch i's masks are bit-packed on the device
     (``ops/mask_ops.py:packbits_device``, where W is a multiple of 8), their
     copy to pinned host memory is enqueued at once with an event behind it,
     and they are written after batch i+1 is dispatched, as the JAX sweep
@@ -73,6 +74,9 @@ def refine_images(unet, seg_processor, stems: Sequence[str], read: Callable[[str
         with timer.phase("enhance"):
             if bs == 1:
                 refined, est_dice = seg_processor.enhance(y_hat[0], chunk[0])
+                if est_dice is None:        # the random walk has no IoU-head signal
+                    est_dice = torch.full((refined.shape[0],), float("nan"),
+                                          device=refined.device)
                 refined, est_dice = refined[None], est_dice[None]
             else:
                 refined, est_dice = seg_processor.enhance_batch(y_hat, chunk)
@@ -96,9 +100,9 @@ def main(argv=None):
     p.add_argument("--n_files", type=str, default="all", help="'500' or 'all'")
     p.add_argument("--data_root", type=str, default="data")
     p.add_argument("--refiner", choices=["sam", "rndwalk"], default="sam",
-                   help="refinement engine: the reference's SAM protocol; rndwalk (the "
-                        "random-walk baseline) is not ported and raises (ROADMAP queue A "
-                        "item 3, M8)")
+                   help="refinement engine: the reference's SAM protocol, or the random-walk "
+                        "baseline (reference seg_refinement.py:119) writing rndwalk_<count>.h5 "
+                        "for train_on_pseudo_labels --pseudo_label rndwalk")
     p.add_argument("--bg_erosion_radius", type=int, default=8,
                    help="rndwalk: background seed erosion radius")
     p.add_argument("--laplace_sigma", type=float, default=5.0,
@@ -129,16 +133,15 @@ def main(argv=None):
     add_profile_flag(p)
     add_multihost_flags(p)
     args = p.parse_args(argv)
-    if args.refiner == "rndwalk":
-        raise NotImplementedError("the random-walk refiner is not ported "
-                                  "(ROADMAP queue A item 3, M8)")
     device = setup_backend(args)
 
     from samcarriestheburden_torch.cli.save_segmentations import (read_unet_image,
                                                                   select_unlabeled_files)
     from samcarriestheburden_torch.data.h5io import MaskWriter
-    from samcarriestheburden_torch.engine.refinement import SamSegRefiner, SegEnhance
+    from samcarriestheburden_torch.engine.refinement import (RndWalkSegRefiner, SamSegRefiner,
+                                                             SegEnhance)
     from samcarriestheburden_torch.models.modelio import ModelRegistry
+    from samcarriestheburden_torch.parallel import distributed as pdist
 
     _, unet = ModelRegistry(f"{args.data_root}/model_registry").load(args.model_id, device)
     refine_params = {
@@ -146,30 +149,48 @@ def main(argv=None):
         "morph_op": args.morph_op,
         "struct_elem": args.struct_elem,
         "radius": args.radius,
-        "prompts2use": [list(args.prompt1st), list(args.prompt2nd)],
     }
-    if args.sam_checkpoint is not None:
-        from samcarriestheburden_torch.engine.decoder_head import SamMaskDecoderHead
-
-        head = SamMaskDecoderHead(
-            args.sam_checkpoint, args.sam_model_type, args.embeddings, device,
-            compute_dtype={"float32": torch.float32,
-                           "bfloat16": torch.bfloat16}[args.decoder_dtype])
-        refiner = SamSegRefiner(head, prompts2use=refine_params["prompts2use"])
+    img_dir = Path(args.data_root) / "img_only_front_all_left"
+    if args.refiner == "rndwalk":
+        refine_params.update({"bg_erosion_radius": args.bg_erosion_radius,
+                              "laplace_sigma": args.laplace_sigma})
+        refiner = RndWalkSegRefiner(args.bg_erosion_radius, args.laplace_sigma,
+                                    img_path=img_dir, device=device)
+        args.img_batch = 1  # a per-image solver: no batched path
     else:
-        refiner = SamSegRefiner(args.sam_type, device, refine_params["prompts2use"],
-                                data_root=args.data_root)
+        refine_params["prompts2use"] = [list(args.prompt1st), list(args.prompt2nd)]
+        if args.sam_checkpoint is not None:
+            from samcarriestheburden_torch.engine.decoder_head import SamMaskDecoderHead
+
+            head = SamMaskDecoderHead(
+                args.sam_checkpoint, args.sam_model_type, args.embeddings, device,
+                compute_dtype={"float32": torch.float32,
+                               "bfloat16": torch.bfloat16}[args.decoder_dtype])
+            refiner = SamSegRefiner(head, prompts2use=refine_params["prompts2use"])
+        else:
+            refiner = SamSegRefiner(args.sam_type, device, refine_params["prompts2use"],
+                                    data_root=args.data_root)
     seg_processor = SegEnhance(refiner, refine_params["ccl_selection"],
                                refine_params["morph_op"], refine_params["struct_elem"],
                                refine_params["radius"])
     print(f"Refine model {args.model_id} segmentation with {refine_params}")
 
     files = select_unlabeled_files(args.data_root, args.n_files)
-    img_dir = Path(args.data_root) / "img_only_front_all_left"
     count = len(files) if args.n_files != "500" else 500
-    id_str = "_".join(args.prompt1st) + "_refine_" + "_".join(args.prompt2nd)
-    out = Path(args.data_root) / "seg_masks" / args.model_id / f"sam_{id_str}_{count}.h5"
+    if args.refiner == "rndwalk":
+        name = f"rndwalk_{count}.h5"
+    else:
+        id_str = "_".join(args.prompt1st) + "_refine_" + "_".join(args.prompt2nd)
+        name = f"sam_{id_str}_{count}.h5"
+    out = Path(args.data_root) / "seg_masks" / args.model_id / name
     attrs = {"refine_params": json.dumps(refine_params), "model_id": args.model_id}
+    if pdist.is_multiprocess():
+        # each process refines its strided slice of the files on its own card
+        # (per-image work, no collective) into <out>.part<rank>, with the
+        # shard_count provenance that data/h5io.py:merge_mask_shards checks
+        files = pdist.process_shard(files)
+        out = Path(f"{out}.part{pdist.process_index()}")
+        attrs["shard_count"] = pdist.process_count()
     with profiled(args.profile) as timer, MaskWriter(out, attrs=attrs) as writer:
         refine_images(unet, seg_processor, files, lambda s: read_unet_image(img_dir, s),
                       writer, img_batch=args.img_batch, timer=timer, progress=True)

@@ -11,7 +11,7 @@ schema, so the JAX package and the port's CLIs load it by its id.
 from __future__ import annotations
 
 from samcarriestheburden_torch.cli.common import (add_profile_flag, hp_parser, maybe_mesh,
-                                                  profiled, setup_backend,
+                                                  on_rank0, profiled, setup_backend,
                                                   train_config_from_args)
 
 
@@ -40,9 +40,10 @@ def main(argv=None):
     if hp.lr_scheduler:
         tags.append("lr_scheduler")
     n_samples = "all" if hp.num_train_samples == -1 else hp.num_train_samples
+    rank0 = mesh is None or mesh.index == 0
     logger = RunLogger("Kids Bone Checker/Bone segmentation/fewer samples",
                        f"initial on {n_samples} training data", tags,
-                       config=vars(hp))
+                       config=vars(hp)) if rank0 else None
 
     ds_train = LightSegGrazPedWriDataset("train", n_samples, data_root=hp.data_root)
     ds_val = LightSegGrazPedWriDataset("val", data_root=hp.data_root)
@@ -62,13 +63,14 @@ def main(argv=None):
                                     mesh=mesh, progress=True,
                                     timer=timer, device=device)
 
-    registry = ModelRegistry(f"{hp.data_root}/model_registry")
-    model_id = registry.register(unet_cfg, model, name="final_model",
-                                 metadata={"task": logger.dir.name,
-                                           "val_dice": history[-1]["val_dice"]})
+    # the registry and the logger write on rank 0; every rank returns its id
+    model_id = on_rank0(lambda: ModelRegistry(f"{hp.data_root}/model_registry").register(
+        unet_cfg, model, name="final_model",
+        metadata={"task": logger.dir.name, "val_dice": history[-1]["val_dice"]}))
     print(f"final val dice: {history[-1]['val_dice']:.4f}")
     print(f"model id: {model_id}")
-    logger.close()
+    if logger is not None:
+        logger.close()
     return model_id
 
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
-from samcarriestheburden_torch.cli.common import (hp_parser, maybe_mesh, setup_backend,
+from samcarriestheburden_torch.cli.common import (hp_parser, maybe_mesh, on_rank0, setup_backend,
                                                   train_config_from_args)
 
 
@@ -81,7 +81,8 @@ def main(argv=None):
     else:
         task_name = hp.pseudo_label + f"_num_train_{hp.num_train_samples}"
     logger = RunLogger("Kids Bone Checker/Bone segmentation/pseudo label training",
-                       task_name, tags, config=vars(hp))
+                       task_name, tags, config=vars(hp)) \
+        if mesh is None or mesh.index == 0 else None
 
     registry = ModelRegistry(f"{hp.data_root}/model_registry")
     h5_path = pseudo_label_path(hp.data_root, hp.model_id, hp.pseudo_label,
@@ -106,13 +107,15 @@ def main(argv=None):
                                 init_params=init_params, mesh=mesh,
                                 progress=True, device=device)
 
-    model_id = registry.register(unet_cfg, model, name="final_model",
-                                 metadata={"task": task_name,
-                                           "initial_model": hp.model_id,
-                                           "val_dice": history[-1]["val_dice"]})
+    # the registry and the logger write on rank 0; every rank returns its id
+    model_id = on_rank0(lambda: registry.register(
+        unet_cfg, model, name="final_model",
+        metadata={"task": task_name, "initial_model": hp.model_id,
+                  "val_dice": history[-1]["val_dice"]}))
     print(f"final val dice: {history[-1]['val_dice']:.4f}")
     print(f"model id: {model_id}")
-    logger.close()
+    if logger is not None:
+        logger.close()
     return model_id
 
 

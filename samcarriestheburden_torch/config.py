@@ -191,10 +191,10 @@ class TrainConfig(_ConfigBase):
     #: augmentation warp: None = auto ('gather', the 4-tap formulation, which
     #: is the faster one on the H100 and on the CPU); 'matmul' / 'gather' to force
     aug_method: Optional[str] = None
-    #: dataset residency: 'replicated' (the one-card port holds the whole
-    #: split on its card); 'sharded' is not ported (ROADMAP queue A item 5)
+    #: dataset residency on a mesh: 'replicated' (the whole split on every
+    #: rank's card) or 'sharded' (each rank keeps its block of the split)
     data_placement: str = "replicated"
-    #: data-parallel device count; the port trains on one card
+    #: data-parallel device count: one card per process, so the mesh's size
     num_devices: int = 1
 
 

@@ -215,3 +215,81 @@ class MemoryMasks:
 
     def estimated_dice(self, stem: str) -> np.ndarray:
         return np.asarray(self._dice.get(stem))
+
+
+def _check_shard_counts(parts) -> None:
+    """Cross-check each part's write-time ``shard_count`` attr against the
+    merge set: a leftover part from an earlier run with a DIFFERENT process
+    count can be contiguous (part0..partN all overwritten except the tail),
+    so index contiguity alone cannot catch it; provenance can.  Parts
+    without the attr (written before it existed) are accepted."""
+    import h5py
+
+    counts = {}
+    for p in parts:
+        with h5py.File(p, "r") as f:
+            c = f.attrs.get("shard_count")
+        if c is not None:
+            counts[p] = int(c)
+    for p, c in counts.items():
+        if c != len(parts):
+            raise ValueError(
+                f"{p} was written by a {c}-process run but {len(parts)} "
+                f"shards are being merged: stale .part files from an "
+                f"earlier run?")
+
+
+def merge_h5_shards(out_h5, group: str, check_attr: str, n_processes: int = None,
+                    delete_parts: bool = False) -> Path:
+    """Merge per-process ``<out>.part<p>`` h5 files written by a multi-process
+    sweep into one file (JAX ``merge_h5_shards``): every member of ``group``
+    is copied (per-item attrs preserved), file attrs come from part 0, and
+    ``check_attr`` must agree across parts.  Three stale-shard guards:
+    auto-globbed part indices must be contiguous 0..N-1, each part's
+    write-time ``shard_count`` provenance must equal the merge-set size, and
+    the merged file drops ``shard_count`` (it is no longer one shard of an
+    N-way run)."""
+    import glob
+
+    import h5py
+
+    out_h5 = Path(out_h5)
+    if n_processes is None:
+        parts = sorted(glob.glob(str(out_h5) + ".part*"))
+        if not parts:
+            raise FileNotFoundError(f"no shard files matching {out_h5}.part*")
+        idx = sorted(int(Path(p).suffix[len(".part"):]) for p in parts)
+        if idx != list(range(len(idx))):
+            raise ValueError(
+                f"shard indices {idx} are not contiguous 0..{len(idx) - 1}: "
+                f"stale .part files from an earlier run? Pass n_processes "
+                f"or delete the extras")
+    else:
+        parts = [f"{out_h5}.part{p}" for p in range(n_processes)]
+    _check_shard_counts(parts)
+    with h5py.File(out_h5, "w") as dst:
+        for i, part in enumerate(parts):
+            with h5py.File(part, "r") as src:
+                if i == 0:
+                    for k, v in src.attrs.items():
+                        if k != "shard_count":
+                            dst.attrs[k] = v
+                elif src.attrs[check_attr] != dst.attrs[check_attr]:
+                    raise ValueError(f"shard {part} with different {check_attr}")
+                for stem in src.get(group, {}):
+                    src.copy(f"{group}/{stem}", dst, f"{group}/{stem}")
+    if delete_parts:
+        for part in parts:
+            Path(part).unlink()
+    return out_h5
+
+
+def merge_mask_shards(out_h5, n_processes: int = None, delete_parts: bool = False) -> Path:
+    """Merge per-process ``<out>.part<p>`` mask files written by a
+    multi-process ``save_refined_segmentations`` sweep into one mask h5
+    (same schema, file attrs copied from part 0; per-image
+    ``estimated_dice`` attrs preserved).  Run in one process after every
+    process has finished: the mask counterpart of
+    ``engine/embeddings.py:merge_embedding_shards``."""
+    return merge_h5_shards(out_h5, "segmentation_mask", "labels",
+                           n_processes=n_processes, delete_parts=delete_parts)

@@ -26,7 +26,9 @@ both ways.
 
 :func:`precompute_embeddings` encodes image files into the embeddings h5
 (JAX ``precompute_embeddings``); its loop over batches is
-:func:`encode_images`, which takes decoded images and any writer.
+:func:`encode_images`, which takes decoded images and any writer.  In a
+group of several processes each encodes its strided shard into a part file,
+which :func:`merge_embedding_shards` merges.
 """
 
 from __future__ import annotations
@@ -274,7 +276,7 @@ def encode_images(encode: Callable, packed: Packed, stems: Sequence[str],
 
 
 def precompute_embeddings(model: SamModel, image_files: Sequence, out_h5, checkpoint_name: str,
-                          *, batch_size: int = 8, dtype=torch.bfloat16, mesh=None,
+                          *, batch_size: int = 8, dtype=torch.bfloat16,
                           progress: bool = True, medsam: bool = False, resume: bool = False,
                           timer: Optional[PhaseTimer] = None, quantize: Optional[str] = None,
                           unroll_blocks: bool = False,
@@ -290,21 +292,42 @@ def precompute_embeddings(model: SamModel, image_files: Sequence, out_h5, checkp
     interrupted run and skips the stems already stored.  ``timer`` (a
     :class:`PhaseTimer`) accounts the load, encode and write phases;
     ``quantize="int8"`` selects the int8 serving mode; ``unroll_blocks`` is
-    accepted and has no effect (module docstring).  One process on one
-    device only: a ``mesh`` or a ``torch.distributed`` group of more than
-    one process raises ``NotImplementedError`` (multi-process scale-out is
-    ROADMAP queue A item 5)."""
-    dist = torch.distributed
-    if mesh is not None or (dist.is_available() and dist.is_initialized()
-                            and dist.get_world_size() > 1):
-        raise NotImplementedError("multi-device and multi-process precompute is not ported "
-                                  "(ROADMAP queue A item 5)")
+    accepted and has no effect (module docstring).
+
+    Multi-process: in a ``torch.distributed`` group of more than one
+    process, each process encodes its strided slice of the file list
+    (``parallel/distributed.py:process_shard``) on its own card (image
+    encoding needs no collective) and writes ``<out>.part<rank>`` with the
+    ``shard_count`` attribute; merge them afterwards with
+    :func:`merge_embedding_shards`.  JAX's ``mesh`` argument has no
+    counterpart: the port runs one card per process, so a process's batch
+    is never split over devices."""
+    from samcarriestheburden_torch.parallel import distributed as pdist
+
+    shard_count = None
+    if pdist.is_multiprocess():
+        image_files = pdist.process_shard(image_files)
+        out_h5 = Path(f"{out_h5}.part{pdist.process_index()}")
+        shard_count = pdist.process_count()    # provenance for the merge's guard
     encode, packed = make_serving_encoder(model, dtype, quantize=quantize, medsam=medsam)
     files = {Path(f).stem: Path(f) for f in image_files}
     with EmbeddingWriter(out_h5, checkpoint_name, model.img_size, append=resume) as writer:
+        if shard_count is not None:
+            writer.f.attrs["shard_count"] = shard_count
         done = writer.existing_stems() if resume else set()
         encode_images(encode, packed, [s for s in files if s not in done],
                       lambda stem: load_image_gray(files[stem]), writer,
                       img_size=model.img_size, device=model.device, batch_size=batch_size,
                       medsam=medsam, timer=timer, loader_threads=loader_threads,
                       progress=progress)
+
+
+def merge_embedding_shards(out_h5, n_processes: int = None, delete_parts: bool = False) -> Path:
+    """Merge the per-process ``<out>.part<p>`` files of a multi-process
+    precompute into one embeddings h5 (same schema, attrs copied from part
+    0; JAX ``merge_embedding_shards``).  Run in one process after every
+    process has finished."""
+    from samcarriestheburden_torch.data.h5io import merge_h5_shards
+
+    return merge_h5_shards(out_h5, "img_embedding", "checkpoint",
+                           n_processes=n_processes, delete_parts=delete_parts)

@@ -1,8 +1,9 @@
-"""K8's plain version and the port's component selection against the JAX
-package's ``ops/ccl.py`` (its XLA loop and its Pallas kernel in interpret
-mode), on seeded maps built to stress the propagation: speckle with many
-components, spirals and 1-pixel diagonal chains, run truncated and to the
-fixpoint.  Labels, flags and kept masks must be equal (tolerance 0)."""
+"""K8's plain version, ``method="scan"`` and the port's component selection
+against the JAX package's ``ops/ccl.py`` (its XLA loop, its scan and its
+Pallas kernel in interpret mode), on seeded maps built to stress the
+propagation: speckle with many components, spirals and 1-pixel diagonal
+chains, run truncated and to the fixpoint.  Labels, flags and kept masks
+must be equal (tolerance 0)."""
 
 import importlib.util
 from pathlib import Path
@@ -197,6 +198,50 @@ def test_selection_on_stress_maps_matches_jax():
     maps = stress_maps() * np.float32(0.75)
     got, want = _both(maps, "largest", max(H, W))
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# method="scan": JAX's segmented-scan rounds, in plain PyTorch
+# ---------------------------------------------------------------------------
+
+SCAN_ROUNDS = [1, 2, 5, H * W]
+
+
+@pytest.mark.parametrize("rounds", SCAN_ROUNDS)
+def test_scan_matches_jax_scan(rounds):
+    """Labels and the converged flag bit for bit against JAX
+    ``connected_components(method="scan")`` truncated at 1, 2 and 5 rounds
+    and run to the fixpoint, on speckle with many components, the spiral,
+    the diagonal chains, and empty and full maps (one batch, as JAX runs a
+    batch: the flag is the whole batch's)."""
+    maps = stress_maps()
+    got, done = tccl.connected_components(torch.from_numpy(maps), rounds, method="scan",
+                                          return_converged=True)
+    want, want_done = jccl.connected_components(jnp.asarray(maps), rounds, method="scan",
+                                                return_converged=True)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert bool(done) == bool(want_done) == (rounds == H * W)
+
+
+def test_scan_differs_from_pool_before_the_fixpoint_and_equals_it_at():
+    maps = stress_maps()
+    scan = tccl.connected_components(torch.from_numpy(maps), 2, method="scan")
+    pool = tccl.connected_components(torch.from_numpy(maps), 2)
+    assert not torch.equal(scan, pool)
+    assert torch.equal(tccl.connected_components(torch.from_numpy(maps), H * W, method="scan"),
+                       tccl.connected_components(torch.from_numpy(maps), H * W))
+
+
+@pytest.mark.parametrize("selection", ["largest", "highest_probability"])
+def test_selection_with_scan_matches_jax(selection):
+    prob = _probs(5, (2, 3, 40, 48))
+    got = tccl.remove_all_but_one_connected_component(torch.from_numpy(prob), selection, 48,
+                                                      method="scan").numpy()
+    want = np.asarray(jccl.remove_all_but_one_connected_component(prob, selection, 48,
+                                                                  method="scan"))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, _both(prob, selection, 48)[0])
 
 
 def test_selection_rejects_bad_arguments():

@@ -44,6 +44,12 @@ RNDWALK_AMG_MODULES = ("ops.random_walk", "ops.seg_preprocessing", "hpo", "hpo.s
                        "hpo.objectives", "hpo.visualize", "cli.hpo", "ops.mask_ops",
                        "ops.resize", "ops.nms", "native", "ops.rle", "ops.regions",
                        "engine.predictor", "engine.amg", "cli.amg")
+#: multi-process scale-out, the reference-layout shims and the version
+PARALLEL_SHIM_MODULES = ("parallel", "parallel.distributed", "parallel.mesh", "parallel.worker",
+                         "parallel._harness",
+                         "parallel.dryrun", "utils", "utils.cvat_parser",
+                         "utils.dice_coefficient", "utils.random_walk", "utils.seg_refinement",
+                         "utils.segmentation_preprocessing", "version")
 
 
 def _port_modules():
@@ -55,7 +61,8 @@ def test_every_module_imports_without_jax():
     modules = _port_modules()
     for name in ("kernels.attention", "kernels.quant", "models.quantize", "kernels.cost_probe",
                  "bench", "tools.bench_int8pv", "tools.exp_attn", "tools.exp_attn2",
-                 *PIPELINE_MODULES, *TRAINING_MODULES, *RNDWALK_AMG_MODULES):
+                 *PIPELINE_MODULES, *TRAINING_MODULES, *RNDWALK_AMG_MODULES,
+                 *PARALLEL_SHIM_MODULES):
         assert f"samcarriestheburden_torch.{name}" in modules
     code = ("import sys\n"
             + "".join(f"sys.modules[{name!r}] = None\n" for name in FORBIDDEN)
@@ -76,14 +83,16 @@ def test_every_module_imports_without_h5py():
     and the trainer without them."""
     modules = _port_modules()
     for name in ("data.h5io", "engine.decoder_head", "engine.refinement", "kernels.ccl",
-                 *PIPELINE_MODULES, *TRAINING_MODULES, *RNDWALK_AMG_MODULES):
+                 *PIPELINE_MODULES, *TRAINING_MODULES, *RNDWALK_AMG_MODULES,
+                 *PARALLEL_SHIM_MODULES):
         assert f"samcarriestheburden_torch.{name}" in modules
     code = ("import sys\n"
             + "".join(f"sys.modules[{name!r}] = None\n" for name in HOST_ONLY)
             + "import importlib\n"
             + f"for name in {modules!r}:\n    importlib.import_module(name)\n"
             + "import chip_smoke\nchip_smoke.enhance_modules()\nchip_smoke.pipeline_modules()\n"
-            + "chip_smoke.training_modules()\nchip_smoke.rndwalk_amg_modules()\n")
+            + "chip_smoke.training_modules()\nchip_smoke.rndwalk_amg_modules()\n"
+            + "chip_smoke.parallel_modules()\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
@@ -135,6 +144,10 @@ def test_the_parametrized_scan_covers_the_int8_modules():
     # ... and the random walk's, HPO's, the predictor's and AMG's
     assert {name.replace(".", "/") + ".py" for name in RNDWALK_AMG_MODULES
             if name != "hpo"} | {"hpo/__init__.py"} <= scanned
+    # ... and multi-process scale-out's, the shims and the version
+    assert {name.replace(".", "/") + ".py" for name in PARALLEL_SHIM_MODULES
+            if name not in ("parallel", "utils")} | {"parallel/__init__.py",
+                                                      "utils/__init__.py"} <= scanned
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT))
@@ -386,6 +399,7 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from samcarriestheburden_torch.models.build import build_sam_vit_h, sam_model_registry
     from samcarriestheburden_torch.models.modelio import ModelRegistry
     from samcarriestheburden_torch.models.unet import build_unet
+    from samcarriestheburden_torch.parallel.distributed import initialize
     from samcarriestheburden_torch.train.loop import UNetTrainer, train_unet
 
     registry = ModelRegistry(tmp_path / "model_registry")
@@ -420,7 +434,9 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
                  lambda: hpo.main(["--study", "rndwalk", "--model_id", model_id,
                                    "--data_root", str(tmp_path)]),
                  lambda: amg_cli.main(["--input", str(tmp_path), "--output", str(tmp_path / "o"),
-                                       "--model-type", "vit_t", "--checkpoint", "x.pth"])):
+                                       "--model-type", "vit_t", "--checkpoint", "x.pth"]),
+                 lambda: initialize("localhost:1", 1, 0, backend="gloo"),
+                 lambda: initialize("localhost:1", 1, 0, backend="nccl")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert registry.load(model_id, device="cpu")[1].device.type == "cpu"

@@ -9,6 +9,7 @@ fp32."""
 import json
 from pathlib import Path
 
+import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -392,14 +393,18 @@ def test_refine_images_packs_and_fetches_one_batch_late(sam_ckpt):
 
 
 def test_unported_options_raise(data_root):
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        t_gen.main(["--cpu", "--merge_shards"])
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
+    """The multi-process options in one process: ``--merge_shards`` without
+    part files, ``--num_devices`` above the group (one card per process),
+    ``--multihost`` without a coordinator or torchrun's environment; a
+    precompute outside a group writes one file, no part and no shard count."""
+    with pytest.raises(FileNotFoundError, match="part"):
+        t_gen.main(["--cpu", "--merge_shards", "--output", str(data_root / "none.h5")])
+    with pytest.raises(ValueError, match="nproc-per-node 2"):
         t_gen.main(["--cpu", "--num_devices", "2"])
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
+    with pytest.raises(ValueError, match="torchrun"):
         t_gen.main(["--cpu", "--multihost"])
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        t_refine.main(["--cpu", "--model_id", "x", "--refiner", "rndwalk"])
     model = tbuild.build_sam_vit_t(device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        temb.precompute_embeddings(model, [], data_root / "e.h5", "c", mesh=object())
+    temb.precompute_embeddings(model, [], data_root / "e.h5", "c", progress=False)
+    assert not list(data_root.glob("e.h5.part*"))
+    with h5py.File(data_root / "e.h5", "r") as f:
+        assert "shard_count" not in f.attrs

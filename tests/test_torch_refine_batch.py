@@ -160,11 +160,14 @@ def test_ccl_takes_the_jax_keywords(method):
 
 
 def test_ccl_scan_is_not_ported_and_unknown_methods_raise():
+    """``method="scan"`` (ported since M11) reaches K8's fixpoint and the
+    same selection; an unknown method raises."""
     probs = torch.from_numpy(seg_probs(22)[:2])
-    with pytest.raises(NotImplementedError, match="M11"):
-        tccl.connected_components(probs, 48, method="scan")
-    with pytest.raises(NotImplementedError, match="M11"):
-        tccl.remove_all_but_one_connected_component(probs, "largest", 48, method="scan")
+    assert torch.equal(tccl.connected_components(probs, 48 * 48, method="scan"),
+                       tccl.connected_components(probs, 48 * 48))
+    assert torch.equal(
+        tccl.remove_all_but_one_connected_component(probs, "largest", 48, method="scan"),
+        tccl.remove_all_but_one_connected_component(probs, "largest", 48))
     with pytest.raises(ValueError, match="unknown method"):
         tccl.remove_all_but_one_connected_component(probs, "largest", 48, method="kornia")
 

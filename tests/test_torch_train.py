@@ -393,10 +393,19 @@ def test_run_logger_writes_the_jax_format(tmp_path):
 
 
 def test_one_card_only():
-    for kw in (dict(num_devices=2), dict(data_placement="sharded")):
-        with pytest.raises(NotImplementedError):
-            UNetTrainer(CFG, TrainConfig(**kw), device="cpu")
-    with pytest.raises(NotImplementedError):
+    """Outside a process group: ``num_devices`` above 1 needs a mesh of as
+    many ranks, a mesh must be a ``parallel.mesh.Mesh``, and the sharded
+    placement holds the whole split (one process, as JAX without a mesh)."""
+    with pytest.raises(ValueError, match="nproc-per-node 2"):
+        UNetTrainer(CFG, TrainConfig(num_devices=2), device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
         UNetTrainer(CFG, TrainConfig(), mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="data_placement"):
+        UNetTrainer(CFG, TrainConfig(data_placement="striped"), device="cpu")
+    x, y = toy_data(n=4)
+    losses = [UNetTrainer(CFG, TrainConfig(batch_size=2, data_sample_per_epoch=4, data_aug=0.0,
+                                           data_placement=p), device="cpu").train_epoch(x, y, 0)[0]
+              for p in ("replicated", "sharded")]
+    assert losses[0] == losses[1]
     with pytest.raises(ValueError, match="compute_dtype"):
         UNetTrainer(CFG, TrainConfig(compute_dtype="float16"), device="cpu")

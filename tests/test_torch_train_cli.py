@@ -110,12 +110,15 @@ def test_train_then_train_on_pseudo_labels(in_data_root):
 
 
 def test_the_training_clis_refuse_what_is_not_ported(in_data_root):
-    with pytest.raises(NotImplementedError):
+    """In one process: more devices than processes (one card per process),
+    ``--multihost`` with no group to join, a sharded split over two devices."""
+    with pytest.raises(ValueError, match="nproc-per-node 2"):
         port_cli("train").main(["--cpu", "--num_devices", "2"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="torchrun"):
         port_cli("train").main(["--cpu", "--multihost"])
-    with pytest.raises(NotImplementedError):
-        port_cli("train").main(["--cpu", "--epochs", "1", "--data_placement", "sharded"])
+    with pytest.raises(ValueError, match="one card per process"):
+        port_cli("train").main(["--cpu", "--epochs", "1", "--data_placement", "sharded",
+                                "--num_devices", "2"])
 
 
 def test_pseudo_label_paths_match_jax():
