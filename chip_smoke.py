@@ -207,6 +207,30 @@
    step).  A rank's failure or a timeout kills the ranks and fails the run;
    the kernels line's pipeline rows get each rank's launches
    (``rank_launches``);
+4p. the decoder export (``samcarriestheburden_torch/export/``), counted (no
+   kernel of the port may launch): the ViT-H decoder (seeded weights)
+   exported on the card through ``torch.export`` with symbolic batch and
+   point axes, best mask and extra metrics; the loaded artifact at (17, 2)
+   (one image's 17 boxes as corner points labelled 2 and 3) and at (272, 5)
+   (16 images x 17 classes of points, half with a mask prompt) against the
+   eager program within EXPORT_TOL (the CLI's ``--validate`` contract), the
+   pre-padding size and the areas exact; the card's artifact at (17, 2)
+   against the same program on the CPU within DECODE_RTOL (the areas within
+   DECODE_RTOL of the frame's pixels); the bf16 and int8 artifacts' masks
+   at (17, 2) at least EXPORT_AGREE equal to fp32's; the ONNX graph built
+   on the host from the same weights, evaluated by ``onnx_eval`` at (2, 3)
+   against the CPU program within ONNX_TOL; the artifact's and the eager
+   program's ms at (272, 2) (CUDA events);
+4q. the tools of ``samcarriestheburden_torch/tools/`` that profile and time
+   the port's paths, each once at short settings on the ViT-H model:
+   ``exp_ccl`` (K8, pool, scan: the labels equal), ``profile_enhance``
+   (one fp32 ``enhance_batch`` of 2: the time charged to port lines not
+   above the busy time), ``refine_roofline`` (fp32: the FLOP count equal
+   to the analytic count), ``encoder_ab`` (batch 2, flat and v3, compact
+   on and off: the compact embedding the serving default's bit for bit, the
+   others within the tolerances the layouts are held to here),
+   ``rect_overhead`` (K6 on the serving path's edge groups) and
+   ``bench_configs --smoke`` (every key of the JAX tool's JSON);
 5. holds each kernel against its plain PyTorch version on the card, on the
    inputs each of its paths gives it (the flat rows and windows; the
    compact stream's: K1-K4 on 8416 rows, K5 on 32 windows and K6, both
@@ -245,6 +269,7 @@ phase fails.
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -624,6 +649,20 @@ MP_TIMEOUT_S = 300
 # (24 X-rays of 1280 x 640 at batch 8) and 4l's bf16 training step
 MP_ONE_PROCESS = {"precompute_bf16_ips": 49.897, "precompute_int8_ips": 40.704,
                   "train_bf16_ms": 47.85}
+# the decoder export (4p): the loaded artifact against the eager program on
+# the card (``cli/export_decoder.py``'s --validate: atol = rtol = 1e-4), the
+# quantized artifacts' thresholded masks against fp32's (the same contract),
+# the ONNX graph in the numpy evaluator against the CPU program (the JAX
+# package's graph-against-program tolerance, tests/test_onnx_export.py)
+EXPORT_TOL, EXPORT_AGREE, ONNX_TOL = 1e-4, 0.99, 3e-4
+# the keys of the JAX ``tools/bench_configs.py``'s JSON (4q)
+BENCH_CONFIGS_KEYS = {
+    "": ("platform", "model", "config3_refinement_sweep", "config4_unet_training",
+         "config5_amg"),
+    "config3_refinement_sweep": ("images_per_sec", "images_per_sec_batched", "img_batch",
+                                 "n_images", "seg_hw"),
+    "config4_unet_training": ("ms_per_step_aug0", "ms_per_step_aug0.5"),
+    "config5_amg": ("sec_per_image", "points_per_side")}
 # K8 on stressed maps runs truncated at a cap that is not a multiple of the
 # check interval (16), and to the fixpoint, at the path's check interval and
 # at one that holds several of the register kernel's barrier groups
@@ -5038,6 +5077,208 @@ def smoke_images(torch, seed: int, dev):
     return gen, imgs, torch.tensor([INPUT_HW] * B, dtype=torch.int32, device=dev)
 
 
+def export_inputs(torch, model, b: int, n: int, points: bool, gen, dev) -> tuple:
+    """The decoder program's inputs at (b, n), made on the host from ``gen``:
+    one seeded embedding; ``points`` off: one box an item as its two corners
+    labelled 2 and 3 (n = 2), no mask prompt; on: one positive point, n - 2
+    negatives and a pad, every other item with a mask prompt."""
+    cfg = model.cfg
+    eh, ew = cfg.prompt_encoder.image_embedding_size
+    size = model.img_size
+    emb = torch.randn((1, cfg.mask_decoder.transformer_dim, eh, ew), generator=gen)
+    if points:
+        coords = torch.rand((b, n, 2), generator=gen) * size
+        labels = torch.cat([torch.ones(b, 1), torch.zeros(b, n - 2), -torch.ones(b, 1)], 1)
+        mask = torch.randn((b, 1, 4 * eh, 4 * ew), generator=gen) * 4
+        has = (torch.arange(b) % 2).float()
+    else:
+        xy0 = torch.rand((b, 2), generator=gen) * size * 0.6
+        coords = torch.stack([xy0, xy0 + 16 + torch.rand((b, 2), generator=gen) * size * 0.3], 1)
+        labels = torch.tensor([[2.0, 3.0]]).repeat(b, 1)
+        mask = torch.zeros((b, 1, 4 * eh, 4 * ew))
+        has = torch.zeros(b)
+    orig = torch.tensor(ENH_ORIGINAL_HW, dtype=torch.int32)
+    return tuple(t.to(dev) for t in (emb, coords, labels.int(), mask, has, orig))
+
+
+def phase_export(torch, np, kernels, model) -> dict:
+    """4p (module docstring).  Returns its numbers."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from samcarriestheburden_torch.config import N_CLASSES
+    from samcarriestheburden_torch.export import onnx_eval, onnx_graph, program
+
+    t_phase = time.perf_counter()
+    dev = model.device
+    gen = torch.Generator().manual_seed(21)
+    names = ["masks", "prepadded_size", "iou_predictions", "stability_scores", "areas",
+             "low_res_masks"]
+    flags = dict(return_single_mask=True, return_extra_metrics=True)
+    eager = program.make_decoder_fn(model, True, False, True)
+    cpu_model = SimpleNamespace(prompt_encoder=copy.deepcopy(model.prompt_encoder).cpu(),
+                                mask_decoder=copy.deepcopy(model.mask_decoder).cpu(),
+                                img_size=model.img_size, mask_threshold=model.mask_threshold,
+                                cfg=model.cfg)
+    cpu_prog = program.make_decoder_fn(cpu_model, True, False, True)
+    boxes = export_inputs(torch, model, N_CLASSES, 2, False, gen, dev)
+    pts = export_inputs(torch, model, ENHANCE_N * N_CLASSES, 5, True, gen, dev)
+    numbers = {}
+    kernels.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
+        t0 = time.perf_counter()
+        path = program.export_decoder(model, Path(tmp) / "decoder.pt2", **flags)
+        numbers["export_s"] = time.perf_counter() - t0
+        numbers["artifact_bytes"] = path.stat().st_size
+        loaded = program.load_exported(path)
+        for case, args in (("(17, 2) boxes", boxes), ("(272, 5) points", pts)):
+            got, ref = loaded(*args), eager(*args)
+            errs = {}
+            for name, g, r in zip(names, got, ref):
+                check(g.shape == r.shape and g.dtype == r.dtype,
+                      f"4p {case} {name}: {tuple(g.shape)} {g.dtype}, eager {tuple(r.shape)} "
+                      f"{r.dtype}")
+                if name in ("prepadded_size", "areas"):
+                    check(torch.equal(g, r), f"4p {case}: the artifact's {name} differs")
+                    continue
+                check(bool(torch.isfinite(g).all()), f"4p {case}: non-finite {name}")
+                errs[name] = (g - r).abs().max().item()
+                check(bool(((g - r).abs() <= EXPORT_TOL + EXPORT_TOL * r.abs()).all()),
+                      f"4p {case}: the artifact's {name} is {errs[name]:.4g} from the eager "
+                      f"program's (tol {EXPORT_TOL} + {EXPORT_TOL} x |eager|)")
+            check(tuple(got[0].shape) == (args[1].shape[0], 1, model.img_size, model.img_size),
+                  f"4p {case}: masks {tuple(got[0].shape)}")
+            log(f"4p {case}: the loaded artifact against the eager program on the card: max abs "
+                f"err {errs}; prepadded_size {got[1].tolist()} and areas equal")
+            numbers[f"{case} max_err"] = max(errs.values())
+        # the card's artifact against the CPU program, fp32 both (TF32 off)
+        got = loaded(*boxes)
+        ref = cpu_prog(*(a.cpu() for a in boxes))
+        errs = {}
+        for name, g, r in zip(names, got, ref):
+            g = g.cpu()
+            if name == "prepadded_size":
+                check(torch.equal(g, r), "4p: prepadded_size differs between card and CPU")
+            elif name == "areas":
+                d = (g.long() - r.long()).abs().max().item()
+                errs[name] = d
+                check(d <= DECODE_RTOL * model.img_size ** 2,
+                      f"4p: areas {d} pixels apart between card and CPU")
+            else:
+                scale = max(1.0, r.abs().max().item())
+                errs[name] = (g - r).abs().max().item()
+                check(errs[name] <= DECODE_RTOL * scale,
+                      f"4p: {name} card vs CPU {errs[name]:.4g} (tol {DECODE_RTOL} x {scale:.4g})")
+        log(f"4p: the card's artifact at (17, 2) against the CPU program: {errs} (tol "
+            f"{DECODE_RTOL} x max(1, max |CPU|); areas {DECODE_RTOL} x the frame's pixels)")
+        numbers["card_vs_cpu"] = errs
+        # the quantized artifacts
+        thr = model.mask_threshold
+        for mode in ("bf16", "int8"):
+            qpath = program.export_decoder(model, Path(tmp) / f"decoder_{mode}.pt2", quantize=mode,
+                                           **flags)
+            q = program.load_exported(qpath)(*boxes)
+            agree = ((q[0] > thr) == (got[0] > thr)).float().mean().item()
+            log(f"4p: the {mode} artifact ({qpath.stat().st_size} bytes against fp32's "
+                f"{numbers['artifact_bytes']}) agrees with fp32 at {agree:.6f} of the mask "
+                f"pixels; IoU scores {(q[2] - got[2]).abs().max().item():.4g} apart")
+            check(agree >= EXPORT_AGREE, f"4p: the {mode} artifact's masks agree at {agree:.4f}")
+            numbers[f"{mode}_agree"] = agree
+            numbers[f"{mode}_bytes"] = qpath.stat().st_size
+        check(numbers["bf16_bytes"] < numbers["artifact_bytes"], "4p: bf16 is not smaller")
+        # the ONNX graph on the host, in the numpy evaluator, against the CPU program
+        t0 = time.perf_counter()
+        blob = onnx_graph.build_decoder_graph(model, True, False, True).model_bytes()
+        small = export_inputs(torch, model, 2, 3, True, gen, torch.device("cpu"))
+        feeds = {k: a.numpy() for k, a in zip(program.INPUT_NAMES, small)}
+        feeds["point_labels"] = feeds["point_labels"].astype(np.float32)
+        onnx_out = onnx_eval.evaluate_model(blob, feeds)
+        ref = cpu_prog(*small)
+        errs = {}
+        for name, r in zip(names, ref):
+            g = np.asarray(onnx_out[name], np.float64)
+            r = r.numpy().astype(np.float64)
+            errs[name] = float(np.abs(g - r).max())
+            check(g.shape == r.shape and bool(np.all(np.abs(g - r) <= ONNX_TOL + ONNX_TOL
+                                                     * np.abs(r))),
+                  f"4p: the ONNX graph's {name} is {errs[name]:.4g} from the CPU program's "
+                  f"(tol {ONNX_TOL})")
+        log(f"4p: the ONNX graph ({len(blob)} bytes) in onnx_eval at (2, 3) against the CPU "
+            f"program: {errs} ({time.perf_counter() - t0:.1f} s)")
+        numbers["onnx_vs_cpu"] = errs
+        # times at (272, 2)
+        t_args = export_inputs(torch, model, ENHANCE_N * N_CLASSES, 2, False, gen, dev)
+        numbers["artifact_ms"] = card_ms(torch, lambda: loaded(*t_args), iters=5, warmup=2)
+        numbers["eager_ms"] = card_ms(torch, lambda: eager(*t_args), iters=5, warmup=2)
+        log(f"4p: at (272, 2) the artifact takes {numbers['artifact_ms']:.4f} ms, the eager "
+            f"program {numbers['eager_ms']:.4f} ms (CUDA events, fp32, after 2 warm-up calls)")
+    launches = dict(kernels.LAUNCHES)
+    check(not any(launches.values()), f"4p launched kernels of the port: {launches}")
+    numbers["phase_s"] = time.perf_counter() - t_phase
+    log(f"4p numbers: {json.dumps(numbers)}")
+    return numbers
+
+
+def phase_tools_profile(torch, np, make_serving_encoder, model) -> dict:
+    """4q (module docstring).  Returns the tools' readings."""
+    from samcarriestheburden_torch.tools import (bench_configs, encoder_ab, exp_ccl,
+                                                 profile_enhance, rect_overhead,
+                                                 refine_roofline)
+
+    t_phase = time.perf_counter()
+    out = {}
+    res = exp_ccl.exp_ccl(batch=2, iters=2)
+    check(all(r["labels_equal"] for r in res.values()), "4q: exp_ccl's labels differ")
+    out["exp_ccl_ms"] = {k: r["ms"] for k, r in res.items()}
+
+    res = profile_enhance.profile_enhance(model=model, images=2, decoders=("fp32",), top=6)["fp32"]
+    check(0 < res["attributed_ms"] <= res["busy_lines_ms"],
+          f"4q: profile_enhance charged {res['attributed_ms']:.4f} ms to port lines of a "
+          f"{res['busy_lines_ms']:.4f} ms busy run")
+    out["profile_enhance"] = {k: res[k] for k in ("busy_ms", "wall_ms", "attributed_ms",
+                                                  "families")}
+
+    res = refine_roofline.refine_roofline(model=model, dtypes=("fp32",), iters=3)["fp32"]
+    check(res["flops"] == res["analytic_flops"],
+          f"4q: refine_roofline counted {res['flops']} FLOPs, analytic {res['analytic_flops']}")
+    out["refine_roofline"] = {k: res.get(k) for k in ("ms", "flops", "bytes", "tflops", "tbps")}
+
+    res = encoder_ab.encoder_ab(model=model, batch=B, formulations=("flat", "v3"),
+                                compact=("on", "off"), quantize=("none",), iters=2,
+                                dtype=torch.bfloat16)
+    imgs, sizes = encoder_ab.images(B, model.img_size, model.device)
+    encode, packed = make_serving_encoder(model, torch.bfloat16)
+    serving = encode(packed, imgs, sizes)
+    check(torch.equal(serving, res["flat on none"]["embedding"]),
+          "4q: encoder_ab's compact embedding is not the serving default's")
+    off, v3 = res["flat off none"], res["v3 off none"]
+    log(f"4q encoder_ab: compact = the serving default bit for bit; flat against compact max "
+        f"{off['max_diff']:.4g} mean {off['mean_diff']:.4g} (tol {ENCODER_TOL_MAX}, "
+        f"{ENCODER_TOL_MEAN}); v3 against compact max {v3['max_diff']:.4g} mean "
+        f"{v3['mean_diff']:.4g} (tol {V2_TOL_MAX}, {ENCODER_TOL_MEAN})")
+    check(off["max_diff"] <= ENCODER_TOL_MAX and off["mean_diff"] <= ENCODER_TOL_MEAN,
+          "4q: encoder_ab's flat embedding disagrees with the compact one")
+    check(v3["max_diff"] <= V2_TOL_MAX and v3["mean_diff"] <= ENCODER_TOL_MEAN,
+          "4q: encoder_ab's v3 embedding disagrees with the compact one")
+    out["encoder_ab_ms"] = {k: r["ms"] for k, r in res.items()}
+    del res, encode, packed, serving
+
+    res = rect_overhead.rect_overhead(cases=rect_overhead.serving_cases(B), iters=20)
+    check(all(r["k6_device_ms"] is not None and 0 < r["k6_device_ms"] for r in res.values()),
+          "4q: rect_overhead read no device time for K6")
+    out["rect_overhead"] = res
+
+    res = bench_configs.bench_configs(smoke=True)
+    for group, keys in BENCH_CONFIGS_KEYS.items():
+        have = res if not group else res.get(group, {})
+        check(all(k in have for k in keys), f"4q: bench_configs lacks {group} keys: "
+              f"{[k for k in keys if k not in have]}")
+    out["bench_configs"] = res
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"4q numbers: {json.dumps(out, default=str)}")
+    return out
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -5218,6 +5459,13 @@ def main() -> int:
     # 5i. (4o) multi-process scale-out: two gloo ranks on the card train,
     # precompute and sweep, each against one process; a one-rank NCCL group
     launches_mp, _ = phase_multiprocess(torch, np, port, model, make_serving_encoder)
+
+    # 5j. (4p) the decoder export: the torch.export artifact against the eager
+    # program (card and CPU), the quantized artifacts, the ONNX graph; counted
+    phase_export(torch, np, kernels, model)
+
+    # 5k. (4q) the profiling and timing tools at short settings
+    phase_tools_profile(torch, np, make_serving_encoder, model)
 
     # 5d. the encoder's other block formulations: v1 (K9) and v2 (K12) at full
     # depth, v3 (K10, K11) as a run of blocks; every kernel they launch, K1, K3

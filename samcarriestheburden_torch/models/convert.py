@@ -13,6 +13,10 @@ Three sources:
     (in, out, kh, kw) un-flipped;
   - the stacked hypernetwork MLPs are split back into one MLP per mask token.
 
+  :func:`sam_params_from_state_dict` is its inverse (JAX
+  ``sam_params_from_torch``): the port's state dict back to that pytree,
+  for the decoder export's graph builder (``export/onnx_graph.py``).
+
 * :func:`sam_state_dict_from_torch` / :func:`load_reference_checkpoint` take
   a reference SAM state dict (``sam_vit_h_4b8939.pth`` and the goldens'
   ``sd/`` keys), whose names are already this package's.
@@ -152,6 +156,134 @@ def sam_state_dict_from_jax(params: Mapping, cfg: SamConfig) -> StateDict:
     return sd
 
 
+def _np(t) -> np.ndarray:
+    return np.asarray(t.detach().cpu() if isinstance(t, torch.Tensor) else t, np.float32)
+
+
+def _lin_p(sd: Mapping, prefix: str) -> dict:
+    p = {"w": np.ascontiguousarray(sd[prefix + ".weight"].T)}
+    if prefix + ".bias" in sd:
+        p["b"] = sd[prefix + ".bias"]
+    return p
+
+
+def _conv_p(sd: Mapping, prefix: str) -> dict:
+    p = {"w": np.ascontiguousarray(sd[prefix + ".weight"].transpose(2, 3, 1, 0))}
+    if prefix + ".bias" in sd:
+        p["b"] = sd[prefix + ".bias"]
+    return p
+
+
+def _conv_t_p(sd: Mapping, prefix: str) -> dict:
+    w = sd[prefix + ".weight"].transpose(2, 3, 0, 1)      # (kh, kw, in, out)
+    p = {"w": np.ascontiguousarray(w[::-1, ::-1])}        # flipped for lax.conv_transpose
+    if prefix + ".bias" in sd:
+        p["b"] = sd[prefix + ".bias"]
+    return p
+
+
+def _ln_p(sd: Mapping, prefix: str) -> dict:
+    return {"scale": sd[prefix + ".weight"], "bias": sd[prefix + ".bias"]}
+
+
+def _attn_p(sd: Mapping, prefix: str) -> dict:
+    return {name: _lin_p(sd, f"{prefix}.{name}")
+            for name in ("q_proj", "k_proj", "v_proj", "out_proj")}
+
+
+def _image_encoder_p(sd: Mapping, cfg, prefix: str) -> dict:
+    blocks = []
+    for i in range(cfg.depth):
+        b = f"{prefix}blocks.{i}"
+        blk = {"norm1": _ln_p(sd, b + ".norm1"),
+               "attn": {"qkv": _lin_p(sd, b + ".attn.qkv"), "proj": _lin_p(sd, b + ".attn.proj")},
+               "norm2": _ln_p(sd, b + ".norm2"),
+               "mlp": {"lin1": _lin_p(sd, b + ".mlp.lin1"), "lin2": _lin_p(sd, b + ".mlp.lin2")}}
+        if cfg.use_rel_pos:
+            blk["attn"]["rel_pos_h"] = sd[b + ".attn.rel_pos_h"]
+            blk["attn"]["rel_pos_w"] = sd[b + ".attn.rel_pos_w"]
+        blocks.append(blk)
+    params = {"patch_embed": _conv_p(sd, prefix + "patch_embed.proj"), "blocks": blocks,
+              "neck": {"conv1": _conv_p(sd, prefix + "neck.0"), "ln1": _ln_p(sd, prefix + "neck.1"),
+                       "conv2": _conv_p(sd, prefix + "neck.2"), "ln2": _ln_p(sd, prefix + "neck.3")}}
+    if cfg.use_abs_pos:
+        params["pos_embed"] = sd[prefix + "pos_embed"]
+    return params
+
+
+def _prompt_encoder_p(sd: Mapping, prefix: str) -> dict:
+    return {
+        "pe_gaussian": sd[prefix + "pe_layer.positional_encoding_gaussian_matrix"],
+        "point_embeddings": np.concatenate(
+            [sd[f"{prefix}point_embeddings.{i}.weight"] for i in range(4)], axis=0),
+        "not_a_point_embed": sd[prefix + "not_a_point_embed.weight"],
+        "no_mask_embed": sd[prefix + "no_mask_embed.weight"],
+        "mask_downscaling": {
+            "conv1": _conv_p(sd, prefix + "mask_downscaling.0"),
+            "ln1": _ln_p(sd, prefix + "mask_downscaling.1"),
+            "conv2": _conv_p(sd, prefix + "mask_downscaling.3"),
+            "ln2": _ln_p(sd, prefix + "mask_downscaling.4"),
+            "conv3": _conv_p(sd, prefix + "mask_downscaling.6"),
+        },
+    }
+
+
+def _mask_decoder_p(sd: Mapping, cfg, prefix: str) -> dict:
+    tr = prefix + "transformer"
+    layers = []
+    for i in range(cfg.transformer_depth):
+        b = f"{tr}.layers.{i}"
+        layers.append({
+            "self_attn": _attn_p(sd, b + ".self_attn"),
+            "norm1": _ln_p(sd, b + ".norm1"),
+            "cross_attn_token_to_image": _attn_p(sd, b + ".cross_attn_token_to_image"),
+            "norm2": _ln_p(sd, b + ".norm2"),
+            "mlp": {"lin1": _lin_p(sd, b + ".mlp.lin1"), "lin2": _lin_p(sd, b + ".mlp.lin2")},
+            "norm3": _ln_p(sd, b + ".norm3"),
+            "norm4": _ln_p(sd, b + ".norm4"),
+            "cross_attn_image_to_token": _attn_p(sd, b + ".cross_attn_image_to_token"),
+        })
+    nt = cfg.num_mask_tokens
+    hyper = [[_lin_p(sd, f"{prefix}output_hypernetworks_mlps.{t}.layers.{j}") for j in range(3)]
+             for t in range(nt)]
+    return {
+        "transformer": {
+            "layers": layers,
+            "final_attn_token_to_image": _attn_p(sd, tr + ".final_attn_token_to_image"),
+            "norm_final_attn": _ln_p(sd, tr + ".norm_final_attn"),
+        },
+        "iou_token": sd[prefix + "iou_token.weight"],
+        "mask_tokens": sd[prefix + "mask_tokens.weight"],
+        "output_upscaling": {
+            "up1": _conv_t_p(sd, prefix + "output_upscaling.0"),
+            "ln": _ln_p(sd, prefix + "output_upscaling.1"),
+            "up2": _conv_t_p(sd, prefix + "output_upscaling.3"),
+        },
+        "output_hypernetworks_mlps": {"layers": [
+            {"w": np.stack([hyper[t][j]["w"] for t in range(nt)]),
+             "b": np.stack([hyper[t][j]["b"] for t in range(nt)])} for j in range(3)]},
+        "iou_prediction_head": {"layers": [
+            _lin_p(sd, f"{prefix}iou_prediction_head.layers.{j}")
+            for j in range(cfg.iou_head_depth)]},
+    }
+
+
+def sam_params_from_state_dict(sd: Mapping, cfg: SamConfig) -> dict:
+    """A state dict of :class:`SamModel` -> the JAX package's SAM params
+    pytree of numpy fp32 arrays (JAX ``sam_params_from_torch``'s layout);
+    the inverse of :func:`sam_state_dict_from_jax`, by transposes, the
+    transposed convs' spatial flip and the hypernetworks' stacking alone.
+    ``image_encoder`` is in the tree only where ``sd`` has its keys (a
+    decoder's state dict gives ``prompt_encoder`` and ``mask_decoder``)."""
+    sd = {k: _np(v) for k, v in sd.items()}
+    params = {}
+    if any(k.startswith("image_encoder.") for k in sd):
+        params["image_encoder"] = _image_encoder_p(sd, cfg.image_encoder, "image_encoder.")
+    params["prompt_encoder"] = _prompt_encoder_p(sd, "prompt_encoder.")
+    params["mask_decoder"] = _mask_decoder_p(sd, cfg.mask_decoder, "mask_decoder.")
+    return params
+
+
 def _double_conv(sd: StateDict, prefix: str, p: Mapping) -> None:
     # Sequential: 0 conv, 1 InstanceNorm, 2 LeakyReLU, 3 conv, 4 InstanceNorm
     _conv(sd, prefix + ".double_conv.0", p["conv1"])
@@ -178,10 +310,6 @@ def unet_state_dict_from_jax(params: Mapping, cfg: UNetConfig) -> StateDict:
             _conv_t(sd, f"{key}.up", params[key]["up"])
     _conv(sd, "outc.conv", params["outc"])
     return sd
-
-
-def _np(t) -> np.ndarray:
-    return np.asarray(t.detach().cpu() if isinstance(t, torch.Tensor) else t, np.float32)
 
 
 def unet_params_from_torch(sd: Mapping, cfg: UNetConfig) -> dict:

@@ -31,9 +31,12 @@ def get_preprocess_shape(oldh: int, oldw: int, long_side_length: int) -> Tuple[i
 
 def resize_bilinear(image: torch.Tensor, out_hw: Tuple[int, int], *,
                     antialias: bool = False) -> torch.Tensor:
-    """Bilinear resize of the last two axes of a (..., H, W) tensor, in fp32."""
+    """Bilinear resize of the last two axes of a (..., H, W) tensor, in fp32.
+    The planes go through ``F.interpolate`` as a batch of one channel each:
+    a channel count that does not depend on the leading sizes, so a traced
+    program (``torch.export``) puts no guard on them."""
     lead = image.shape[:-2]
-    x = image.float().reshape(1, -1, *image.shape[-2:])
+    x = image.float().reshape(-1, 1, *image.shape[-2:])
     y = F.interpolate(x, size=tuple(out_hw), mode="bilinear",
                       align_corners=False, antialias=antialias)
     return y.reshape(*lead, *out_hw)

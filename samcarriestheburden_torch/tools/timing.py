@@ -7,7 +7,9 @@ Each experiment is ``(fn, args)``.  It is called once (host clock, the
 kernels' build included) and ``WARMUP`` times, then timed over ``ITERS``
 back-to-back calls between two CUDA events: device time per iteration.  The
 launches of each counted kernel (``kernels.LAUNCHES``) over all those calls
-are kept beside the time.
+are kept beside the time.  :func:`call_ms` times one call the same way for
+the profiling tools (``exp_ccl``, ``encoder_ab``, ``rect_overhead``), and by
+the host clock on the CPU.
 """
 
 from __future__ import annotations
@@ -35,6 +37,19 @@ def device_us(fn, args, iters: int = ITERS, warmup: int = WARMUP) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) * 1e3 / iters
+
+
+def call_ms(fn, iters: int, device, warmup: int = 1) -> float:
+    """Mean ms of ``fn()`` over ``iters`` calls after ``warmup``: CUDA events
+    on the card, the host clock on the CPU (the tools' CPU tests)."""
+    if device.type == "cuda":
+        return device_us(fn, (), iters=iters, warmup=warmup) / 1e3
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
 
 
 def run_experiments(exps: Dict, names: Iterable[str],

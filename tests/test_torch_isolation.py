@@ -50,6 +50,11 @@ PARALLEL_SHIM_MODULES = ("parallel", "parallel.distributed", "parallel.mesh", "p
                          "parallel.dryrun", "utils", "utils.cvat_parser",
                          "utils.dice_coefficient", "utils.random_walk", "utils.seg_refinement",
                          "utils.segmentation_preprocessing", "version")
+#: the decoder export and the last tools (queue A items 6 and 7)
+EXPORT_TOOL_MODULES = ("export", "export.onnx_proto", "export.onnx_eval", "export.onnx_graph",
+                       "export.program", "cli.export_decoder")
+#: JAX package file -> its counterpart in the port, where the two names differ
+RENAMED = {"export/stablehlo.py": "export/program.py"}
 
 
 def _port_modules():
@@ -62,7 +67,7 @@ def test_every_module_imports_without_jax():
     for name in ("kernels.attention", "kernels.quant", "models.quantize", "kernels.cost_probe",
                  "bench", "tools.bench_int8pv", "tools.exp_attn", "tools.exp_attn2",
                  *PIPELINE_MODULES, *TRAINING_MODULES, *RNDWALK_AMG_MODULES,
-                 *PARALLEL_SHIM_MODULES):
+                 *PARALLEL_SHIM_MODULES, *EXPORT_TOOL_MODULES):
         assert f"samcarriestheburden_torch.{name}" in modules
     code = ("import sys\n"
             + "".join(f"sys.modules[{name!r}] = None\n" for name in FORBIDDEN)
@@ -126,6 +131,17 @@ def test_no_import_of_jax_or_the_jax_package(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+
+
+def test_every_jax_module_has_its_counterpart():
+    """Every ``.py`` of the JAX package has a file of the same path in the
+    port, but ``export/stablehlo.py``, whose ``jax.export`` program is the
+    port's ``torch.export`` program in ``export/program.py``."""
+    jax_root = ROOT / "samcarriestheburden_tpu"
+    rels = sorted(p.relative_to(jax_root).as_posix() for p in jax_root.rglob("*.py"))
+    assert "export/stablehlo.py" in rels and "cli/export_decoder.py" in rels
+    missing = [rel for rel in rels if not (PORT / RENAMED.get(rel, rel)).is_file()]
+    assert not missing, f"JAX modules with no counterpart in the port: {missing}"
 
 
 def test_the_parametrized_scan_covers_the_int8_modules():
@@ -389,6 +405,7 @@ def test_the_int8_wrappers_never_reach_the_compiler_on_cpu(monkeypatch):
 
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from samcarriestheburden_torch.cli import amg as amg_cli
+    from samcarriestheburden_torch.cli import export_decoder
     from samcarriestheburden_torch.cli import (generate_img_embeddings, hpo,
                                                save_refined_segmentations, save_segmentations,
                                                train, train_on_pseudo_labels)
@@ -435,6 +452,8 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
                                    "--data_root", str(tmp_path)]),
                  lambda: amg_cli.main(["--input", str(tmp_path), "--output", str(tmp_path / "o"),
                                        "--model-type", "vit_t", "--checkpoint", "x.pth"]),
+                 lambda: export_decoder.main(["--checkpoint", "x.pth", "--model-type", "vit_t",
+                                              "--output", str(tmp_path / "d.pt2")]),
                  lambda: initialize("localhost:1", 1, 0, backend="gloo"),
                  lambda: initialize("localhost:1", 1, 0, backend="nccl")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
