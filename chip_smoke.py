@@ -133,9 +133,9 @@
    steps in int8 (K2 = K4 96, K5 84, K6 168, K7-int8 12), and int8's drift
    from bf16 through them (mean and min IoU of the 24 x 17 refined masks,
    the largest ``estimated_dice`` difference); each run's images/s (the
-   precompute's beside the bare encoder's at batch 8), its phases
-   (``PhaseTimer``) and the card's idle share over it; the kernels line
-   gets each of its kernels at its first batch's call shapes;
+   precompute's beside the bare encoder's at batch 8), its span totals
+   (``profiling.recording``) and the card's idle share over it; the kernels
+   line gets each of its kernels at its first batch's call shapes;
 4l. drives U-Net training at full width (``UNetConfig()``: base 64, 17
    classes), counted: ``train_unet`` on 64 seeded X-ray-like images of
    384x224 with 17 blob masks each (8 more to validate), batch 16, 48
@@ -3690,14 +3690,14 @@ def pipeline_modules():
     from samcarriestheburden_torch.engine.embeddings import encode_images
     from samcarriestheburden_torch.models.unet import build_unet, unet_probabilities
     from samcarriestheburden_torch.ops.resize import resize_longest_side_np
-    from samcarriestheburden_torch.profiling import PhaseTimer
+    from samcarriestheburden_torch.profiling import recording
 
     return SimpleNamespace(
         refine_images=refine_images, UNetConfig=UNetConfig, GRAZ_IMG_MEAN=GRAZ_IMG_MEAN,
         GRAZ_IMG_STD=GRAZ_IMG_STD, UNET_INPUT_HW=UNET_INPUT_HW, MemoryEmbeddings=MemoryEmbeddings,
         MemoryMasks=MemoryMasks, encode_images=encode_images, build_unet=build_unet,
         unet_probabilities=unet_probabilities, resize_longest_side_np=resize_longest_side_np,
-        PhaseTimer=PhaseTimer)
+        recording=recording)
 
 
 def pipeline_images(np, torch, n: int, hw, grid_hw):
@@ -3731,11 +3731,11 @@ def precompute_batches(np, torch, pipe, xrays, stems, size: int, dev):
     return out
 
 
-def run_precompute(torch, pipe, encode, packed, stems, xrays, size, dev, timer=None):
+def run_precompute(torch, pipe, encode, packed, stems, xrays, size, dev):
     """``encode_images`` over the stems into a fresh in-memory store; returns it."""
     store = pipe.MemoryEmbeddings(size)
     pipe.encode_images(encode, packed, stems, xrays.__getitem__, store, img_size=size,
-                       device=dev, batch_size=PIPE_BATCH, timer=timer)
+                       device=dev, batch_size=PIPE_BATCH)
     torch.cuda.synchronize()
     return store
 
@@ -3794,7 +3794,6 @@ def phase_pipeline_precompute(torch, np, kernels, pipe, model, make_serving_enco
     # throughput: the loop against the bare encoder at the same batch, with
     # each batch's host dispatch and device span on one clock (events recorded
     # around each encode call on the loop's stream); phases; idle share
-    timer = pipe.PhaseTimer(sync=False)
     spans = []
 
     def timed_encode(p, imgs, sizes):
@@ -3809,7 +3808,8 @@ def phase_pipeline_precompute(torch, np, kernels, pipe, model, make_serving_enco
     origin = torch.cuda.Event(enable_timing=True)
     origin.record()
     t0 = time.perf_counter()
-    run_precompute(torch, pipe, timed_encode, packed, stems, xrays, size, dev, timer)
+    with pipe.recording() as rec:
+        run_precompute(torch, pipe, timed_encode, packed, stems, xrays, size, dev)
     wall_ms = (time.perf_counter() - t0) * 1e3
     ips = len(stems) / (wall_ms / 1e3)
     device = [(origin.elapsed_time(a), origin.elapsed_time(b)) for _, _, a, b in spans]
@@ -3833,13 +3833,13 @@ def phase_pipeline_precompute(torch, np, kernels, pipe, model, make_serving_enco
         f"first batch starts {device[0][0]:.1f} ms in (the first load), the gaps between "
         f"batches {', '.join(f'{g:.2f}' for g in gaps)} ms, {span_ips:.3f} images/s over "
         f"the device's span (ratio {span_ips / bare_ips:.4f})")
-    log(f"{what} phases (host clock, sync=False): {json.dumps(timer.report())}")
+    log(f"{what} spans (host clock): {json.dumps(rec.summary())}")
     idle = phase_profile(torch, lambda: run_precompute(torch, pipe, encode, packed, stems, xrays,
                                                        size, dev), what, top=8)
     return launches, store, {"images_per_s": ips, "bare_images_per_s": bare_ips,
                              "device_span_images_per_s": span_ips,
                              "first_batch_start_ms": device[0][0], "gaps_ms": gaps,
-                             "idle_share": idle, "phases": timer.report()}
+                             "idle_share": idle, "phases": rec.summary()}
 
 
 def phase_pipeline_sweep(torch, np, port, pipe, model, unet, store, inputs, what: str):
@@ -3867,10 +3867,9 @@ def phase_pipeline_sweep(torch, np, port, pipe, model, unet, store, inputs, what
         k8_in.append((mask, num_iterations, check_every))
         return propagate(mask, num_iterations, check_every)
 
-    def sweep(timer=None):
+    def sweep():
         masks = pipe.MemoryMasks()
-        pipe.refine_images(unet, enh, stems, grid.__getitem__, masks, img_batch=PIPE_BATCH,
-                           timer=timer)
+        pipe.refine_images(unet, enh, stems, grid.__getitem__, masks, img_batch=PIPE_BATCH)
         torch.cuda.synchronize()
         return masks
 
@@ -3913,15 +3912,15 @@ def phase_pipeline_sweep(torch, np, port, pipe, model, unet, store, inputs, what
         f"maps, bit for bit; {seeded} of {total} classes seeded (decoded by SAM)")
     check(seeded > 0, f"{what}: no class was seeded, so no mask was decoded")
 
-    timer = pipe.PhaseTimer(sync=False)
     t0 = time.perf_counter()
-    sweep(timer)
+    with pipe.recording() as rec:
+        sweep()
     ips = len(stems) / (time.perf_counter() - t0)
     log(f"{what}: {ips:.3f} images/s through refine_images (img_batch {PIPE_BATCH})")
-    log(f"{what} phases (host clock, sync=False): {json.dumps(timer.report())}")
+    log(f"{what} spans (host clock): {json.dumps(rec.summary())}")
     idle = phase_profile(torch, sweep, what, top=8)
     return launches, masks, [s for s, _ in seen], k8_in[0], {
-        "images_per_s": ips, "idle_share": idle, "phases": timer.report()}
+        "images_per_s": ips, "idle_share": idle, "phases": rec.summary()}
 
 
 def phase_pipeline(torch, np, kernels, port, model, make_serving_encoder):
@@ -4016,12 +4015,12 @@ def training_modules():
 
     from samcarriestheburden_torch.config import (N_CLASSES, UNET_INPUT_HW, TrainConfig,
                                                   UNetConfig)
-    from samcarriestheburden_torch.profiling import PhaseTimer
+    from samcarriestheburden_torch.profiling import recording
     from samcarriestheburden_torch.train import augment
     from samcarriestheburden_torch.train.loop import UNetTrainer, train_unet
 
     return SimpleNamespace(N_CLASSES=N_CLASSES, UNET_INPUT_HW=UNET_INPUT_HW,
-                           TrainConfig=TrainConfig, UNetConfig=UNetConfig, PhaseTimer=PhaseTimer,
+                           TrainConfig=TrainConfig, UNetConfig=UNetConfig, recording=recording,
                            augment=augment, UNetTrainer=UNetTrainer, train_unet=train_unet)
 
 
@@ -4080,20 +4079,20 @@ def phase_training(torch, np, kernels):
             runs = {}
             for dtype in ("bfloat16", "float32"):
                 torch.backends.cudnn.deterministic = dtype == "float32"
-                timer = tm.PhaseTimer()
                 t0 = time.perf_counter()
-                model, hist = tm.train_unet(train, val, ucfg, cfg(compute_dtype=dtype),
-                                            timer=timer, device=dev, checkpoint_every=1,
-                                            checkpoint_dir=Path(tmp) / dtype)
+                with tm.recording() as rec:
+                    model, hist = tm.train_unet(train, val, ucfg, cfg(compute_dtype=dtype),
+                                                device=dev, checkpoint_every=1,
+                                                checkpoint_dir=Path(tmp) / dtype)
                 wall = time.perf_counter() - t0
                 runs[dtype] = (model, hist)
                 log(f"train_unet ({dtype}, {TRAIN_EPOCHS} epochs of {TRAIN_SAMPLES // TRAIN_BATCH}"
                     f" steps of {TRAIN_BATCH} x 384 x 224, data_aug {TRAIN_AUG}) in {wall:.2f} s: "
-                    f"{json.dumps(hist)}; phases (synchronised): {json.dumps(timer.report())}")
+                    f"{json.dumps(hist)}; spans (host clock): {json.dumps(rec.summary())}")
                 check(len(hist) == TRAIN_EPOCHS and all(
                     np.isfinite(h[k]) for h in hist for k in ("train_bce", "val_bce", "lr")),
                     f"train_unet ({dtype}): a loss is not finite: {hist}")
-                numbers[f"phases_{dtype}"] = timer.report()
+                numbers[f"phases_{dtype}"] = rec.summary()
             # resume: epoch 1's checkpoint into a fresh trainer, one more epoch
             shutil.rmtree(Path(tmp) / "float32" / f"epoch_{TRAIN_EPOCHS:05d}")
             resumed, hist_r = tm.train_unet(train, val, ucfg, cfg(), device=dev,

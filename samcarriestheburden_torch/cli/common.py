@@ -112,29 +112,32 @@ def add_multihost_flags(p: argparse.ArgumentParser) -> None:
 def add_profile_flag(p: argparse.ArgumentParser) -> None:
     p.add_argument("--profile", nargs="?", const="runs/profile", default=None,
                    metavar="DIR",
-                   help="capture a torch.profiler trace plus per-phase wall-clock "
-                        "JSON into DIR (default runs/profile)")
+                   help="capture a torch.profiler trace plus the program's span totals "
+                        "(phases.json) into DIR (default runs/profile)")
 
 
 @contextlib.contextmanager
 def profiled(profile_dir):
-    """A CLI's profiling scope: yields a PhaseTimer (or None when profiling is
-    off); on exit writes ``<dir>/phases.json`` and ``<dir>/trace.json``."""
+    """A CLI's profiling scope (nothing when ``profile_dir`` is empty): the
+    program's spans recorded (``profiling.recording``) inside a
+    ``torch.profiler`` capture, with no synchronisation added; on exit
+    writes ``<dir>/phases.json`` (``{span: {total_s, self_s, count,
+    mean_ms}}``, host time) and ``<dir>/trace.json``."""
     if not profile_dir:
-        yield None
+        yield
         return
     from pathlib import Path
 
-    from samcarriestheburden_torch.profiling import PhaseTimer, trace
+    from samcarriestheburden_torch.profiling import recording, trace
 
-    timer = PhaseTimer()
-    try:
-        with trace(profile_dir):
-            yield timer
-    finally:
-        timer.dump(Path(profile_dir) / "phases.json")
-        print(f"profile: phase timings -> {profile_dir}/phases.json; "
-              f"trace -> {profile_dir}/trace.json")
+    with recording() as rec:
+        try:
+            with trace(profile_dir):
+                yield
+        finally:
+            rec.dump(Path(profile_dir) / "phases.json")
+            print(f"profile: span totals -> {profile_dir}/phases.json; "
+                  f"trace -> {profile_dir}/trace.json")
 
 
 def setup_backend(args) -> torch.device:

@@ -82,11 +82,11 @@ def main(argv=None):
     if args.limit:
         files = files[: args.limit]
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[args.dtype]
-    with profiled(args.profile) as timer:
+    with profiled(args.profile):
         precompute_embeddings(model, files, out, Path(ckpt).name,
                               batch_size=args.batch_size, dtype=dtype,
                               medsam=(args.sam_type == "medsam"), resume=args.resume,
-                              timer=timer, quantize=args.quantize,
+                              quantize=args.quantize,
                               unroll_blocks=args.unroll_blocks,
                               loader_threads=args.loader_threads)
     print(f"wrote {out}")

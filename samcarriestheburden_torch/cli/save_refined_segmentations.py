@@ -20,11 +20,11 @@ import torch
 
 from samcarriestheburden_torch.models.unet import unet_probabilities
 from samcarriestheburden_torch.ops.mask_ops import packbits_device, unpackbits_host
-from samcarriestheburden_torch.profiling import PhaseTimer
+from samcarriestheburden_torch.profiling import span
 
 
 def refine_images(unet, seg_processor, stems: Sequence[str], read: Callable[[str], np.ndarray],
-                  writer, *, img_batch: int = 8, timer=None, progress: bool = False) -> None:
+                  writer, *, img_batch: int = 8, progress: bool = False) -> None:
     """Refine the U-Net's segmentation of each image ``read(stem)`` ((H, W)
     uint8 on the U-Net grid) with ``seg_processor`` (a ``SegEnhance``) and
     hand it to ``writer.write(stem, masks (C, H, W) uint8,
@@ -37,9 +37,10 @@ def refine_images(unet, seg_processor, stems: Sequence[str], read: Callable[[str
     copy to pinned host memory is enqueued at once with an event behind it,
     and they are written after batch i+1 is dispatched, as the JAX sweep
     fetches one batch late; a copy enqueued at write time would wait for
-    batch i+1 on the same stream.  ``timer`` (a ``PhaseTimer``) accounts
-    load+unet, enhance and h5_write."""
-    timer = timer or PhaseTimer(sync=False)
+    batch i+1 on the same stream.  Spans (``profiling.span``, each with
+    ``batch``): ``refine_images.unet`` (the images read and the U-Net's
+    probabilities), ``refine_images.flush`` (the wait for batch i-1's event,
+    the unpacking and the writes); ``enhance_batch`` records its own."""
     bs = max(1, img_batch)
     pending = None
 
@@ -48,9 +49,9 @@ def refine_images(unet, seg_processor, stems: Sequence[str], read: Callable[[str
             return t
         return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
 
-    def flush(p):
+    def flush(p, batch):
         chunk_, refined_, est_, width, done = p
-        with timer.phase("h5_write"):
+        with span("refine_images.flush", batch=batch):
             if done is not None:
                 done.synchronize()
             refined_ = refined_.numpy()
@@ -66,20 +67,19 @@ def refine_images(unet, seg_processor, stems: Sequence[str], read: Callable[[str
         from tqdm import tqdm
 
         starts = tqdm(starts, unit="batch", desc="Refine segmentation")
-    for i in starts:
+    for b, i in enumerate(starts):
         chunk = list(stems[i:i + bs])
-        with timer.phase("load+unet"):
+        with span("refine_images.unet", batch=b):
             imgs = torch.from_numpy(np.stack([read(s) for s in chunk]))
             y_hat = unet_probabilities(unet, imgs)
-        with timer.phase("enhance"):
-            if bs == 1:
-                refined, est_dice = seg_processor.enhance(y_hat[0], chunk[0])
-                if est_dice is None:        # the random walk has no IoU-head signal
-                    est_dice = torch.full((refined.shape[0],), float("nan"),
-                                          device=refined.device)
-                refined, est_dice = refined[None], est_dice[None]
-            else:
-                refined, est_dice = seg_processor.enhance_batch(y_hat, chunk)
+        if bs == 1:
+            refined, est_dice = seg_processor.enhance(y_hat[0], chunk[0])
+            if est_dice is None:        # the random walk has no IoU-head signal
+                est_dice = torch.full((refined.shape[0],), float("nan"),
+                                      device=refined.device)
+            refined, est_dice = refined[None], est_dice[None]
+        else:
+            refined, est_dice = seg_processor.enhance_batch(y_hat, chunk)
         width = None
         if refined.shape[-1] % 8 == 0:     # device-side bit-pack: 8x smaller fetch
             width, refined = refined.shape[-1], packbits_device(refined)
@@ -88,10 +88,10 @@ def refine_images(unet, seg_processor, stems: Sequence[str], read: Callable[[str
             done = torch.cuda.Event()
             done.record()
         if pending is not None:
-            flush(pending)
+            flush(pending, b - 1)
         pending = (chunk, refined, est_dice, width, done)
     if pending is not None:
-        flush(pending)
+        flush(pending, b)
 
 
 def main(argv=None):
@@ -191,9 +191,9 @@ def main(argv=None):
         files = pdist.process_shard(files)
         out = Path(f"{out}.part{pdist.process_index()}")
         attrs["shard_count"] = pdist.process_count()
-    with profiled(args.profile) as timer, MaskWriter(out, attrs=attrs) as writer:
+    with profiled(args.profile), MaskWriter(out, attrs=attrs) as writer:
         refine_images(unet, seg_processor, files, lambda s: read_unet_image(img_dir, s),
-                      writer, img_batch=args.img_batch, timer=timer, progress=True)
+                      writer, img_batch=args.img_batch, progress=True)
     print(f"wrote {out}")
 
 

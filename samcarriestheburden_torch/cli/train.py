@@ -56,12 +56,11 @@ def main(argv=None):
         hp, data_sample_per_epoch=hp.data_sample_per_epoch,
         num_train_samples=hp.num_train_samples)
 
-    with profiled(hp.profile) as timer:
+    with profiled(hp.profile):
         model, history = train_unet((x_tr, y_tr), (x_va, y_va), unet_cfg,
                                     train_cfg, logger=logger,
                                     bone_labels=ds_train.BONE_LABEL,
-                                    mesh=mesh, progress=True,
-                                    timer=timer, device=device)
+                                    mesh=mesh, progress=True, device=device)
 
     # the registry and the logger write on rank 0; every rank returns its id
     model_id = on_rank0(lambda: ModelRegistry(f"{hp.data_root}/model_registry").register(

@@ -49,7 +49,7 @@ from samcarriestheburden_torch.models.image_encoder import (EncoderOps, attentio
 from samcarriestheburden_torch.models.quantize import prequantize_sam
 from samcarriestheburden_torch.models.sam import SamModel
 from samcarriestheburden_torch.ops.resize import resize_longest_side_np
-from samcarriestheburden_torch.profiling import PhaseTimer
+from samcarriestheburden_torch.profiling import active, count, span
 
 Packed = List[Dict[str, torch.Tensor]]
 
@@ -177,7 +177,7 @@ def load_image_rgb(path) -> np.ndarray:
 
 def encode_images(encode: Callable, packed: Packed, stems: Sequence[str],
                   read: Callable[[str], np.ndarray], writer, *, img_size: int, device=None,
-                  batch_size: int = 8, medsam: bool = False, timer: Optional[PhaseTimer] = None,
+                  batch_size: int = 8, medsam: bool = False,
                   loader_threads: Optional[int] = None, progress: bool = False) -> None:
     """Encode the images ``read(stem)`` (HWC RGB or HW grayscale uint8) in
     fixed batches of ``batch_size`` (the last one padded) and hand each
@@ -195,11 +195,15 @@ def encode_images(encode: Callable, packed: Packed, stems: Sequence[str],
     from a pinned buffer, encoded and copied back into one of two pinned
     output buffers on a stream of its own, and an event marks its end; while
     the card works on it, the host writes batch i-1, once that batch's event
-    has completed, and gathers batch i+1.  ``timer`` accounts the phases
-    load+resize, encode_dispatch and fetch+write."""
+    has completed, and gathers batch i+1.  Spans (``profiling.span``, each
+    with ``batch``): ``encode_images.load_wait`` (batch i's loader results
+    into the pinned buffer; the counter ``encode_images.batches_waited``
+    counts the batches whose loads had not all finished when the loop
+    reached them), ``encode_images.dispatch`` (the encode and the copy
+    back enqueued), ``encode_images.drain`` (the wait for batch i-1's event
+    and its writes)."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
-    timer = timer or PhaseTimer(sync=False)
     loader_threads = loader_threads or min(8, os.cpu_count() or 1)
     stream = torch.cuda.Stream(dev) if cuda else None
     if cuda:        # the weights were made on the current stream
@@ -224,9 +228,9 @@ def encode_images(encode: Callable, packed: Packed, stems: Sequence[str],
               for _ in range(2)]
     outputs: List[Optional[torch.Tensor]] = [None, None]
 
-    def drain(pending):
+    def drain(pending, batch):
         chunk, in_sizes, orig_sizes, feats, done = pending
-        with timer.phase("fetch+write"):
+        with span("encode_images.drain", batch=batch):
             if done is not None:
                 done.synchronize()
             for i, stem in enumerate(chunk):
@@ -244,7 +248,9 @@ def encode_images(encode: Callable, packed: Packed, stems: Sequence[str],
         for idx, start in enumerate(it):
             chunk = stems[start:start + batch_size]
             imgs_h, sizes_h = inputs[idx % 2]
-            with timer.phase("load+resize"):
+            with span("encode_images.load_wait", batch=idx):
+                if active() and not all(fut.done() for fut in futs):
+                    count("encode_images.batches_waited")
                 imgs_h.zero_()
                 sizes_h.fill_(1)
                 in_sizes, orig_sizes = [], []
@@ -256,7 +262,7 @@ def encode_images(encode: Callable, packed: Packed, stems: Sequence[str],
                     orig_sizes.append(orig)
                 futs = [pool.submit(load_one, s)
                         for s in stems[start + batch_size:start + 2 * batch_size]]
-            with timer.phase("encode_dispatch"), \
+            with span("encode_images.dispatch", batch=idx), \
                     (torch.cuda.stream(stream) if cuda else contextlib.nullcontext()):
                 feats = encode(packed, imgs_h.to(dev, non_blocking=True),
                                sizes_h.to(dev, non_blocking=True))
@@ -269,16 +275,16 @@ def encode_images(encode: Callable, packed: Packed, stems: Sequence[str],
                     done = torch.cuda.Event()
                     done.record(stream)
             if pending is not None:
-                drain(pending)
+                drain(pending, idx - 1)
             pending = (chunk, in_sizes, orig_sizes, out_h, done)
         if pending is not None:
-            drain(pending)
+            drain(pending, idx)
 
 
 def precompute_embeddings(model: SamModel, image_files: Sequence, out_h5, checkpoint_name: str,
                           *, batch_size: int = 8, dtype=torch.bfloat16,
                           progress: bool = True, medsam: bool = False, resume: bool = False,
-                          timer: Optional[PhaseTimer] = None, quantize: Optional[str] = None,
+                          quantize: Optional[str] = None,
                           unroll_blocks: bool = False,
                           loader_threads: Optional[int] = None) -> None:
     """Encode every image file (grayscale PNG) with the serving encoder on the
@@ -289,8 +295,7 @@ def precompute_embeddings(model: SamModel, image_files: Sequence, out_h5, checkp
     ``medsam=True`` switches to the MedSAM preprocessing (cv2 cubic square
     resize, per-image min-max normalisation; reference
     generate_img_embeddings.py:49-64).  ``resume=True`` reopens an
-    interrupted run and skips the stems already stored.  ``timer`` (a
-    :class:`PhaseTimer`) accounts the load, encode and write phases;
+    interrupted run and skips the stems already stored.
     ``quantize="int8"`` selects the int8 serving mode; ``unroll_blocks`` is
     accepted and has no effect (module docstring).
 
@@ -318,7 +323,7 @@ def precompute_embeddings(model: SamModel, image_files: Sequence, out_h5, checkp
         encode_images(encode, packed, [s for s in files if s not in done],
                       lambda stem: load_image_gray(files[stem]), writer,
                       img_size=model.img_size, device=model.device, batch_size=batch_size,
-                      medsam=medsam, timer=timer, loader_threads=loader_threads,
+                      medsam=medsam, loader_threads=loader_threads,
                       progress=progress)
 
 

@@ -36,6 +36,7 @@ from samcarriestheburden_torch.ops.dice import jaccard_to_dice
 from samcarriestheburden_torch.ops.morphology import (dilation, erode_mask_with_disc_struct,
                                                       erosion, get_struct_element)
 from samcarriestheburden_torch.ops.random_walk import random_walk_probs
+from samcarriestheburden_torch.profiling import span
 
 
 class SegRefiner(ABC):
@@ -90,14 +91,18 @@ class SegEnhance:
         """``[self.enhance(s, f) for ...]`` over (N, C, H, W) probabilities,
         with the CCL of all N x C maps in one call.  Returns (refined
         (N, C, H, W) bool, est_dice (N, C)).  Needs a refiner with
-        ``refine_batch``."""
+        ``refine_batch``.  Spans: ``enhance.select`` (the selection: K8,
+        the components' counts, the keep mask), ``enhance.morph``, and the
+        refiner's."""
         segs = self._as_tensor(segs)
         if segs.ndim != 4:
             raise ValueError("segs should be 4D (N, C, H, W)")
         if self.ccl_selection is not None:
-            segs = remove_all_but_one_connected_component(segs, self.ccl_selection,
-                                                          max(segs.shape[-2:]))
-        self.last_preprocessed_seg = self._morph(segs)
+            with span("enhance.select"):
+                segs = remove_all_but_one_connected_component(segs, self.ccl_selection,
+                                                              max(segs.shape[-2:]))
+        with span("enhance.morph"):
+            self.last_preprocessed_seg = self._morph(segs)
         return self.refiner.refine_batch(segs, file_names)
 
 
@@ -180,27 +185,34 @@ class SamSegRefiner(SegRefiner):
         """Every class of N images: (N, C, H, W) masks, (N, 256, G, G)
         features, (N, 2) input and original sizes -> (refined (N, C, H, W)
         bool, est_dice (N, C)).  One decode per round over all N*C prompt
-        sets, one grid postprocess."""
+        sets, one grid postprocess.  Spans: ``enhance.prompts`` and
+        ``enhance.decode`` with ``round`` 1 and 2, ``enhance.postprocess``."""
         head = self.sam_predictor
         n, c = bool_mask.shape[:2]
-        arrays = extract_prompt_arrays(bool_mask)
-        neg_table, neg_valid = neg_seed_table(arrays["pos_seeds"], arrays["pos_valid"])
-        valid = arrays["pos_valid"]             # the reference skips seedless classes (:125)
-
-        coords, labels = self._build_prompts(arrays, neg_table, neg_valid,
-                                             self.prompts2use1st, seg_hw, input_size)
-        low_res, iou = head._decode(features, coords, labels, None, None, image_shared=True)
-        if self.self_refine:
+        with span("enhance.prompts", round=1):
+            arrays = extract_prompt_arrays(bool_mask)
+            neg_table, neg_valid = neg_seed_table(arrays["pos_seeds"], arrays["pos_valid"])
+            valid = arrays["pos_valid"]         # the reference skips seedless classes (:125)
             coords, labels = self._build_prompts(arrays, neg_table, neg_valid,
-                                                 self.prompts2use2nd, seg_hw, input_size)
-            use_mask = torch.ones((coords.shape[0],), dtype=torch.bool, device=coords.device)
-            low_res, iou = head._decode(features, coords, labels, low_res, use_mask)
+                                                 self.prompts2use1st, seg_hw, input_size)
+        with span("enhance.decode", round=1):
+            low_res, iou = head._decode(features, coords, labels, None, None, image_shared=True)
+        if self.self_refine:
+            with span("enhance.prompts", round=2):
+                coords, labels = self._build_prompts(arrays, neg_table, neg_valid,
+                                                     self.prompts2use2nd, seg_hw, input_size)
+                use_mask = torch.ones((coords.shape[0],), dtype=torch.bool,
+                                      device=coords.device)
+            with span("enhance.decode", round=2):
+                low_res, iou = head._decode(features, coords, labels, low_res, use_mask)
 
-        masks = postprocess_to_grid(low_res.reshape(n, c, *low_res.shape[1:]), input_size,
-                                    original_size, seg_hw, img_enc_size=head.img_enc_img_size,
-                                    mask_threshold=head.mask_threshold)
-        refined = torch.where(valid[..., None, None], masks[:, :, 0], bool_mask)
-        est_dice = torch.where(valid, jaccard_to_dice(iou[:, 0]).reshape(n, c), torch.nan)
+        with span("enhance.postprocess"):
+            masks = postprocess_to_grid(low_res.reshape(n, c, *low_res.shape[1:]), input_size,
+                                        original_size, seg_hw,
+                                        img_enc_size=head.img_enc_img_size,
+                                        mask_threshold=head.mask_threshold)
+            refined = torch.where(valid[..., None, None], masks[:, :, 0], bool_mask)
+            est_dice = torch.where(valid, jaccard_to_dice(iou[:, 0]).reshape(n, c), torch.nan)
         return refined, est_dice
 
     def _sizes(self, file_names: Sequence[str]):
@@ -220,13 +232,16 @@ class SamSegRefiner(SegRefiner):
     def refine_batch(self, segs, file_names: Sequence[str]):
         """(N, C, H, W) masks -> (refined (N, C, H, W) bool, est_dice (N, C)):
         the N feature maps and sizes read from the store, one batched
-        refinement (JAX ``refine_batch``)."""
+        refinement (JAX ``refine_batch``); the reads, their copies to the
+        device and the sizes are the span ``enhance.features``."""
         segs = torch.as_tensor(segs).to(self.device)
         reader = self.sam_predictor.reader
-        feats = torch.cat([torch.as_tensor(reader.features(f)).to(self.device, torch.float32)
-                           for f in file_names])
-        return self._refine_batched(segs.bool(), feats, *self._sizes(file_names),
-                                    tuple(segs.shape[-2:]))
+        with span("enhance.features"):
+            feats = torch.cat([torch.as_tensor(reader.features(f)).to(self.device,
+                                                                       torch.float32)
+                               for f in file_names])
+            sizes = self._sizes(file_names)
+        return self._refine_batched(segs.bool(), feats, *sizes, tuple(segs.shape[-2:]))
 
 
 # ---------------------------------------------------------------------------

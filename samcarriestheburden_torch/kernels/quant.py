@@ -40,6 +40,7 @@ import torch
 
 from samcarriestheburden_torch.kernels import (LAUNCHES, build, check_cuda, ptr,
                                                raise_on_error, stream)
+from samcarriestheburden_torch.profiling import span
 
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -201,42 +202,44 @@ def ln_mlp_residual_int8_plain(x, ln_weight, ln_bias, w1q, s1, b1, w2q, s2, b2,
 
 def ln_mlp_residual_int8(x, ln_weight, ln_bias, w1q, s1, b1, w2q, s2, b2,
                          add=None, eps: float = 1e-6, gelu: str = "poly"):
-    """K4: plain version for a CPU tensor, the CUDA kernel for a CUDA tensor."""
+    """K4: plain version for a CPU tensor, the CUDA kernel for a CUDA tensor;
+    a launch is the span ``kernels.K4`` (``profiling.span``)."""
     if gelu not in GELU_IMPLS:
         raise ValueError(f"gelu must be one of {GELU_IMPLS}, got {gelu!r}")
     if x.device.type == "cpu":
         return ln_mlp_residual_int8_plain(x, ln_weight, ln_bias, w1q, s1, b1,
                                           w2q, s2, b2, add, eps, gelu)
-    t, e = x.shape
-    m = w1q.shape[0]
-    bf = torch.bfloat16
-    check_cuda("x", x, (t, e), bf)
-    if add is not None:
-        check_cuda("add", add, (t, e), bf)
-    check_cuda("ln_weight", ln_weight, (e,), torch.float32)
-    check_cuda("ln_bias", ln_bias, (e,), torch.float32)
-    check_cuda("w1q", w1q, (m, e), torch.int8)
-    check_cuda("s1", s1, (m,), torch.float32)
-    check_cuda("b1", b1, (m,), torch.float32)
-    check_cuda("w2q", w2q, (e, m), torch.int8)
-    check_cuda("s2", s2, (e,), torch.float32)
-    check_cuda("b2", b2, (e,), torch.float32)
-    if e % 16 or m % 16:
-        raise ValueError(f"K4 needs E and M divisible by 16, got {e}, {m}")
-    dev = x.device
-    xq = torch.empty((t, e), dtype=torch.int8, device=dev)
-    sx = torch.empty((t,), dtype=torch.float32, device=dev)
-    hidden = torch.empty((t, m), dtype=torch.float32, device=dev)
-    hmax = torch.empty((t,), dtype=torch.float32, device=dev)
-    hq = torch.empty((t, m), dtype=torch.int8, device=dev)
-    out = torch.empty_like(x)
-    code = _lib().k4_ln_mlp_residual_int8(
-        ptr(x), ptr(add), ptr(ln_weight), ptr(ln_bias), ptr(w1q), ptr(s1), ptr(b1),
-        ptr(w2q), ptr(s2), ptr(b2), ptr(xq), ptr(sx), ptr(hidden), ptr(hmax),
-        ptr(hq), ptr(out), t, e, m, eps, GELU_IMPLS.index(gelu), stream())
-    raise_on_error("K4 ln_mlp_residual_int8", code)
-    LAUNCHES["K4"] += 1
-    return out
+    with span("kernels.K4"):
+        t, e = x.shape
+        m = w1q.shape[0]
+        bf = torch.bfloat16
+        check_cuda("x", x, (t, e), bf)
+        if add is not None:
+            check_cuda("add", add, (t, e), bf)
+        check_cuda("ln_weight", ln_weight, (e,), torch.float32)
+        check_cuda("ln_bias", ln_bias, (e,), torch.float32)
+        check_cuda("w1q", w1q, (m, e), torch.int8)
+        check_cuda("s1", s1, (m,), torch.float32)
+        check_cuda("b1", b1, (m,), torch.float32)
+        check_cuda("w2q", w2q, (e, m), torch.int8)
+        check_cuda("s2", s2, (e,), torch.float32)
+        check_cuda("b2", b2, (e,), torch.float32)
+        if e % 16 or m % 16:
+            raise ValueError(f"K4 needs E and M divisible by 16, got {e}, {m}")
+        dev = x.device
+        xq = torch.empty((t, e), dtype=torch.int8, device=dev)
+        sx = torch.empty((t,), dtype=torch.float32, device=dev)
+        hidden = torch.empty((t, m), dtype=torch.float32, device=dev)
+        hmax = torch.empty((t,), dtype=torch.float32, device=dev)
+        hq = torch.empty((t, m), dtype=torch.int8, device=dev)
+        out = torch.empty_like(x)
+        code = _lib().k4_ln_mlp_residual_int8(
+            ptr(x), ptr(add), ptr(ln_weight), ptr(ln_bias), ptr(w1q), ptr(s1), ptr(b1),
+            ptr(w2q), ptr(s2), ptr(b2), ptr(xq), ptr(sx), ptr(hidden), ptr(hmax),
+            ptr(hq), ptr(out), t, e, m, eps, GELU_IMPLS.index(gelu), stream())
+        raise_on_error("K4 ln_mlp_residual_int8", code)
+        LAUNCHES["K4"] += 1
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,7 @@ from samcarriestheburden_torch.ops.dice import multilabel_dice
 from samcarriestheburden_torch.parallel import distributed as pdist
 from samcarriestheburden_torch.parallel import mesh as pmesh
 from samcarriestheburden_torch.parallel.mesh import Mesh
+from samcarriestheburden_torch.profiling import span
 from samcarriestheburden_torch.train.augment import random_theta, warp_affine
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
@@ -220,10 +221,14 @@ class UNetTrainer:
         return flat[offset]
 
     def train_step(self, xd: torch.Tensor, yd: torch.Tensor, idx: torch.Tensor,
-                   theta: torch.Tensor, lr: float):
-        """Gather the batch ``idx`` on the device, augment, step (one process)."""
-        x, y = self.augment(xd[idx], yd[idx].float(), theta)
-        return self.step(x, y, lr)
+                   theta: torch.Tensor, lr: float, batch: Optional[int] = None):
+        """Gather the batch ``idx`` on the device, augment, step (one
+        process); the spans ``trainer.augment`` and ``trainer.step`` with
+        the step's index ``batch``."""
+        with span("trainer.augment", batch=batch):
+            x, y = self.augment(xd[idx], yd[idx].float(), theta)
+        with span("trainer.step", batch=batch):
+            return self.step(x, y, lr)
 
     # ------------------------------------------------------------------
 
@@ -304,34 +309,48 @@ class UNetTrainer:
         """One epoch (``sample_order``): returns the mean step loss and the
         (samples, C) Dice rows.  ``epoch_scan`` augments the whole epoch
         before its steps and reads the losses back once; the per-step path
-        reads each step's; both give the same numbers."""
+        reads each step's; both give the same numbers.  Spans:
+        ``trainer.plan`` (the order, the learning rate, the θ draws, the
+        index upload), then per step ``trainer.augment`` and
+        ``trainer.step`` (``batch``: the step's index in the epoch), and
+        ``trainer.readback`` (the losses and Dice rows to the host)."""
         cfg = self.cfg
-        order = sample_order(cfg, len(x), epoch)
-        lr = self.lr_at(epoch)
-        xd, yd = self.device_data(x, y)
-        gen = augment_generator(cfg, epoch)
-        batches = [order[i:i + cfg.batch_size] for i in range(0, len(order), cfg.batch_size)]
-        thetas = self.batch_thetas(gen, batches)
+        with span("trainer.plan", batch=epoch):
+            order = sample_order(cfg, len(x), epoch)
+            lr = self.lr_at(epoch)
+            xd, yd = self.device_data(x, y)
+            gen = augment_generator(cfg, epoch)
+            batches = [order[i:i + cfg.batch_size]
+                       for i in range(0, len(order), cfg.batch_size)]
+            thetas = self.batch_thetas(gen, batches)
+            if self.mesh is None:
+                idx_all = torch.from_numpy(np.concatenate(batches).astype(np.int64)).to(
+                    self.device)
+                idxs = torch.split(idx_all, [len(b) for b in batches])
+                if self.epoch_scan:
+                    theta_all = torch.cat(thetas).to(self.device)
+                    thetas = torch.split(theta_all, [len(b) for b in batches])
         if self.mesh is not None:
             return self._train_epoch_mesh(xd, yd, batches, thetas, lr, epoch)
-        idx_all = torch.from_numpy(np.concatenate(batches).astype(np.int64)).to(self.device)
-        idxs = torch.split(idx_all, [len(b) for b in batches])
         if self.epoch_scan:
-            theta_all = torch.cat(thetas).to(self.device)
-            thetas_d = torch.split(theta_all, [len(b) for b in batches])
-            augmented = []
-            for idx, theta in zip(idxs, thetas_d):
-                xa, ya = self.augment(xd[idx], yd[idx].float(), theta)
-                augmented.append((xa, ya.to(torch.uint8)))   # integer labels: exact
-            out = [self.step(xa, ya.float(), lr) for xa, ya in augmented]
-            losses = torch.stack([loss for loss, _ in out]).cpu().tolist()
-            dice_rows = [dice.cpu().numpy() for _, dice in out]
+            augmented, out = [], []
+            for i, (idx, theta) in enumerate(zip(idxs, thetas)):
+                with span("trainer.augment", batch=i):
+                    xa, ya = self.augment(xd[idx], yd[idx].float(), theta)
+                    augmented.append((xa, ya.to(torch.uint8)))   # integer labels: exact
+            for i, (xa, ya) in enumerate(augmented):
+                with span("trainer.step", batch=i):
+                    out.append(self.step(xa, ya.float(), lr))
+            with span("trainer.readback", batch=epoch):
+                losses = torch.stack([loss for loss, _ in out]).cpu().tolist()
+                dice_rows = [dice.cpu().numpy() for _, dice in out]
         else:
             losses, dice_rows = [], []
-            for idx, theta in zip(idxs, thetas):
-                loss, dice = self.train_step(xd, yd, idx, theta, lr)
-                losses.append(float(loss))
-                dice_rows.append(dice.cpu().numpy())
+            for i, (idx, theta) in enumerate(zip(idxs, thetas)):
+                loss, dice = self.train_step(xd, yd, idx, theta, lr, i)
+                with span("trainer.readback", batch=i):
+                    losses.append(float(loss))
+                    dice_rows.append(dice.cpu().numpy())
         self.epoch = epoch + 1
         return float(np.mean(losses)), np.concatenate(dice_rows)
 
@@ -340,15 +359,18 @@ class UNetTrainer:
         padded global batch (θ: the global draw's rows, identity on the pad
         rows), the loss and the Dice rows of the whole batch on every rank."""
         losses, dice_rows = [], []
-        for b, theta in zip(batches, thetas):
+        for i, (b, theta) in enumerate(zip(batches, thetas)):
             idx_p, mine, w, w_total, n_valid = self.local_batch(b)
             theta_p = torch.cat([theta, torch.eye(2, 3)[None].expand(
                 len(idx_p) - len(b), 2, 3)])
             xb, yb = self.gather_rows(xd, yd, idx_p, mine)
-            xa, ya = self.augment(xb, yb.float(), theta_p[mine])
-            loss, dice = self.step(xa, ya, lr, w, w_total)
-            losses.append(float(loss))
-            dice_rows.append(self.global_rows(dice, n_valid).cpu().numpy())
+            with span("trainer.augment", batch=i):
+                xa, ya = self.augment(xb, yb.float(), theta_p[mine])
+            with span("trainer.step", batch=i):
+                loss, dice = self.step(xa, ya, lr, w, w_total)
+            with span("trainer.readback", batch=i):
+                losses.append(float(loss))
+                dice_rows.append(self.global_rows(dice, n_valid).cpu().numpy())
         self.epoch = epoch + 1
         return float(np.mean(losses)), np.concatenate(dice_rows)
 
@@ -390,25 +412,21 @@ class UNetTrainer:
 def train_unet(train_data, val_data, unet_cfg: UNetConfig, train_cfg: TrainConfig,
                logger=None, bone_labels=None, init_params=None, mesh=None,
                progress: bool = False, checkpoint_dir=None,
-               checkpoint_every: int = 50, timer=None, device=None) -> Tuple[UNet, List[Dict]]:
+               checkpoint_every: int = 50, device=None) -> Tuple[UNet, List[Dict]]:
     """The whole training run (reference training.py:64-72).
 
     train_data/val_data: (images (N,1,H,W) f32 in [0,1], masks (N,C,H,W)).
     ``checkpoint_dir`` enables a checkpoint every ``checkpoint_every`` epochs
     and at the end, and resumes from its latest (absent in the reference,
-    SURVEY §5).  ``timer`` (a ``profiling.PhaseTimer``) accounts the
-    ``train_epoch`` and ``evaluate`` phases.  ``device`` None: the card (on
-    a ``mesh``: the mesh's).  On a mesh the checkpoints and the logger write
-    on rank 0 only, and the other ranks wait for each checkpoint at a
-    barrier; every rank resumes from the same file and returns the same
-    model.  Returns (the trained U-Net, history).
+    SURVEY §5).  Each epoch is the span ``train_unet.epoch`` and its
+    evaluation ``train_unet.evaluate`` (``batch``: the epoch).  ``device``
+    None: the card (on a ``mesh``: the mesh's).  On a mesh the checkpoints
+    and the logger write on rank 0 only, and the other ranks wait for each
+    checkpoint at a barrier; every rank resumes from the same file and
+    returns the same model.  Returns (the trained U-Net, history).
     """
     from samcarriestheburden_torch.train import checkpoint as ckpt
 
-    if timer is None:
-        from samcarriestheburden_torch.profiling import PhaseTimer
-
-        timer = PhaseTimer(sync=False)  # accounting nobody reads
     trainer = UNetTrainer(unet_cfg, train_cfg, init_params=init_params, mesh=mesh,
                           device=device)
     start_epoch = 0
@@ -425,9 +443,9 @@ def train_unet(train_data, val_data, unet_cfg: UNetConfig, train_cfg: TrainConfi
         from tqdm import tqdm
         epochs = tqdm(epochs, desc="training", total=train_cfg.epochs, initial=start_epoch)
     for epoch in epochs:
-        with timer.phase("train_epoch"):
+        with span("train_unet.epoch", batch=epoch):
             tr_loss, tr_dice = trainer.train_epoch(x_tr, y_tr, epoch)
-        with timer.phase("evaluate"):
+        with span("train_unet.evaluate", batch=epoch):
             va_loss, va_dice = trainer.evaluate(x_va, y_va)
         rec = {"epoch": epoch, "train_bce": tr_loss,
                "train_dice": float(np.nanmean(tr_dice)),

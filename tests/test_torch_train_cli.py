@@ -88,7 +88,7 @@ def test_train_then_train_on_pseudo_labels(in_data_root):
     assert isinstance(model_id, str) and len(model_id) == 32
     assert (in_data_root / "model_registry" / model_id / "model.npz").exists()
     phases = json.loads(Path("runs/prof_test/phases.json").read_text())
-    assert phases["train_epoch"]["count"] == 2 and phases["evaluate"]["count"] == 2
+    assert phases["train_unet.epoch"]["count"] == 2 and phases["train_unet.evaluate"]["count"] == 2
     run = next(Path("runs").glob("Kids Bone Checker_Bone segmentation_fewer samples/*"))
     scalars = [json.loads(line) for line in (run / "scalars.jsonl").read_text().splitlines()]
     assert {s["title"] for s in scalars} == {"BCE", "Dice", "Learning rate"}
