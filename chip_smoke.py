@@ -4,14 +4,14 @@
     python3 chip_smoke.py
 
 1. builds the port's CUDA kernels (K1, K2, K3, K4, K5, K6, K7, K7-int8,
-   K7-pv, K7-int8pv, K8, K9, K10, K11, K12, K13, K14, K15, K16) from
+   K7-pv, K7-int8pv, K8, K9, K10, K11, K12, K13, K14, K15, K16, D1) from
    ``samcarriestheburden_torch/csrc``, one ``nvcc`` per source, all at once,
    and prints each instance of the global attention kernel
    (``csrc/global_attention.cuh``) with its registers and spills as ``-Xptxas
    -v`` reports them and the shared memory its launch asks for; the GEMM
    sources (``gemm``, ``quant``, ``mlp``: the TMA + wgmma mainloop of
    ``csrc/gemm_sm90.cuh``) and the global kernel's int8 p.v instances (K7-pv,
-   K7-int8pv) and K12 (``block_attention``) must build without a spill and
+   K7-int8pv), K12 (``block_attention``) and D1 (``decoder``) must build without a spill and
    without ptxas serializing their wgmma (warning C7520; K12 also C7518,
    and a stack frame above ``K12_MAX_STACK``),
    each of the GEMM kernels' and K12's SASS must hold HGMMA or IGMMA and each
@@ -21,12 +21,21 @@
    compact_windows=False)`` on two padded 1024x1024 uint8 images (input size
    1024x716), then the 17-class two-round refinement decode and
    ``postprocess_masks`` on each embedding; launches K1 32, K3 32, K5 28,
-   K7 4 and no other;
+   K7 4, D1 4 a decode (two rounds of two fp32 decoder blocks) and no other;
+   here and wherever an fp32 decode runs on the card (the enhance path, the
+   int8 and compact embed paths, the pipeline sweeps, the predictor and
+   AMG, 4o's ranks' sweeps, 4p's eager program, 4q's tools) the program's
+   counter ``decode.i2t_plain`` must read 0 (``fused_decodes``): every
+   two-way block took D1;
 3. drives the enhance path once: ``SegEnhance.enhance_batch`` with
    ``SamSegRefiner`` (box, then points with round 1's logits) over 16
    images of 17 seeded U-Net-like probability maps on the 384x224 grid,
-   reading the two embeddings just made and 14 seeded ones; K8 must have
-   launched in that run;
+   reading the two embeddings just made and 14 seeded ones; K8 and D1 must
+   have launched in that run; D1 then against its plain version at the
+   refine cell's shapes (``phase_d1``: 16 x 17 items, 4096 rows of 256; Nq 7
+   shared by G = 17, Nq 23 with G = 1, channel-major and contiguous rows),
+   the same bits in three calls, its ms beside its bound, the plain
+   version's and the unfused branch's;
 4. drives the flat int8 embed path once: ``make_serving_encoder(model,
    torch.bfloat16, quantize="int8", compact_windows=False)`` (weights
    prequantized once) on the same two images, then the same decode of its
@@ -127,7 +136,7 @@
    grid, card (TF32 convolutions, PyTorch's default) against CPU (fp32)
    within ``UNET_TOL``; ``cli/save_refined_segmentations.py:refine_images``
    at ``--img_batch`` 8 over the same 24 stems on those embeddings (K8 once
-   per batch and nothing else of the port's), the written masks (bit-packed
+   and D1 four times per batch, nothing else of the port's), the written masks (bit-packed
    on the card, unpacked on the host) and Dice bit for bit
    ``SegEnhance.enhance_batch`` on the same probability maps; the same two
    steps in int8 (K2 = K4 96, K5 84, K6 168, K7-int8 12), and int8's drift
@@ -163,7 +172,8 @@
    kernels line gets K8 at its first image's maps (path ``rndwalk_enhance``);
 4n. drives the predictor and AMG on ViT-H (seeded weights, bf16 encoder
    kernels, fp32 decoder) over one seeded 1024x716 RGB image at 32 points a
-   side, counted (K1 = K3 = 32, K5 28, K6 56, K7 4, no other: one encode):
+   side, counted (K1 = K3 = 32, K5 28, K6 56, K7 4: one encode; D1 two a
+   decode call; no other):
    at the defaults (with random weights no mask passes them), with the
    thresholds at 0 and small regions of AMG_MIN_AREA (every mask to NMS,
    RLE and the regions; the device NMS against a host brute force on the
@@ -199,7 +209,8 @@
    bit and at 2 x MP_BATCH within the encoder's tolerance; images/s of both
    ranks against one process over MP_TIMED images, with idle shares; the
    sweep (``refine_images`` at --img_batch 8) over each rank's half of
-   MP_SWEEP seeded maps on those embeddings (K8 once a batch a rank), the
+   MP_SWEEP seeded maps on those embeddings (K8 once and D1 four times a
+   batch a rank), the
    union of masks and ``estimated_dice`` bit for bit one process's; ccl's
    ``method="scan"`` (plain PyTorch) to the fixpoint on one process's K8
    maps, K8's labels bit for bit; then a one-rank NCCL group on the card
@@ -208,19 +219,24 @@
    the kernels line's pipeline rows get each rank's launches
    (``rank_launches``);
 4p. the decoder export (``samcarriestheburden_torch/export/``), counted (no
-   kernel of the port may launch): the ViT-H decoder (seeded weights)
+   kernel of the port but D1, two a call of the card's fp32 eager program;
+   the artifacts launch none): the ViT-H decoder (seeded weights)
    exported on the card through ``torch.export`` with symbolic batch and
    point axes, best mask and extra metrics; the loaded artifact at (17, 2)
    (one image's 17 boxes as corner points labelled 2 and 3) and at (272, 5)
    (16 images x 17 classes of points, half with a mask prompt) against the
-   eager program within EXPORT_TOL (the CLI's ``--validate`` contract), the
-   pre-padding size and the areas exact; the card's artifact at (17, 2)
+   eager program with the decoder blocks' unfused image-to-token branch (the
+   arithmetic the export traced; the blocks' dispatch patched in this
+   phase) within EXPORT_TOL (the
+   CLI's ``--validate`` contract), the pre-padding size and the areas exact,
+   and against the card's own eager program (D1) within EXPORT_TOL, the
+   areas included; the card's artifact at (17, 2)
    against the same program on the CPU within DECODE_RTOL (the areas within
    DECODE_RTOL of the frame's pixels); the bf16 and int8 artifacts' masks
    at (17, 2) at least EXPORT_AGREE equal to fp32's; the ONNX graph built
    on the host from the same weights, evaluated by ``onnx_eval`` at (2, 3)
    against the CPU program within ONNX_TOL; the artifact's and the eager
-   program's ms at (272, 2) (CUDA events);
+   program's ms (unfused and with D1) at (272, 2) (CUDA events);
 4q. the tools of ``samcarriestheburden_torch/tools/`` that profile and time
    the port's paths, each once at short settings on the ViT-H model:
    ``exp_ccl`` (K8, pool, scan: the labels equal), ``profile_enhance``
@@ -230,7 +246,8 @@
    on and off: the compact embedding the serving default's bit for bit, the
    others within the tolerances the layouts are held to here),
    ``rect_overhead`` (K6 on the serving path's edge groups) and
-   ``bench_configs --smoke`` (every key of the JAX tool's JSON);
+   ``bench_configs --smoke`` (vit_t with SAM's decoder widths: every key of the
+   JAX tool's JSON);
 5. holds each kernel against its plain PyTorch version on the card, on the
    inputs each of its paths gives it (the flat rows and windows; the
    compact stream's: K1-K4 on 8416 rows, K5 on 32 windows and K6, both
@@ -269,6 +286,7 @@ phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -284,6 +302,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_FP32_FLOPS = 67e12          # fp32 outside the tensor cores: D1's bound
 
 B = 2                        # images per encoder call
 INPUT_HW = (1024, 716)       # resized-longest-side input inside the 1024^2 pad
@@ -718,7 +737,12 @@ KERNELS = {  # name: (path, source, replaced TPU kernel)
                    "tools/exp_attn2.py:228"),
     "K16-noexp": ("attn-tools", "samcarriestheburden_torch/csrc/window_attention.cuh",
                   "tools/exp_attn2.py:228"),
+    "D1": ("enhance", "samcarriestheburden_torch/csrc/decoder.cu",
+           "none (XLA in the JAX package: models/transformer.py, image-to-token step)"),
 }
+# D1 launches per fp32 decode call (one per two-way block) and per two-round decode
+D1_PER_DECODE = 2
+D1_PER_TWO_ROUNDS = 2 * D1_PER_DECODE
 # the window kernel's source: K9, K16-v1 and K16-v3 run it on a sequence of at
 # most WINDOW_ROWS rows (their KERNELS source is the longer sequences')
 WINDOW_SOURCE = "samcarriestheburden_torch/csrc/window_attention.cuh"
@@ -762,6 +786,25 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def check_fused(counters: dict, what: str) -> None:
+    """Every two-way block call of an fp32 decode on the card took D1: the
+    program's counter ``decode.i2t_plain`` 0 and ``decode.i2t_fused`` above 0."""
+    fused, plain = (counters.get(f"decode.i2t_{r}", 0) for r in ("fused", "plain"))
+    check(plain == 0 and fused > 0, f"{what}: {plain} two-way block calls took the unfused "
+          f"image-to-token branch, {fused} took D1")
+
+
+@contextlib.contextmanager
+def fused_decodes(what: str):
+    """The program's counters recorded over the block
+    (``profiling.recording``), then :func:`check_fused`."""
+    from samcarriestheburden_torch.profiling import recording
+
+    with recording() as rec:
+        yield rec
+    check_fused(rec.counters, what)
 
 
 def card_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
@@ -1468,6 +1511,9 @@ def phase_build(build) -> dict:
         spills = [line.strip() for line in lines if "spill" in line
                   and "0 bytes spill stores, 0 bytes spill loads" not in line]
         check(not spills, f"{name}.cu spills: {spills}")
+    spills = [line.strip() for line in logs["decoder"].splitlines() if "spill" in line
+              and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    check(not spills, f"decoder.cu (D1) spills: {spills}")
     frames = stack_frames(logs["block_attention"], "block_attention_kernel")
     log(f"stack frames of block_attention.cu's instances (bytes): {frames}")
     check(len(frames) == 3 and max(frames.values()) <= K12_MAX_STACK,
@@ -1862,6 +1908,76 @@ def k8_numbers(torch, kccl, mask, cap, check_every, steps, err) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
+#: D1 against its plain version on the card (cuBLAS fp32 products): the sums run
+#: in other orders, so the LayerNorm'd rows (|y| up to ~5) part by a few fp32 ulps
+D1_TOL = 2e-5
+#: the refine cell's four decoder blocks at 16 images x 17 classes: (G items
+#: sharing an image row, Nq tokens, layout of the image rows)
+D1_CASES = ((17, 7, "channel_major"), (1, 7, "contiguous"), (1, 23, "channel_major"),
+            (1, 23, "contiguous"))
+
+
+def phase_d1(torch, model, launches: int) -> list:
+    """D1 at the refine cell's shapes (``D1_CASES``; 4096 rows of 256) with
+    the ViT-H decoder's second block's weights: against its plain version
+    within ``D1_TOL``, the same bits in three calls, its ms beside its bound
+    (the two projections and the attention at ``PEAK_FP32_FLOPS``; its 2.3 GB
+    of rows take 0.7 ms), the plain version's and the unfused branch's (the
+    block's code, which the bf16 decode and the CPU still run).  Returns the
+    kernels line's rows."""
+    from samcarriestheburden_torch.kernels import decoder
+    from samcarriestheburden_torch.models.common import norm
+
+    dev = model.device
+    blk = model.mask_decoder.transformer.layers[1]
+    attn, n4, w = blk.cross_attn_image_to_token, blk.norm4, blk._i2t_weights()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    b, hw, c, d = ENHANCE_N * 17, 4096, 256, 128
+    rows = []
+    with torch.no_grad():
+        for g, nq, layout in D1_CASES:
+            n_img = b // g
+            keys = torch.randn((n_img, c, 64, 64), generator=gen, device=dev).flatten(2) \
+                .transpose(1, 2)
+            if layout == "contiguous":
+                keys = keys.contiguous()
+            key_pe = torch.randn((1, hw, c), generator=gen, device=dev)
+            queries = torch.randn((b, nq, c), generator=gen, device=dev)
+            query_pe = torch.randn((b, nq, c), generator=gen, device=dev)
+            ops = (keys, key_pe, queries, query_pe)
+            want = decoder.image_to_token_plain(*ops, w)
+            outs = [decoder.image_to_token(*ops, w) for _ in range(3)]
+            torch.cuda.synchronize()
+            same = all(torch.equal(o, outs[0]) for o in outs[1:])
+            err = (outs[0] - want).abs().max().item()
+            del outs, want
+
+            def unfused():
+                k, q = keys + key_pe, queries + query_pe
+                if g == 1:
+                    return norm(n4, keys + attn(k, q, queries))
+                return norm(n4, keys.repeat_interleave(g, dim=0)
+                            + attn.forward_shared_queries(k, q, queries))
+
+            flops = n_img * hw * 2 * c * d + b * hw * (2 * d * c + 4 * d * nq)
+            row = {"name": "D1", "path": "enhance", "shape": [b, hw, c, nq, g, layout],
+                   "route": "cuda", "source": KERNELS["D1"][1], "replaces": KERNELS["D1"][2],
+                   "launches": launches, "max_abs_err": err, "same_bits": same,
+                   "ms": card_ms(torch, lambda: decoder.image_to_token(*ops, w)),
+                   "plain_ms": card_ms(torch, lambda: decoder.image_to_token_plain(*ops, w),
+                                       iters=3, warmup=1),
+                   "bound_ms": flops / PEAK_FP32_FLOPS * 1e3, "bound_by": "operations",
+                   "unfused_ms": card_ms(torch, unfused, iters=3, warmup=1)}
+            log(f"D1 G={g} Nq={nq} {layout}: max abs err {err:.4g} (tol {D1_TOL}), same bits "
+                f"in three calls {same}; {row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, "
+                f"plain {row['plain_ms']:.4f}, unfused branch {row['unfused_ms']:.4f})")
+            check(same, f"D1 G={g} Nq={nq} {layout} gave other bits on the same inputs")
+            check(err <= D1_TOL, f"D1 G={g} Nq={nq} {layout} off its plain version by {err}")
+            rows.append(row)
+            del ops, keys, queries, query_pe
+    return rows
+
+
 def enhance_modules():
     """The port's enhance path, as one namespace."""
     from types import SimpleNamespace
@@ -1926,7 +2042,8 @@ def phase_enhance(torch, np, port, model, emb, embed_ips: float):
     try:
         port.kernels.reset_launches()
         t0 = time.perf_counter()
-        refined, est = enh.enhance_batch(probs, stems)
+        with fused_decodes("enhance path (fp32)"):
+            refined, est = enh.enhance_batch(probs, stems)
         torch.cuda.synchronize()
         t_once = time.perf_counter() - t0
         launches = dict(port.kernels.LAUNCHES)
@@ -3273,7 +3390,7 @@ def phase_embed_int8(torch, kernels, cfg, model, make_serving_encoder, two_round
     n_global = len(enc.global_attn_indexes)
     want = dict.fromkeys(launches, 0)
     want.update({"K2": enc.depth, "K4": enc.depth, "K5": enc.depth - n_global,
-                 "K7-int8": n_global})
+                 "K7-int8": n_global, "D1": D1_PER_TWO_ROUNDS * B})
     check(launches == want, f"int8 embed path launches {launches}, expected {want}")
 
     g = cfg.prompt_encoder.image_embedding_size
@@ -3337,6 +3454,7 @@ def phase_embed_compact(torch, kernels, cfg, model, make_serving_encoder, two_ro
     want.update({"K5": n_windowed, "K6": 2 * n_windowed})   # two edge groups at 64x64, ws=14
     want.update({"K2": enc.depth, "K4": enc.depth, "K7-int8": n_global} if quantize else
                 {"K1": enc.depth, "K3": enc.depth, "K7": n_global})
+    want["D1"] = D1_PER_TWO_ROUNDS * B
     check(launches == want, f"{what} embed path launches {launches}, expected {want}")
 
     g = cfg.prompt_encoder.image_embedding_size
@@ -3844,7 +3962,7 @@ def phase_pipeline_precompute(torch, np, kernels, pipe, model, make_serving_enco
 
 def phase_pipeline_sweep(torch, np, port, pipe, model, unet, store, inputs, what: str):
     """One refinement sweep of the pipeline path over ``store``'s embeddings,
-    counted (K8 once per batch and nothing else of the port's); the written
+    counted (K8 once per batch, D1 four times, nothing else of the port's); the written
     masks (bit-packed on the card, unpacked on the host, through the
     in-memory writer) and Dice against ``SegEnhance.enhance_batch`` called
     directly on the same probability maps, bit for bit; then its images/s,
@@ -3887,7 +4005,7 @@ def phase_pipeline_sweep(torch, np, port, pipe, model, unet, store, inputs, what
         enh.enhance_batch = direct
     n_batches = -(-len(stems) // PIPE_BATCH)
     want = dict.fromkeys(launches, 0)
-    want["K8"] = n_batches
+    want.update({"K8": n_batches, "D1": D1_PER_TWO_ROUNDS * n_batches})
     log(f"{what} launches: {launches} ({t_once * 1e3:.1f} ms for {len(stems)} images, "
         f"first counted call)")
     check(launches == want, f"{what} launches {launches}, expected {want}")
@@ -3916,6 +4034,7 @@ def phase_pipeline_sweep(torch, np, port, pipe, model, unet, store, inputs, what
     with pipe.recording() as rec:
         sweep()
     ips = len(stems) / (time.perf_counter() - t0)
+    check_fused(rec.counters, what)
     log(f"{what}: {ips:.3f} images/s through refine_images (img_batch {PIPE_BATCH})")
     log(f"{what} spans (host clock): {json.dumps(rec.summary())}")
     idle = phase_profile(torch, sweep, what, top=8)
@@ -4443,7 +4562,8 @@ def phase_amg(torch, np, kernels, rw, model, cfg):
         return encode(packed, imgs, sizes)
 
     gen.predictor._encode = recorded_encode
-    gen.generate(image)                                  # warm-up: the decoder's libraries
+    with fused_decodes("AMG generate"):
+        gen.generate(image)                              # warm-up: the decoder's libraries
     torch.cuda.synchronize()
 
     # the phases of one run: the encode, the device legs (CUDA events), the
@@ -4502,10 +4622,12 @@ def phase_amg(torch, np, kernels, rw, model, cfg):
     n_windowed = enc.depth - len(enc.global_attn_indexes)
     log(f"amg predictor launches: {launches}")
     check(len(enc_inputs) == 1, f"one image must be encoded once, not {len(enc_inputs)} times")
-    others = {k: v for k, v in launches.items() if k not in ("K1", "K3", "K5", "K6", "K7")}
+    others = {k: v for k, v in launches.items()
+              if k not in ("K1", "K3", "K5", "K6", "K7", "D1")}
     check(launches["K1"] == launches["K3"] == enc.depth and launches["K5"] == n_windowed
           and launches["K7"] == len(enc.global_attn_indexes)
-          and launches["K6"] == 2 * n_windowed and not any(others.values()),
+          and launches["K6"] == 2 * n_windowed and not any(others.values())
+          and launches["D1"] > 0 and launches["D1"] % D1_PER_DECODE == 0,
           f"amg predictor launches {launches}: expected K1 = K3 = {enc.depth}, K5 = "
           f"{n_windowed}, K6 = {2 * n_windowed} (the two edge strips of each windowed "
           f"block), K7 = {len(enc.global_attn_indexes)}, no other")
@@ -5001,8 +5123,8 @@ def mp_precompute_checks(torch, np, mp, pipe, model, make_serving_encoder, recs,
 
 
 def mp_sweep_checks(torch, np, port, mp, pipe, model, emb, recs, out, pre):
-    """4o's sweep: each rank's launches (K8 once per batch, nothing else of
-    the port's); the union of masks and ``estimated_dice`` against one
+    """4o's sweep: each rank's launches (K8 once per batch, D1 four times,
+    nothing else of the port's); the union of masks and ``estimated_dice`` against one
     process (over ``emb``, its embeddings), bit for bit; then
     ``method="scan"`` on the one process's K8 maps against K8's labels at
     the fixpoint.  Returns the ranks' sweep launches and the numbers."""
@@ -5014,8 +5136,10 @@ def mp_sweep_checks(torch, np, port, mp, pipe, model, emb, recs, out, pre):
         rec = next(r for r in rs if r["job"] == "sweep")
         log(f"4o sweep rank {rank}: {rec['stems']} in {rec['batches']} batch(es), launches "
             f"{rec['launches']}")
-        check(rec["launches"] == {"K8": rec["batches"]} and rec["stems"] == stems[rank::2],
+        check(rec["launches"] == {"K8": rec["batches"], "D1": D1_PER_TWO_ROUNDS * rec["batches"]}
+              and rec["stems"] == stems[rank::2],
               f"4o sweep rank {rank}: launches {rec['launches']}, stems {rec['stems']}")
+        check_fused(rec["counters"], f"4o sweep rank {rank}")
         launches.append(rec["launches"])
         with np.load(Path(out) / f"sweep_rank{rank}.npz") as f:
             union_m.update({k[2:]: f[k] for k in f.files if k.startswith("m_")})
@@ -5104,9 +5228,11 @@ def phase_export(torch, np, kernels, model) -> dict:
     """4p (module docstring).  Returns its numbers."""
     import tempfile
     from types import SimpleNamespace
+    from unittest import mock
 
     from samcarriestheburden_torch.config import N_CLASSES
     from samcarriestheburden_torch.export import onnx_eval, onnx_graph, program
+    from samcarriestheburden_torch.kernels import decoder
 
     t_phase = time.perf_counter()
     dev = model.device
@@ -5114,7 +5240,23 @@ def phase_export(torch, np, kernels, model) -> dict:
     names = ["masks", "prepadded_size", "iou_predictions", "stability_scores", "areas",
              "low_res_masks"]
     flags = dict(return_single_mask=True, return_extra_metrics=True)
-    eager = program.make_decoder_fn(model, True, False, True)
+    eager_fn = program.make_decoder_fn(model, True, False, True)
+    d1_calls = [0]
+
+    def eager(*args):
+        """The eager program with the arithmetic the export traced: every
+        block's image-to-token branch unfused, as an export, the CPU and the
+        bf16 decode run it (the block's dispatch patched here, and nowhere
+        in the program)."""
+        with mock.patch.object(decoder, "fused_applies", lambda *a: False):
+            return eager_fn(*args)
+
+    def eager_d1(*args):
+        """The fp32 eager program as it runs on the card: D1 in each block."""
+        d1_calls[0] += 1
+        with fused_decodes("4p eager program"):
+            return eager_fn(*args)
+
     cpu_model = SimpleNamespace(prompt_encoder=copy.deepcopy(model.prompt_encoder).cpu(),
                                 mask_decoder=copy.deepcopy(model.mask_decoder).cpu(),
                                 img_size=model.img_size, mask_threshold=model.mask_threshold,
@@ -5150,6 +5292,17 @@ def phase_export(torch, np, kernels, model) -> dict:
             log(f"4p {case}: the loaded artifact against the eager program on the card: max abs "
                 f"err {errs}; prepadded_size {got[1].tolist()} and areas equal")
             numbers[f"{case} max_err"] = max(errs.values())
+            # the card's own fp32 eager program (D1) within the CLI's --validate contract
+            errs_d1 = {}
+            for name, g, r in zip(names, got, eager_d1(*args)):
+                errs_d1[name] = (g.double() - r.double()).abs().max().item()
+                check(bool(((g.double() - r.double()).abs()
+                            <= EXPORT_TOL + EXPORT_TOL * r.double().abs()).all()),
+                      f"4p {case}: the artifact's {name} is {errs_d1[name]:.4g} from the eager "
+                      f"program with D1 (tol {EXPORT_TOL} + {EXPORT_TOL} x |eager|)")
+            log(f"4p {case}: the artifact against the eager program with D1: max abs err "
+                f"{errs_d1} (tol {EXPORT_TOL} + {EXPORT_TOL} x |eager|, the CLI's --validate)")
+            numbers[f"{case} max_err_d1"] = errs_d1
         # the card's artifact against the CPU program, fp32 both (TF32 off)
         got = loaded(*boxes)
         ref = cpu_prog(*(a.cpu() for a in boxes))
@@ -5209,10 +5362,15 @@ def phase_export(torch, np, kernels, model) -> dict:
         t_args = export_inputs(torch, model, ENHANCE_N * N_CLASSES, 2, False, gen, dev)
         numbers["artifact_ms"] = card_ms(torch, lambda: loaded(*t_args), iters=5, warmup=2)
         numbers["eager_ms"] = card_ms(torch, lambda: eager(*t_args), iters=5, warmup=2)
+        numbers["eager_d1_ms"] = card_ms(torch, lambda: eager_d1(*t_args), iters=5, warmup=2)
         log(f"4p: at (272, 2) the artifact takes {numbers['artifact_ms']:.4f} ms, the eager "
-            f"program {numbers['eager_ms']:.4f} ms (CUDA events, fp32, after 2 warm-up calls)")
+            f"program {numbers['eager_ms']:.4f} ms unfused and {numbers['eager_d1_ms']:.4f} ms "
+            f"with D1 (CUDA events, fp32, after 2 warm-up calls)")
     launches = dict(kernels.LAUNCHES)
-    check(not any(launches.values()), f"4p launched kernels of the port: {launches}")
+    want = dict.fromkeys(launches, 0)
+    want["D1"] = D1_PER_DECODE * d1_calls[0]
+    check(launches == want, f"4p launched kernels of the port {launches}, expected {want} "
+          f"(the exported artifacts none, the eager program D1 in each block)")
     numbers["phase_s"] = time.perf_counter() - t_phase
     log(f"4p numbers: {json.dumps(numbers)}")
     return numbers
@@ -5345,10 +5503,11 @@ def main() -> int:
     t_embed = time.perf_counter() - t0
     t0 = time.perf_counter()
     results = []
-    for i in range(B):
-        low, iou = two_round_decode(model, emb[i:i + 1], coords, labels)
-        masks = model.postprocess_masks(low, INPUT_HW, ORIGINAL_HW)
-        results.append((low, iou, masks))
+    with fused_decodes("embed path decode"):
+        for i in range(B):
+            low, iou = two_round_decode(model, emb[i:i + 1], coords, labels)
+            masks = model.postprocess_masks(low, INPUT_HW, ORIGINAL_HW)
+            results.append((low, iou, masks))
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -5357,7 +5516,7 @@ def main() -> int:
     n_global = len(enc_cfg.global_attn_indexes)
     want = dict.fromkeys(launches, 0)
     want.update({"K1": enc_cfg.depth, "K3": enc_cfg.depth, "K5": enc_cfg.depth - n_global,
-                 "K7": n_global})
+                 "K7": n_global, "D1": D1_PER_TWO_ROUNDS * B})
     check(launches == want, f"embed path launches {launches}, expected {want}")
 
     g = cfg.prompt_encoder.image_embedding_size
@@ -5411,9 +5570,10 @@ def main() -> int:
     del enh_inputs
 
     # 5b. the int8 embed path, counted, and the whole int8 encoder vs its plain path
-    launches_int8, encode8, packed8, emb8, int8_ips = phase_embed_int8(
-        torch, kernels, cfg, model, make_serving_encoder, two_round_decode,
-        (imgs, sizes, coords, labels), N_CLASSES, emb, results, bf16_ips, enhance_ips)
+    with fused_decodes("int8 embed path decode"):
+        launches_int8, encode8, packed8, emb8, int8_ips = phase_embed_int8(
+            torch, kernels, cfg, model, make_serving_encoder, two_round_decode,
+            (imgs, sizes, coords, labels), N_CLASSES, emb, results, bf16_ips, enhance_ips)
     phase_encoder_vs_plain(torch, make_encode_batch, model, encode8, packed8, PLAIN_OPS_INT8,
                            emb8, (imgs, sizes), "encoder (int8)", ENCODER_INT8_TOL_MAX,
                            ENCODER_INT8_TOL_MEAN, compact_windows=False)
@@ -5421,15 +5581,18 @@ def main() -> int:
     # 5c. the compact embed paths (the serving default), counted; each against
     # the flat path and against its plain path; the MedSAM encode
     inputs = (imgs, sizes, coords, labels)
-    launches_c, encode_c, packed_c, emb_c = phase_embed_compact(
-        torch, kernels, cfg, model, make_serving_encoder, two_round_decode, inputs, N_CLASSES,
-        None, (emb, bf16_ips, ENCODER_TOL_MAX, ENCODER_TOL_MEAN), enhance_ips)
+    with fused_decodes("compact embed path decode"):
+        launches_c, encode_c, packed_c, emb_c = phase_embed_compact(
+            torch, kernels, cfg, model, make_serving_encoder, two_round_decode, inputs,
+            N_CLASSES, None, (emb, bf16_ips, ENCODER_TOL_MAX, ENCODER_TOL_MEAN), enhance_ips)
     phase_encoder_vs_plain(torch, make_encode_batch, model, encode_c, packed_c, PLAIN_OPS, emb_c,
                            (imgs, sizes), "compact encoder (bf16)", ENCODER_TOL_MAX,
                            ENCODER_TOL_MEAN, compact_windows=True)
-    launches_c8, encode_c8, packed_c8, emb_c8 = phase_embed_compact(
-        torch, kernels, cfg, model, make_serving_encoder, two_round_decode, inputs, N_CLASSES,
-        "int8", (emb8, int8_ips, ENCODER_INT8_TOL_MAX, ENCODER_INT8_TOL_MEAN), enhance_ips)
+    with fused_decodes("compact int8 embed path decode"):
+        launches_c8, encode_c8, packed_c8, emb_c8 = phase_embed_compact(
+            torch, kernels, cfg, model, make_serving_encoder, two_round_decode, inputs,
+            N_CLASSES, "int8", (emb8, int8_ips, ENCODER_INT8_TOL_MAX, ENCODER_INT8_TOL_MEAN),
+            enhance_ips)
     phase_profile(torch, lambda: encode_c8(packed_c8, imgs, sizes), "compact int8 encoder")
     phase_encoder_vs_plain(torch, make_encode_batch, model, encode_c8, packed_c8, PLAIN_OPS_INT8,
                            emb_c8, (imgs, sizes), "compact encoder (int8)",
@@ -5464,7 +5627,8 @@ def main() -> int:
     phase_export(torch, np, kernels, model)
 
     # 5k. (4q) the profiling and timing tools at short settings
-    phase_tools_profile(torch, np, make_serving_encoder, model)
+    with fused_decodes("4q tools (fp32 decodes)"):
+        phase_tools_profile(torch, np, make_serving_encoder, model)
 
     # 5d. the encoder's other block formulations: v1 (K9) and v2 (K12) at full
     # depth, v3 (K10, K11) as a run of blocks; every kernel they launch, K1, K3
@@ -5672,6 +5836,8 @@ def main() -> int:
                  **k8_numbers(torch, port.kccl, mask_p, cap_p, every_p, out_p[2],
                               (out_k[0].long() - out_p[0].long()).abs().max().item())})
     del k8_pipe, mask_p, out_k, out_p
+    # D1 at the refine cell's four block shapes, with the enhance path's launches
+    rows += phase_d1(torch, model, launches_enh["D1"])
     # K8 on the random walk's first image (4m): labels, flags and steps bit for bit
     mask_r, cap_r, every_r = k8_rw
     out_k = port.kccl.propagate(mask_r, cap_r, every_r)

@@ -39,7 +39,7 @@ which the host bounds, with the host clock around calls that end in
 (:func:`analytic_encoder_flops`), ``FlopCounterMode``'s count of the decode
 and of the AMG batch, and the analytic U-Net count (:func:`analytic_unet_flops`), over the H100's
 dense peaks; on another card the peaks are null.  ``--smoke`` runs the tiny
-vit_t config in fp32 at batch 1 on a 48 x 32 grid, and the train step in
+vit_t config (with SAM's decoder widths) in fp32 at batch 1 on a 48 x 32 grid, and the train step in
 fp32 at batch 2 on that grid.  ``--attention pallas`` runs the unfused formulation through K9,
 ``xla`` the same with the plain attention; neither has an int8 mode.  No TPU
 figure is reported: ``vs_baseline`` and the CPU anchor are null.
@@ -243,7 +243,7 @@ def nvidia_smi(query: str) -> Optional[str]:
 
 def parse_args(argv: Optional[List[str]]):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--smoke", action="store_true", help="tiny vit_t config, fp32, batch 1")
+    p.add_argument("--smoke", action="store_true", help="tiny vit_t config with SAM's decoder, fp32, batch 1")
     p.add_argument("--model", default="vit_h", choices=["vit_b", "vit_l", "vit_h"])
     p.add_argument("--batch", type=int, default=32, help="encoder batch size")
     p.add_argument("--attention", choices=["xla", "pallas", "auto"], default="auto",
@@ -275,7 +275,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.attention != "auto" and quantize:
         raise ValueError("--attention pallas|xla runs the unfused formulation, which has "
                          "no int8 mode: pass --quantize none")
-    cfg = CONFIGS[model_name]()
+    cfg = config.sam_vit_t_config(sam_decoder=True) if args.smoke else CONFIGS[model_name]()
     model = zero_sam(cfg, device)
     size = model.img_size
     grid = cfg.prompt_encoder.image_embedding_size[0]

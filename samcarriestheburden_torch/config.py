@@ -133,20 +133,27 @@ def sam_vit_b_config() -> SamConfig:
         embed_dim=768, depth=12, num_heads=12, global_attn_indexes=(2, 5, 8, 11)))
 
 
-def sam_vit_t_config(img_size: int = 128) -> SamConfig:
+def sam_vit_t_config(img_size: int = 128, sam_decoder: bool = False) -> SamConfig:
     """Tiny test config: the full architecture at toy widths (8x8 grid,
-    window 5, so windows are ragged and carry dead slots)."""
+    window 5, so windows are ragged and carry dead slots).  ``sam_decoder``:
+    the toy encoder in front of SAM's own prompt encoder and mask decoder
+    (256 wide, 8 heads), the model of the ``--smoke`` tools, whose fp32
+    decode on the card runs the decoder kernel that takes SAM's widths only."""
     grid = img_size // 16
+    if sam_decoder:
+        width, prompt, decoder = 256, {}, MaskDecoderConfig()
+    else:
+        width, prompt = 16, {"mask_in_chans": 4}
+        decoder = MaskDecoderConfig(transformer_dim=16, transformer_mlp_dim=32,
+                                    transformer_num_heads=2, iou_head_hidden_dim=16)
     return SamConfig(
         image_encoder=ImageEncoderConfig(
             img_size=img_size, embed_dim=32, depth=2, num_heads=2,
-            global_attn_indexes=(1,), window_size=5, out_chans=16),
+            global_attn_indexes=(1,), window_size=5, out_chans=width),
         prompt_encoder=PromptEncoderConfig(
-            embed_dim=16, image_embedding_size=(grid, grid),
-            input_image_size=(img_size, img_size), mask_in_chans=4),
-        mask_decoder=MaskDecoderConfig(
-            transformer_dim=16, transformer_mlp_dim=32, transformer_num_heads=2,
-            iou_head_hidden_dim=16),
+            embed_dim=width, image_embedding_size=(grid, grid),
+            input_image_size=(img_size, img_size), **prompt),
+        mask_decoder=decoder,
     )
 
 

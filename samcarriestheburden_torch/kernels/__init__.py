@@ -17,7 +17,7 @@ import torch
 LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0, "K7-int8": 0,
             "K7-pv": 0, "K7-int8pv": 0, "K8": 0, "K9": 0, "K10": 0, "K11": 0, "K12": 0,
             "K13": 0, "K14": 0, "K15": 0, "K16-v1": 0, "K16-v3": 0, "K16-norel": 0,
-            "K16-noroll": 0, "K16-noexp": 0}
+            "K16-noroll": 0, "K16-noexp": 0, "D1": 0}
 
 
 def reset_launches() -> None:

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("mlp", "quant", "attention", "attention_forms", "block_attention", "ccl",
-           "cost_probe", "gemm")
+           "cost_probe", "gemm", "decoder")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

@@ -1,4 +1,12 @@
-"""TwoWayTransformer of the SAM mask decoder (reference segment_anything/modeling/transformer.py)."""
+"""TwoWayTransformer of the SAM mask decoder (reference segment_anything/modeling/transformer.py).
+
+Each block's image-to-token branch runs as one kernel, D1
+(``kernels/decoder.py``), for fp32 tensors on the card outside
+``torch.export`` (``decoder.fused_applies``); D1 raises on widths other than
+SAM's decoder's.  CPU tensors, the bf16 decode and an export run the branch
+as written here.  Every block call adds one to the counter
+``decode.i2t_fused`` or ``decode.i2t_plain`` (``profiling.count``).
+"""
 
 from __future__ import annotations
 
@@ -10,7 +18,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from samcarriestheburden_torch.config import MaskDecoderConfig
+from samcarriestheburden_torch.kernels import decoder
 from samcarriestheburden_torch.models.common import MLPBlock, linear, norm
+from samcarriestheburden_torch.profiling import count
 
 
 class Attention(nn.Module):
@@ -79,6 +89,21 @@ class TwoWayAttentionBlock(nn.Module):
         self.norm4 = nn.LayerNorm(ed)
         self.cross_attn_image_to_token = Attention(ed, nh, dr)
         self.skip_first_layer_pe = skip_first_layer_pe
+        self._i2t_transposed = (None, None)
+
+    def _i2t_weights(self) -> decoder.Weights:
+        """The image-to-token branch's parameters as D1 takes them; its two
+        transposed weights are copied again only when a weight changes."""
+        a, n = self.cross_attn_image_to_token, self.norm4
+        wq, wo = a.q_proj.weight, a.out_proj.weight
+        key = (wq.data_ptr(), wq._version, wo.data_ptr(), wo._version)
+        if self._i2t_transposed[0] != key:
+            self._i2t_transposed = (key, (wq.detach().t().contiguous(),
+                                          wo.detach().t().contiguous()))
+        wq_t, wo_t = self._i2t_transposed[1]
+        return decoder.Weights(wq_t, a.q_proj.bias, a.k_proj.weight, a.k_proj.bias,
+                               a.v_proj.weight, a.v_proj.bias, wo_t, a.out_proj.bias,
+                               n.weight, n.bias, n.eps, a.num_heads)
 
     def forward(self, queries, keys, query_pe, key_pe):
         if self.skip_first_layer_pe:
@@ -93,9 +118,14 @@ class TwoWayAttentionBlock(nn.Module):
         queries = norm(self.norm2, queries + self.cross_attn_token_to_image(q, k, keys))
         queries = norm(self.norm3, queries + self.mlp(queries))
 
-        q = queries + query_pe
-        k = keys + key_pe
-        keys = norm(self.norm4, keys + self.cross_attn_image_to_token(k, q, queries))
+        if decoder.fused_applies(keys.device.type, keys.dtype):
+            count("decode.i2t_fused")
+            keys = decoder.image_to_token(keys, key_pe, queries, query_pe, self._i2t_weights())
+        else:
+            count("decode.i2t_plain")
+            q = queries + query_pe
+            k = keys + key_pe
+            keys = norm(self.norm4, keys + self.cross_attn_image_to_token(k, q, queries))
         return queries, keys
 
     def forward_image_shared(self, queries, keys, query_pe, key_pe):
@@ -118,9 +148,14 @@ class TwoWayAttentionBlock(nn.Module):
         queries = norm(self.norm2, queries + out)
         queries = norm(self.norm3, queries + self.mlp(queries))
 
-        out = self.cross_attn_image_to_token.forward_shared_queries(k_img, queries + query_pe,
-                                                                    queries)
-        keys = norm(self.norm4, keys.repeat_interleave(b // n_img, dim=0) + out)
+        if decoder.fused_applies(keys.device.type, keys.dtype):
+            count("decode.i2t_fused")
+            keys = decoder.image_to_token(keys, key_pe, queries, query_pe, self._i2t_weights())
+        else:
+            count("decode.i2t_plain")
+            out = self.cross_attn_image_to_token.forward_shared_queries(
+                k_img, queries + query_pe, queries)
+            keys = norm(self.norm4, keys.repeat_interleave(b // n_img, dim=0) + out)
         return queries, keys
 
 

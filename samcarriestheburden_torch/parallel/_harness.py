@@ -373,6 +373,7 @@ def run_precompute(spec, mesh, out):
     from samcarriestheburden_torch.engine.decoder_head import SamMaskDecoderHead
     from samcarriestheburden_torch.engine.embeddings import encode_images, make_serving_encoder
     from samcarriestheburden_torch.engine.refinement import SamSegRefiner, SegEnhance
+    from samcarriestheburden_torch.profiling import recording
 
     spec = {**PRECOMPUTE_SPEC, **spec}
     dev = mesh.device
@@ -443,13 +444,14 @@ def run_precompute(spec, mesh, out):
                      "highest_probability", "dilation", "square", 8)
     kernels.reset_launches()
     masks = MemoryMasks()
-    refine_images(unet, enh, smine, grid.__getitem__, masks, img_batch=spec["img_batch"])
+    with recording() as rec:
+        refine_images(unet, enh, smine, grid.__getitem__, masks, img_batch=spec["img_batch"])
     sync()
     launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
     np.savez(Path(out) / f"sweep_rank{mesh.index}.npz",
              **{f"m_{s}": masks.masks(s) for s in smine},
              **{f"d_{s}": masks.estimated_dice(s) for s in smine})
-    result(job="sweep", rank=mesh.index, stems=smine, launches=launches,
+    result(job="sweep", rank=mesh.index, stems=smine, launches=launches, counters=rec.counters,
            batches=-(-len(smine) // spec["img_batch"]))
 
 

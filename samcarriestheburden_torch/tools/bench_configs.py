@@ -20,7 +20,8 @@
 
 Prints one JSON object with the JAX tool's keys.  Weights are zeros by
 shape, as the JAX tool's (``bench.py:zero_sam``).  ``--smoke`` shrinks
-everything (vit_t, 4 images of 48 x 32, batch 4, 8 points a side);
+everything (vit_t with SAM's decoder widths, 4 images of 48 x 32, batch 4, 8
+points a side);
 ``--cpu`` runs on the CPU, else the card (raises without one).
 """
 
@@ -47,10 +48,12 @@ def _sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def _zero_sam(model_name: str, dev):
+def _zero_sam(model_name: str, dev, smoke: bool = False):
     from samcarriestheburden_torch import config
     from samcarriestheburden_torch.bench import zero_sam
 
+    if smoke:    # vit_t with SAM's decoder widths
+        return zero_sam(config.sam_vit_t_config(sam_decoder=True), dev)
     return zero_sam(getattr(config, f"sam_{model_name}_config")(), dev)
 
 
@@ -176,7 +179,7 @@ def bench_configs(device=None, *, smoke: bool = False, model_name: str = "vit_h"
     out = {"platform": "gpu" if dev.type == "cuda" else dev.type,
            "device": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
            "model": model_name}
-    model = _zero_sam(model_name, dev) if only in (None, "refine", "amg") else None
+    model = _zero_sam(model_name, dev, smoke) if only in (None, "refine", "amg") else None
     if only in (None, "refine"):
         out["config3_refinement_sweep"] = bench_refine_sweep(model, n_imgs, seg_hw, dev)
     if only in (None, "train"):

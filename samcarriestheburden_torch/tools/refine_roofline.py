@@ -13,7 +13,11 @@ seeded random weights.
 
 * FLOPs: ``torch.utils.flop_counter.FlopCounterMode`` over one call (the
   products: ``mm``, ``addmm``, ``bmm``, convolutions), held equal to
-  :func:`analytic_flops`, the products counted from the shapes.
+  :func:`analytic_flops`, the products counted from the shapes.  Where the
+  fp32 decode on the card runs its blocks' image-to-token branch as D1
+  (``kernels/decoder.py``), the counter takes D1's products from its
+  operator's flop formula, and the analytic count adds the (HW, 128)
+  positional table that D1's split of q projects once a block.
 * Bytes: counted by hand (:func:`hand_bytes`), the dominant tensors round
   by round, each written once and read once, as the JAX tool prints them:
   the keys of every attention pass, the two transposed convolutions'
@@ -77,10 +81,13 @@ def _attention(b_q: int, n_q: int, b_kv: int, n_kv: int, c: int, d: int, *,
                 + b_q * n_q * d * c)
 
 
-def analytic_flops(cfg, b: int, n_points: int, n_img: int = 1) -> Dict[str, int]:
+def analytic_flops(cfg, b: int, n_points: int, n_img: int = 1,
+                   fused: bool = False) -> Dict[str, int]:
     """The products of one two-round decode of ``b`` prompt sets of
     ``n_points`` points over ``n_img`` images, counted from the shapes:
-    {"prompt", "round1", "round2"} (multiply-adds x 2)."""
+    {"prompt", "round1", "round2"} (multiply-adds x 2).  ``fused``: the
+    blocks' image-to-token branch runs as D1, which also projects the
+    positional term of q once a block, an (HW, C) x (C, C / 2) product."""
     md, pc = cfg.mask_decoder, cfg.prompt_encoder
     c, m, nt = md.transformer_dim, md.transformer_mlp_dim, md.num_mask_tokens
     ci = c // md.attention_downsample_rate
@@ -97,7 +104,7 @@ def analytic_flops(cfg, b: int, n_points: int, n_img: int = 1) -> Dict[str, int]
             f += _attention(b, hw, b, n, c, ci, q_rows=n_img * hw)    # image to token
         else:
             f += _attention(b, n, b, hw, c, ci) + _attention(b, hw, b, n, c, ci)
-        return f
+        return f + (2 * hw * c * ci if fused else 0)
 
     def head() -> int:
         up = 2 * b * c * (c // 4) * 4 * hw + 2 * b * (c // 4) * (c // 8) * 4 * 4 * hw
@@ -171,6 +178,8 @@ def refine_roofline(device=None, *, model=None, dtypes: Sequence[str] = ("fp32",
     """{dtype: {"ms", "flops", "analytic_flops", "bytes", "tflops", "tbps",
     "flop_share", "byte_share", "intensity", "floor_ms"}}, printed.
     ``model``: a ``SamModel`` on ``device`` (default: ViT-H, seed 0)."""
+    from samcarriestheburden_torch.kernels import decoder
+
     dev = resolve_device(device)
     if model is None:
         from samcarriestheburden_torch.models.sam import build_sam
@@ -182,7 +191,8 @@ def refine_roofline(device=None, *, model=None, dtypes: Sequence[str] = ("fp32",
     for name in dtypes:
         dtype = torch.bfloat16 if name == "bf16" else torch.float32
         flops = count_flops(model, inputs, dtype)
-        analytic = sum(analytic_flops(model.cfg, b, n).values())
+        fused = decoder.fused_applies(dev.type, dtype)
+        analytic = sum(analytic_flops(model.cfg, b, n, fused=fused).values())
         nbytes = sum(sum(r.values()) for r in hand_bytes(model.cfg, b, dtype).values())
         res = {"flops": flops, "analytic_flops": analytic, "bytes": nbytes,
                "intensity": flops / nbytes, "ridge": PEAK_FLOPS / PEAK_BYTES,

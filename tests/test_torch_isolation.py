@@ -351,7 +351,8 @@ ENTRY_POINTS = {"K1": ("mlp", "k1_"), "K2": ("quant", "k2_ln_masked_linear_int8"
                 "K14": ("gemm", "k14_dot"),
                 "K15": ("quant", "k15_ln_mlp_residual_int8_exp"),
                 **{name: ("attention_forms", "k16_rel_attention_forms", "attention")
-                   for name in ("K16-v1", "K16-v3", "K16-norel", "K16-noroll", "K16-noexp")}}
+                   for name in ("K16-v1", "K16-v3", "K16-norel", "K16-noroll", "K16-noexp")},
+                "D1": ("decoder", "d1_image_to_token")}
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
