@@ -9,7 +9,10 @@ control, or for the program with a fault planted.
 Prints one JSON line a seed: {"seed", "checks": {name: value}, ...}.  The
 limits in ``workloads/<mix>.json`` are set from these readings (the lower
 from the program, the upper from the control and the faults), never from
-the benchmark's own runs, which do not run the control.  ``--smi`` reads
+the benchmark's own runs, which do not run the control.  ``--mode control``
+runs the cell's driver's ``CONTROL`` (``harness/core.py:control``): its own
+control in the program's place, or the program with the control's changes
+made; ``--set`` changes come before those.  ``--smi`` reads
 the card's SM clock, power draw and temperature with ``nvidia-smi`` at
 1 Hz beside each seed's run and prints their least, median and largest
 value in its line (the diagnosis of a cell's spread).
@@ -106,13 +109,11 @@ def main(argv=None) -> int:
             (config if where == "c" else traffic)[key] = _value(value)
 
     man = core.manifest()
-    w, _, config, traffic = core.cell(man, args.workload)
-    override(config, traffic)
-    drv = core.driver_for(traffic)
+    drv = core.driver_for(core.cell(man, args.workload)[3])
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()
         smi = SmiSampler() if args.smi else contextlib.nullcontext()
-        with planted(traffic["driver"], args.fault), smi:
+        with planted(drv, args.fault), smi:
             if args.mode == "program":
                 res = core.execute(args.workload, seed, args.seconds, False, args.device, t0,
                                    man, override)
@@ -120,12 +121,9 @@ def main(argv=None) -> int:
                 extra = {"metrics": {k: v["value"] for k, v in res["metrics"].items()},
                          "correct": res["correct"]}
             else:
-                ctx = core.Context(seed=seed, device=torch.device(args.device), config=config,
-                                   traffic=traffic, spans=core.Spans(), workload=args.workload)
-                state = drv.setup(ctx)
-                checks = drv.control(state, ctx)
+                checks = core.control(args.workload, seed, args.device, man, override,
+                                      args.seconds)
                 extra = {}
-                del state
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
         if args.smi:

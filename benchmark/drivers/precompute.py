@@ -22,9 +22,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from harness import synth
+from harness import faults, synth
 from harness.core import BatchStore, Check, Names, StopWindow, Window, judge
-from harness.models import full_fp32, port_sam_config, reference_sam, seeded
+from harness.models import full_fp32, port_sam_config, reference_sam, seeded, tiny_sam
 from reference import sam as ref_sam
 from reference.resize import resize_longest_side_np
 
@@ -163,3 +163,16 @@ def control(state: State, ctx) -> dict:
         raise ValueError("the control of the bf16 mix is the program's int8 path")
     ref = reference_embeddings(ctx, state)
     return compare(reference_embeddings(ctx, state, bits=4), ref, state.keep)
+
+
+#: the lower-precision control: :func:`control` in the program's place
+CONTROL = ("control", {})
+#: the faults this cell can have (``harness/faults.py``)
+FAULTS = {"half_batch": faults.encode_half_batch, "answer_altered": faults.encode_answer_altered}
+
+
+def tiny(config: dict, traffic: dict) -> None:
+    """The cell at a CPU test's size: toy SAM widths, 160 × 80 images,
+    four of them checked."""
+    tiny_sam(config, traffic)
+    traffic.update(image_hw=[160, 80], check_images=4)

@@ -27,10 +27,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from harness import synth
+from harness import faults, synth
 from harness.core import BatchStore, Check, Names, StopWindow, Window, judge
 from harness.models import (full_fp32, port_sam_config, port_unet_config, reference_sam,
-                            reference_unet, seeded)
+                            reference_unet, seeded, tiny_sam)
 from reference import refine as ref_refine
 from reference import sam as ref_sam
 from reference import unet as ref_unet
@@ -244,3 +244,17 @@ def control(state: State, ctx) -> dict:
     state.unet = BF16UNet(reference_models(ctx)[1], ctx.device)
     window(state, ctx, 2.0)
     return compare(ctx, state, Produced(state.enhance.kept, state.store.kept))
+
+
+#: the lower-precision control: :func:`control` in the program's place,
+#: with the program's own bfloat16 decoder
+CONTROL = ("control", {"decoder_dtype": "bfloat16"})
+#: the faults this cell can have (``harness/faults.py``)
+FAULTS = {"half_batch": faults.refine_half_batch, "answer_altered": faults.refine_answer_altered}
+
+
+def tiny(config: dict, traffic: dict) -> None:
+    """The cell at a CPU test's size: toy SAM widths, 96 × 64 originals,
+    two batches checked."""
+    tiny_sam(config, traffic)
+    traffic.update(original_hw=[96, 64], check_batches=2)

@@ -29,7 +29,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from harness import synth
+from harness import faults, synth
 from harness.core import Check, Window, judge
 from harness.models import full_fp32, port_unet_config, reference_unet, seeded
 from reference import unet as ref_unet
@@ -290,3 +290,21 @@ def check(state: State, ctx) -> List[Check]:
         readings["window_epoch"] = win.epoch
     state.readings = readings
     return judge(readings, ctx.traffic["limits"])
+
+
+#: the lower-precision control: the program's own bfloat16 training step
+CONTROL = ("program", {"compute_dtype": "bfloat16"})
+#: the faults this cell can have (``harness/faults.py``); the late ones
+#: pass epoch 0, which set-up runs, and fail only the window's numbers
+FAULTS = {"state_unchanged": faults.train_state_unchanged,
+          "half_batch": faults.train_half_batch,
+          "state_unchanged_late": faults.train_late(faults.train_state_unchanged),
+          "half_batch_late": faults.train_late(faults.train_half_batch)}
+
+
+def tiny(config: dict, traffic: dict) -> None:
+    """The cell at a CPU test's size: the U-Net's four levels at toy
+    widths on a 48 × 32 grid, 40 samples in batches of 4."""
+    config.update(base_channels=4, n_last_channel=4, grid_hw=[48, 32], train_samples=40,
+                  batch_size=4)
+    traffic.update(draw_chunk=16)

@@ -13,7 +13,14 @@ every shape the mix uses, ``window(state, ctx, seconds)``, which runs the
 timed work and returns a :class:`Window`, ``release(state)``, which frees
 the program's state, and ``check(state, ctx)``, which compares what the
 window produced with the plain reference and returns the numbers compared
-with their limits.
+with their limits.  For the tests and ``calibrate.py`` it also brings
+``CONTROL``, its lower-precision control (:func:`control`), with
+``control(state, ctx)`` where that runs in the program's place, ``FAULTS``,
+the faults its cell can have (``harness/faults.py``), and ``tiny(config,
+traffic)``, which shrinks its cell in place to a CPU test's size.
+
+A traced run captures the device trace with the program's own spans and
+counters (``harness/program_trace.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from harness.tracing import Spans, capture
+from harness.program_trace import capture
+from harness.tracing import Spans
 
 BENCH_DIR = Path(__file__).resolve().parent.parent
 ROOT = BENCH_DIR.parent
@@ -175,19 +183,24 @@ def manifest() -> dict:
     return load_json(ROOT / "BENCHMARK.json")
 
 
-def cell(man: dict, name: str):
-    """(workload entry, configuration entry, config dict, traffic dict)."""
+def cell(man: dict, name: str, root: Path = ROOT):
+    """(workload entry, configuration entry, config dict, traffic dict),
+    the files read under the checkout ``root``."""
     cells = {w["name"]: w for w in man["workloads"]}
     if name not in cells:
         raise BenchError(f"no workload {name!r}; one of {sorted(cells)}")
     w = cells[name]
     cfg = {c["name"]: c for c in man["configs"]}[w["config"]]
-    return w, cfg, load_json(ROOT / cfg["file"]), load_json(BENCH_DIR / "workloads" /
-                                                            f"{w['traffic']}.json")
+    mix = root / BENCH_DIR.name / "workloads" / f"{w['traffic']}.json"
+    return w, cfg, load_json(root / cfg["file"]), load_json(mix)
 
 
-def driver_for(traffic: dict):
-    return load_module(BENCH_DIR / "drivers" / f"{traffic['driver']}.py")
+def driver_path(traffic: dict, root: Path = ROOT) -> Path:
+    return root / BENCH_DIR.name / "drivers" / f"{traffic['driver']}.py"
+
+
+def driver_for(traffic: dict, root: Path = ROOT):
+    return load_module(driver_path(traffic, root))
 
 
 def layer_metrics(man: dict, w: dict) -> List[dict]:
@@ -230,7 +243,6 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, device,
     else:
         win = drv.window(state, ctx, seconds)
     peak = torch.cuda.max_memory_allocated(ctx.device) if cuda else 0
-    launches = dict(getattr(state, "launches", {}) or {})
     drv.release(state)
     checks: List[Check] = drv.check(state, ctx)
     bad = loaded_forbidden()
@@ -240,7 +252,7 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, device,
     metrics = {}
     if trace:
         run = {"trace": trace_info, "window": win, "config": config, "traffic": traffic,
-               "launches": launches, "workload": workload}
+               "workload": workload}
         for m in layer_metrics(man, w):
             value = load_module(BENCH_DIR / "metrics" / f"{m['name']}.py").read(run)
             if value is not None:
@@ -259,14 +271,48 @@ def execute(workload: str, seed: int, seconds: float, trace: bool, device,
                    "count": int(w["chips"]),
                    "memory_peak_bytes": int(peak)},
     }
+    result["diagnostics"] = {"window_s": win.seconds, "work": win.work, **win.counts,
+                             "launches": dict(getattr(state, "launches", {}) or {}),
+                             "readings": getattr(state, "readings", {})}
     if trace_info is not None:
         result["device"]["busy_s"] = trace_info.busy_s
         result["device"]["window_s"] = trace_info.window_s
         result["breakdown"] = trace_info.breakdown()
-    result["diagnostics"] = {"window_s": win.seconds, "work": win.work, **win.counts,
-                             "readings": getattr(state, "readings", {})}
+        if trace_info.program is not None:
+            result["diagnostics"]["program_counters"] = trace_info.program.counters
     result["checks"] = {c.name: {"value": c.value, "limit": c.limit} for c in checks}
     return result
+
+
+def control(workload: str, seed: int, device, man: Optional[dict] = None,
+            override: Optional[Callable[[dict, dict], None]] = None,
+            seconds: float = 3.0) -> Dict[str, float]:
+    """The readings of a cell's lower-precision control, to be judged by
+    the mix's limits.  The driver's ``CONTROL`` is (mode, changes):
+    ``changes`` are made to the loaded configuration or mix (after
+    ``override``, as in :func:`execute`); mode ``control`` runs the
+    driver's ``control`` in the program's place, mode ``program`` runs the
+    program itself, as changed, for ``seconds``."""
+    import torch
+
+    man = man or manifest()
+    config, traffic = cell(man, workload)[2:]
+    drv = driver_for(traffic)
+    mode, changes = drv.CONTROL
+
+    def changed(config, traffic):
+        if override is not None:
+            override(config, traffic)
+        for k, v in changes.items():
+            (config if k in config else traffic)[k] = v
+
+    if mode == "program":
+        res = execute(workload, seed, seconds, False, device, time.perf_counter(), man, changed)
+        return res["diagnostics"]["readings"]
+    changed(config, traffic)
+    ctx = Context(seed=seed, device=torch.device(device), config=config, traffic=traffic,
+                  spans=Spans(), workload=workload)
+    return drv.control(drv.setup(ctx), ctx)
 
 
 def main(argv=None, t_process: Optional[float] = None) -> int:

@@ -1,7 +1,8 @@
 """Faults planted in the program under test, to see the comparison catch
 them: each is a context manager that patches one of the program's classes
-for the time of a run.  The CPU tests and ``calibrate.py`` use them; the
-benchmark's own runs never do.
+for the time of a run.  A driver lists the faults its cell can have in its
+``FAULTS`` (name → one of the functions below); the CPU tests and
+``calibrate.py`` plant them, the benchmark's own runs never do.
 
 * ``state_unchanged``: the optimizer's step changes nothing;
 * ``half_batch``: half of each batch is left out (training: the loss is
@@ -18,12 +19,13 @@ benchmark's own runs never do.
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 from unittest import mock
 
 import torch
 
 
-def _train_half_batch():
+def train_half_batch():
     from samcarriestheburden_torch.train.loop import UNetTrainer
 
     inner = UNetTrainer.forward_loss
@@ -36,11 +38,11 @@ def _train_half_batch():
     return mock.patch.object(UNetTrainer, "forward_loss", forward_loss)
 
 
-def _train_state_unchanged():
+def train_state_unchanged():
     return mock.patch.object(torch.optim.AdamW, "step", lambda self, closure=None: None)
 
 
-def _train_late(fault):
+def train_late(fault):
     """``fault`` in every training epoch after epoch 0 (which runs clean)."""
     def make():
         from samcarriestheburden_torch.train.loop import UNetTrainer
@@ -68,7 +70,7 @@ def _encoder_output(fn):
     return mock.patch.object(ImageEncoderViT, "forward", forward)
 
 
-def _encode_half_batch():
+def encode_half_batch():
     def fn(out):
         h = out.shape[0] // 2
         out = out.clone()
@@ -77,7 +79,7 @@ def _encode_half_batch():
     return _encoder_output(fn)
 
 
-def _encode_answer_altered():
+def encode_answer_altered():
     def fn(out):
         out = out.clone()
         out[0] = out[1 % out.shape[0]] if out.shape[0] > 1 else -out[0]
@@ -97,7 +99,7 @@ def _enhance_output(fn):
     return mock.patch.object(SegEnhance, "enhance_batch", enhance_batch)
 
 
-def _refine_half_batch():
+def refine_half_batch():
     def fn(r):
         h = r.shape[0] // 2
         r[h:] = r[:r.shape[0] - h]
@@ -105,25 +107,16 @@ def _refine_half_batch():
     return _enhance_output(fn)
 
 
-def _refine_answer_altered():
+def refine_answer_altered():
     def fn(r):
         r[0, 0] = ~r[0, 0]
         return r
     return _enhance_output(fn)
 
 
-FAULTS = {
-    "train": {"state_unchanged": _train_state_unchanged, "half_batch": _train_half_batch,
-              "state_unchanged_late": _train_late(_train_state_unchanged),
-              "half_batch_late": _train_late(_train_half_batch)},
-    "precompute": {"half_batch": _encode_half_batch, "answer_altered": _encode_answer_altered},
-    "refine": {"half_batch": _refine_half_batch, "answer_altered": _refine_answer_altered},
-}
-
-
-def planted(driver: str, name: str):
-    """The context manager that plants fault ``name`` in the program that
-    driver ``driver`` runs."""
+def planted(driver, name: Optional[str]):
+    """The context manager that plants fault ``name`` (None: none) from
+    ``driver.FAULTS`` in the program that the driver module runs."""
     if name is None:
         return contextlib.nullcontext()
-    return FAULTS[driver][name]()
+    return driver.FAULTS[name]()

@@ -1,6 +1,7 @@
 """The program's configuration objects from the benchmark's configuration
-files, the reference models with the run's seeded weights, and the switch
-that keeps the reference in full float32."""
+files, the reference models with the run's seeded weights, the switch
+that keeps the reference in full float32, and the toy SAM sizes the CPU
+tests shrink a SAM cell to."""
 
 from __future__ import annotations
 
@@ -9,6 +10,24 @@ import torch
 from harness.weights import seeded_state_dict
 from reference import sam as ref_sam
 from reference import unet as ref_unet
+
+
+#: SAM's structure at toy widths: windowed and global blocks with ragged
+#: windows, the two-way decoder, for the CPU tests (a driver's ``tiny``)
+TINY_SAM = dict(encoder_embed_dim=32, encoder_depth=2, encoder_num_heads=2,
+                encoder_global_attn_indexes=[1], window_size=5, image_size=128,
+                prompt_embed_dim=16, transformer_mlp_dim=32, transformer_num_heads=2,
+                iou_head_hidden_dim=16, mask_in_chans=4)
+
+
+def tiny_sam(config: dict, traffic: dict) -> None:
+    """Shrink a SAM configuration and its mix in place to a CPU test's
+    size: :data:`TINY_SAM`, the U-Net's four levels at toy widths, batches
+    of two from a pool of four, every sampled answer inside the first
+    batches."""
+    config.update(TINY_SAM)
+    config["unet"].update(base_channels=4, n_last_channel=4, grid_hw=[48, 32])
+    traffic.update(batch_size=2, pool=4, warmup_batches=1, check_within_batches=2)
 
 
 def port_sam_config(c: dict):

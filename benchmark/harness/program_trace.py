@@ -2,9 +2,11 @@
 
 The port records spans and counters where its loops, its enhance engine, its
 trainer and K4's wrapper do their work (``samcarriestheburden_torch/
-profiling.py``), but only inside its ``recording()``.  :func:`capture` is
-``tracing.capture`` with that recording open around the traced window, and
-with the clocks joined on the marker kernel's launch event (``cuda_runtime``,
+profiling.py``), but only inside its ``recording()``.  :func:`capture` runs
+the traced window inside one device-only profiler capture (recording every
+host operation as well slowed the precompute's host-bound dispatch by half,
+and the idle share with it) with that recording open, and joins the host's
+clock to the trace's on the marker kernel's launch event (``cuda_runtime``,
 matched by ``args.correlation``) rather than on the kernel's start, which
 comes later by the launch's queue latency.  It returns a :class:`Traced`:
 the ``tracing.Trace`` of the window, whose idle gaps are charged to the
@@ -16,9 +18,7 @@ launch event fired.
 
 A checkout whose program has no ``recording()`` traces as before, with
 ``program`` None; the readers of ``metrics/`` that read it then report
-nothing.  ``harness/core.py`` takes ``capture`` from ``tracing``; the metrics
-in :data:`PER_LAYER` read what this module adds once it takes it from here
-(``PERF.md`` §7).
+nothing.  ``harness/core.py`` captures every traced run with :func:`capture`.
 """
 
 from __future__ import annotations
@@ -36,24 +36,6 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 from harness.tracing import DEVICE_CATS, MARKER, Trace, summarize
 
-#: the manifest entries of the metrics that read :attr:`Traced.program`
-PER_LAYER = [
-    {"name": "k4_roofline.program", "unit": "%", "better": "higher",
-     "source": "device_trace", "layer": "kernels", "moves": "images_per_s",
-     "workloads": ["sam_vit_h.precompute_int8"]},
-    {"name": "loader_stall.precompute", "unit": "%", "better": "lower",
-     "source": "device_trace", "layer": "loops", "moves": "images_per_s",
-     "workloads": ["sam_vit_h.precompute_int8"]},
-    {"name": "decode_share.refine", "unit": "%", "better": "lower",
-     "source": "device_trace", "layer": "enhance engine", "moves": "images_per_s.refine",
-     "workloads": ["sam_vit_h.refine"]},
-    {"name": "select_share.refine", "unit": "%", "better": "lower",
-     "source": "device_trace", "layer": "enhance engine", "moves": "images_per_s.refine",
-     "workloads": ["sam_vit_h.refine"]},
-    {"name": "augment_share.train", "unit": "%", "better": "lower",
-     "source": "device_trace", "layer": "trainer", "moves": "samples_per_s",
-     "workloads": ["unet_grazpedwri.train"]},
-]
 #: where a device operation's launch fell in no program span
 OUTSIDE = "outside_program_spans"
 
@@ -217,8 +199,11 @@ def _recording():
 
 
 def capture(fn, spans):
-    """``tracing.capture`` with the program's recording open around
-    ``fn()``: returns (fn's result, :class:`Traced`)."""
+    """Run ``fn()`` inside one device-only profiler capture with the
+    program's recording open, the benchmark's ``spans``
+    (``tracing.Spans``) recording on this thread: returns (fn's result,
+    :class:`Traced`).  The Chrome trace goes to a temporary file, which is
+    read and removed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -277,11 +262,24 @@ def program_of(run) -> Optional[Program]:
     return getattr(run["trace"], "program", None)
 
 
+def within(prog: Program, name: str) -> List[int]:
+    """The indices of the program's spans ``name`` and of every span nested
+    inside one of them (a parent precedes its children in
+    :attr:`Program.spans`)."""
+    inside: List[bool] = []
+    for s in prog.spans:
+        inside.append(s.name == name or (s.parent >= 0 and inside[s.parent]))
+    return [i for i, x in enumerate(inside) if x]
+
+
 def device_share(run, name: str) -> Optional[float]:
-    """The device time charged to the program's spans ``name`` over the
-    traced window's busy time, in %; None where the program recorded no
-    such span."""
+    """The device time charged to the program's spans ``name`` and to the
+    spans nested inside them (a kernel's own span, such as ``kernels.D1``
+    inside ``enhance.decode``, takes its launches' time), over the traced
+    window's busy time, in %; None where the program recorded no such
+    span."""
     prog = program_of(run)
     if prog is None or not prog.count(name):
         return None
-    return 100.0 * prog.device_by_span.get(name, 0.0) / run["trace"].busy_s
+    secs = sum(prog.device_by_index.get(i, 0.0) for i in within(prog, name))
+    return 100.0 * secs / run["trace"].busy_s

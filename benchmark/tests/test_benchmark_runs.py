@@ -12,20 +12,20 @@ import torch
 
 from conftest import BENCH, tiny
 from harness import core
-from harness.faults import FAULTS, planted
+from harness.faults import planted
 
-CELLS = [w["name"] for w in core.manifest()["workloads"]]
+MAN = core.manifest()
+CELLS = [w["name"] for w in MAN["workloads"]]
 SEED = 2 ** 31 + 4099
 
 
-def run(name, seed=SEED, trace=False, fault=None, driver=None, **changes):
-    def override(config, traffic):
-        tiny(config, traffic)
-        for k, v in changes.items():
-            (config if k in config else traffic)[k] = v
-    with planted(driver, fault):
-        return core.execute(name, seed, 0.5, trace, "cpu", time.perf_counter(),
-                            override=override)
+def driver(name):
+    return core.driver_for(core.cell(MAN, name)[3])
+
+
+def run(name, seed=SEED, trace=False, fault=None):
+    with planted(driver(name), fault):
+        return core.execute(name, seed, 0.5, trace, "cpu", time.perf_counter(), override=tiny)
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -37,8 +37,8 @@ def test_smoke_run_prints_the_contract_line(name, capsys):
     assert list(line)[:5] == ["correct", "attempted", "failed", "metrics", "device"]
     assert list(line)[-1] == "checks"
     assert line["correct"] is True and line["attempted"] > 0 and line["failed"] == 0
-    w = {x["name"]: x for x in core.manifest()["workloads"]}[name]
-    traffic = core.cell(core.manifest(), name)[3]
+    w = {x["name"]: x for x in MAN["workloads"]}[name]
+    traffic = core.cell(MAN, name)[3]
     assert set(line["metrics"]) == {traffic["rate_metric"], "setup_s"}
     assert all(v["value"] > 0 for v in line["metrics"].values())
     assert line["device"]["count"] == w["chips"]
@@ -51,32 +51,20 @@ def test_reference_agrees_with_the_port(name):
     assert result["correct"], result["checks"]
 
 
-@pytest.mark.parametrize("name", ["sam_vit_h.precompute_int8", "sam_vit_h.refine"])
+@pytest.mark.parametrize("name", CELLS)
 def test_lower_precision_control_fails(name):
-    """The reference in the program's place at the precision below the
-    configuration's fails at least one number."""
-    w, _, config, traffic = core.cell(core.manifest(), name)
-    tiny(config, traffic)
-    if "decoder_dtype" in traffic:      # the refine control runs the bf16 decoder path
-        traffic["decoder_dtype"] = "bfloat16"
-    drv = core.driver_for(traffic)
-    ctx = core.Context(seed=SEED, device=torch.device("cpu"), config=config, traffic=traffic,
-                       spans=core.Spans(), workload=name)
-    checks = core.judge(drv.control(drv.setup(ctx), ctx), traffic["limits"])
+    """The cell's control (its driver's ``CONTROL``: the reference in the
+    program's place at the precision below the configuration's, or the
+    program's own lower-precision path) fails at least one number."""
+    readings = core.control(name, SEED, "cpu", override=tiny, seconds=0.5)
+    checks = core.judge(readings, core.cell(MAN, name)[3]["limits"])
     assert not all(c.ok for c in checks), checks
 
 
-def test_train_control_fails():
-    """The training cell's control is the program's own bf16 path."""
-    assert not run("unet_grazpedwri.train", compute_dtype="bfloat16")["correct"]
-
-
-@pytest.mark.parametrize("name,fault", [
-    (name, fault) for name in CELLS
-    for fault in FAULTS[core.cell(core.manifest(), name)[3]["driver"]]])
+@pytest.mark.parametrize("name,fault", [(name, fault) for name in CELLS
+                                        for fault in driver(name).FAULTS])
 def test_planted_fault_is_caught(name, fault):
-    driver = core.cell(core.manifest(), name)[3]["driver"]
-    result = run(name, fault=fault, driver=driver)
+    result = run(name, fault=fault)
     assert result["correct"] is False, result["checks"]
 
 
@@ -108,7 +96,7 @@ def test_a_run_loads_neither_jax_nor_the_jax_package():
 def test_a_fault_after_the_first_epoch_fails_only_the_windows_numbers(fault):
     """Epoch 0, which set-up runs, is clean; the window's steps are not, and
     only the numbers of the window's last epoch see it."""
-    result = run("unet_grazpedwri.train", fault=fault, driver="train")
+    result = run("unet_grazpedwri.train", fault=fault)
     checks = {k: v["value"] <= v["limit"] for k, v in result["checks"].items()}
     assert all(ok for k, ok in checks.items() if not k.startswith("window_")), checks
     assert not all(ok for k, ok in checks.items() if k.startswith("window_")), checks

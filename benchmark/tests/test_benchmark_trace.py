@@ -3,7 +3,7 @@
 import pytest
 
 from harness import flops
-from harness.tracing import launch_groups, summarize
+from harness.tracing import summarize
 
 
 def ev(cat, name, ts, dur, tid=1, stream=7):
@@ -26,16 +26,6 @@ def test_busy_is_a_union_and_gaps_go_to_the_innermost_span():
     assert t.device_by_name["b"] == pytest.approx(10e-6)
     bd = t.breakdown()
     assert bd["device_ops"][0][0] == "a" and bd["idle_gaps"][0][0] == "store.write"
-
-
-def test_launch_groups_need_their_neighbours():
-    names = ["ln_rows_kernel", "gemm_kernel<0, N>", "attn", "ln_rows_kernel",
-             "gemm_kernel<1, N>", "gemm_kernel<2, W>"] * 2
-    events = [ev("kernel", n, 10 * i, 5) for i, n in enumerate(names)]
-    t = summarize(events, (0, 1000), [])
-    n, secs = launch_groups(t, "gemm_kernel<2", ["ln_rows_kernel", "gemm_kernel<1"], [])
-    assert n == 2 and secs == pytest.approx(6 * 5e-6)
-    assert launch_groups(t, "gemm_kernel<2", ["attn", "gemm_kernel<1"], []) is None
 
 
 def test_least_times_stay_under_the_work_done():

@@ -1,9 +1,11 @@
 """The program's spans on the device trace (``harness/program_trace.py``) and
 the five readers of ``metrics/`` that read them, on hand-made traces; and,
-on the card (``-m chip``), a traced precompute run whose K4 roofline keyed
-on the program's span agrees with the one keyed on K4's kernel names."""
+on the card (``-m chip``), a traced run of each cell that reports every
+per-layer metric of its cell and the program's counters."""
 
-import time
+import json
+import subprocess
+import sys
 from types import SimpleNamespace
 
 import pytest
@@ -105,12 +107,36 @@ def test_k4_roofline_program_keys_on_the_spans(capsys):
     ("select_share.refine", "sam_vit_h.refine", "enhance.select"),
     ("augment_share.train", "unet_grazpedwri.train", "trainer.augment")])
 def test_device_shares_read_their_spans(metric, workload, span_name):
-    prog = pt.Program([span(span_name), span("other")], {}, {},
+    prog = pt.Program([span(span_name), span("other")], {}, {0: 0.25, 1: 0.5},
                       {span_name: 0.25, "other": 0.5})
     assert read(metric, run_of(workload, traced(prog, busy_s=1.25))) == pytest.approx(20.0)
     # no such span recorded, or no program part (a parent without spans)
     assert read(metric, run_of(workload, traced(pt.Program([span("other")], {})))) is None
     assert read(metric, run_of(workload, traced(None))) is None
+
+
+def test_decode_share_counts_the_kernel_spans_nested_in_the_decode():
+    """D1's launches are charged to its own ``kernels.D1`` span, the
+    innermost open at their launch; the decode's share takes them in, and
+    takes in nothing outside ``enhance.decode``."""
+    # host µs = trace µs - 1000; the marker's launch at host 5..7 (trace 1005)
+    events = [ev("kernel", "at::cuda::spin_kernel(long)", 1020, 5, 1), call(1005, 1, dur=2),
+              ev("kernel", "gemm", 1110, 20, 2), call(1102, 2),       # decode, round 1
+              ev("kernel", "d1_kernel", 1130, 30, 3), call(1106, 3),  # its D1
+              ev("kernel", "add", 1160, 10, 4), call(1111, 4),        # decode again
+              ev("kernel", "d1_kernel", 1180, 40, 5), call(1175, 5),  # D1 in no decode
+              ev("kernel", "hist", 1220, 20, 6), call(1190, 6)]       # enhance.select
+    r = rec((100e3, 115e3, "enhance.decode", -1), (105e3, 108e3, "kernels.D1", 0),
+            (170e3, 180e3, "kernels.D1", -1), (185e3, 195e3, "enhance.select", -1))
+    t = pt.reduce(events, (4.0, 8.0), (90.0, 250.0), [], r, ident=1)
+    p = t.program
+    assert p.device_by_span == pytest.approx({"enhance.decode": 30e-6, "kernels.D1": 70e-6,
+                                              "enhance.select": 20e-6})
+    assert t.busy_s == pytest.approx(120e-6)
+    run = run_of("sam_vit_h.refine", t)
+    assert read("decode_share.refine", run) == pytest.approx(100 * 60 / 120)
+    assert read("select_share.refine", run) == pytest.approx(100 * 20 / 120)
+    assert pt.within(p, "enhance.decode") == [0, 1]
 
 
 def test_loader_stall_reads_the_idle_under_load_wait():
@@ -122,24 +148,34 @@ def test_loader_stall_reads_the_idle_under_load_wait():
     assert read("loader_stall.precompute", run_of(name, traced(None), encode_calls=1)) is None
 
 
+#: the metrics that read the program's spans and counters
+PROGRAM_METRICS = ("k4_roofline.program", "loader_stall.precompute", "decode_share.refine",
+                   "select_share.refine", "augment_share.train")
+
+
 def test_the_metrics_entries_fit_the_manifest():
-    have = {m["name"] for m in MAN["per_layer"]}
+    entries = {m["name"]: m for m in MAN["per_layer"]}
     cells = {w["name"] for w in MAN["workloads"]}
-    layers = {m["layer"] for m in MAN["per_layer"]}
-    for m in pt.PER_LAYER:
-        assert m["name"] not in have and set(m["workloads"]) <= cells
-        assert callable(core.load_module(core.BENCH_DIR / "metrics" / f"{m['name']}.py").read)
-        assert m["layer"] in layers | {"loops", "enhance engine", "trainer"}
+    assert "k4_roofline" not in entries
+    for name in PROGRAM_METRICS:
+        m = entries[name]
+        assert m["source"] == "device_trace" and set(m["workloads"]) <= cells
+        assert callable(core.load_module(core.BENCH_DIR / "metrics" / f"{name}.py").read)
+        assert m["layer"] in {"kernels", "loops", "enhance engine", "trainer"}
 
 
 @pytest.mark.chip
-def test_k4_roofline_program_agrees_with_the_kernel_names(card, monkeypatch):
-    """A traced precompute run with the program's spans: the roofline keyed
-    on ``kernels.K4`` within 0.5 points of the one keyed on K4's kernels."""
-    monkeypatch.setattr(core, "capture", pt.capture)
-    man = {**MAN, "per_layer": MAN["per_layer"] + pt.PER_LAYER}
-    res = core.execute("sam_vit_h.precompute_int8", 2 ** 31 + 91, 3.0, True, card,
-                       time.perf_counter(), man)
-    got = {k: v["value"] for k, v in res["metrics"].items()}
-    assert res["correct"]
-    assert abs(got["k4_roofline.program"] - got["k4_roofline"]) <= 0.5, got
+@pytest.mark.parametrize("name", [w["name"] for w in MAN["workloads"]])
+def test_a_traced_run_reports_its_cells_layer_metrics(name, card):
+    """A traced run by the manifest's command, one process as the benchmark
+    makes it (one profiler capture a process): correct, every per-layer
+    metric of the cell reported, the program's counters in the result."""
+    proc = subprocess.run([sys.executable, str(core.BENCH_DIR / "run.py"), "--workload", name,
+                           "--seed", str(2 ** 31 + 91), "--seconds", "3", "--trace", "1"],
+                          capture_output=True, text=True, timeout=1200, cwd=core.ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    w = {x["name"]: x for x in MAN["workloads"]}[name]
+    assert res["correct"], res["checks"]
+    assert set(res["metrics"]) == {m["name"] for m in core.layer_metrics(MAN, w)}, res["metrics"]
+    assert "program_counters" in res["diagnostics"]
